@@ -1,0 +1,182 @@
+"""Wrappers of the Hopper attention kernels (``csrc/*.cu``), bound with ctypes.
+
+- ``flash_attention``: prefill, replaces ``flash_attention_pallas``
+  (src/repro/kernels/flash_attention/kernel.py:107).
+- ``decode_attention``: one token against the cache, replaces
+  ``decode_attention_pallas`` (same file, :173).
+
+A wrapper given CPU tensors computes the plain version in ``ref.py``, and only
+then. Given CUDA tensors it checks them, allocates the output with
+``torch.empty``, launches on the current stream, raises if the launch failed,
+and adds one to ``LAUNCHES[name]``. It never falls back to the plain version
+on the card. The libraries are built by ``nvcc`` at first use (``build()``).
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+from .. import _build
+from . import ref
+
+CSRC = Path(__file__).parent / "csrc"
+SOURCES = {
+    "flash_attention": CSRC / "flash_attention.cu",
+    "decode_attention": CSRC / "decode_attention.cu",
+}
+# launches per kernel since the last reset_launches(): the proof that a run
+# went through the kernels
+LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh kFloat32/kBFloat16
+_MAX_HD = 128
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_I64P = ctypes.POINTER(ctypes.c_int64)
+_ARGTYPES = {
+    # q, k, v, o, kv_len, dtype, B, Sq, Skv, H, KV, hd, q/k/v strides, scale, causal,
+    # q_offset, stream
+    "flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _I64P, _I64P, _I64P, _F, _I, _I, _P],
+    # q, k_cache, v_cache, o, lens, dtype, B, S, H, KV, hd, q/k/v strides, scale, stream
+    "decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I64P, _I64P, _I64P, _F, _P],
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def build() -> Dict[str, dict]:
+    """Compile both kernels (in parallel) and load them; returns, per kernel,
+    the library path, build seconds and the ptxas report."""
+    with _lock:
+        results = _build.build(list(SOURCES.values()))
+        for name, src in SOURCES.items():
+            if name not in _libs:
+                lib = ctypes.CDLL(str(results[src]["path"]))
+                fn = getattr(lib, f"{name}_launch")
+                fn.argtypes = _ARGTYPES[name]
+                fn.restype = ctypes.c_int
+                lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+                lib.repro_cuda_error_string.restype = ctypes.c_char_p
+                _libs[name] = lib
+    return {name: results[src] for name, src in SOURCES.items()}
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is None:
+        build()
+        lib = _libs[name]
+    return lib
+
+
+def _strides(t: torch.Tensor, dims) -> ctypes.Array:
+    return (ctypes.c_int64 * len(dims))(*(t.stride(d) for d in dims))
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {q.device}, got {t.device}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} has dtype {t.dtype}, q has {q.dtype}")
+        if t.ndim != 4 or t.stride(-1) != 1:
+            raise ValueError(f"{name} must be 4-D with a unit stride on head_dim: "
+                             f"shape {tuple(t.shape)}, strides {t.stride()}")
+        # the kernels read rows as 16-byte vectors (csrc/common.cuh Vec8)
+        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+            raise ValueError(f"{name} must be 16-byte aligned with strides in multiples "
+                             f"of 8 elements: strides {t.stride()}")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"the attention kernels take float32 or bfloat16, got {q.dtype}")
+    B, _, H, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[-1] != hd:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q "
+                         f"{tuple(q.shape)} (the kernels need dv == dqk)")
+    KV = k.shape[2]
+    if H % KV != 0:
+        raise ValueError(f"query heads {H} are not a multiple of KV heads {KV}")
+    if hd % 8 != 0 or hd > _MAX_HD:
+        raise ValueError(f"head_dim {hd} must be a multiple of 8 and at most {_MAX_HD}")
+
+
+def _lengths(x, batch: int, device) -> torch.Tensor:
+    """Scalar or (B,) lengths -> contiguous (B,) int32 on the device, no host sync."""
+    t = torch.as_tensor(x, device=device).to(torch.int32)
+    if t.ndim == 0:
+        t = t.expand(batch)
+    if t.shape != (batch,):
+        raise ValueError(f"lengths must be a scalar or ({batch},), got {tuple(t.shape)}")
+    return t.contiguous()
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        msg = _libs[name].repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, q_offset=None, kv_len=None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """GQA attention. q (B,Sq,H,hd); k,v (B,Skv,KV,hd) -> (B,Sq,H,hd).
+    ``q_offset`` is a scalar; ``kv_len`` a scalar or one length per row."""
+    if q.device.type == "cpu":
+        return ref.mha_reference(q, k, v, causal=causal, q_offset=q_offset,
+                                 kv_len=kv_len, scale=scale)
+    _check(q, k, v)
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else hd ** -0.5
+    o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    if o.numel() == 0:
+        return o
+    lens = None if kv_len is None else _lengths(kv_len, B, q.device)
+    lib = _lib("flash_attention")
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lens is None else lens.data_ptr(), _DTYPE_CODES[q.dtype],
+        B, Sq, Skv, H, KV, hd,
+        _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)), _strides(v, (0, 1, 2)),
+        float(scale), int(causal), int(q_offset) if q_offset is not None else 0,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(err, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return o
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token attention: q (B,1,H,hd) against caches (B,S,KV,hd) whose
+    entries <= pos are valid; ``pos`` is a scalar or (B,) (continuous batching)."""
+    if q.device.type == "cpu":
+        return ref.decode_attention_reference(q, k_cache, v_cache, pos, scale=scale)
+    _check(q, k_cache, v_cache)
+    B, Sq, H, hd = q.shape
+    if Sq != 1:
+        raise ValueError(f"decode attention takes one query token per row, got {Sq}")
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else hd ** -0.5
+    o = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
+    if o.numel() == 0:
+        return o
+    lens = _lengths(torch.as_tensor(pos, device=q.device) + 1, B, q.device)
+    lib = _lib("decode_attention")
+    err = lib.decode_attention_launch(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(), lens.data_ptr(),
+        _DTYPE_CODES[q.dtype], B, S, H, KV, hd,
+        _strides(q, (0, 2)), _strides(k_cache, (0, 1, 2)), _strides(v_cache, (0, 1, 2)),
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(err, "decode_attention")
+    LAUNCHES["decode_attention"] += 1
+    return o

@@ -1,0 +1,59 @@
+"""Transformer blocks of the dense family: init / train-apply / decode-apply / cache.
+
+Port of the dense part of ``repro.models.blocks``: GQA attention + SwiGLU
+MLP. A "layer" is the unit the model stack loops over. The JAX
+``partition.shard_act`` calls are dropped: the port runs on one device.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from . import attention, layers
+
+
+def init_decoder_layer(gen, cfg: ModelConfig, device, lead: Tuple[int, ...] = ()):
+    return {
+        "attn": attention.init_attention(gen, cfg, device, lead),
+        "ffn": layers.init_swiglu(gen, cfg.d_model, cfg.d_ff, layers.dtype_of(cfg), device, lead),
+        "ln1": layers.init_rmsnorm(cfg.d_model, device, lead),
+        "ln2": layers.init_rmsnorm(cfg.d_model, device, lead),
+    }
+
+
+def decoder_layer(p, h: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+                  impl: str = "auto"):
+    """Train/prefill. Returns (h, aux_loss, kv_for_cache)."""
+    hn = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
+    a, kv = attention.self_attention(
+        p["attn"], hn, cfg, positions=positions, causal=True, return_kv=True, impl=impl
+    )
+    h = h + a
+    hn = layers.rmsnorm(h, p["ln2"], cfg.norm_eps)
+    f = layers.swiglu(hn, p["ffn"])
+    return h + f, 0.0, kv
+
+
+def decoder_layer_decode(p, h: torch.Tensor, cache: dict, pos: torch.Tensor,
+                         cfg: ModelConfig, impl: str = "auto"):
+    """One token. ``cache`` ({"k", "v"}, (B, S, KV, hd) each) is updated in place."""
+    hn = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
+    a, (k, v) = attention.self_attention_decode(
+        p["attn"], hn, cache["k"], cache["v"], pos, cfg, impl=impl
+    )
+    h = h + a
+    hn = layers.rmsnorm(h, p["ln2"], cfg.norm_eps)
+    return h + layers.swiglu(hn, p["ffn"]), {"k": k, "v": v}
+
+
+def init_decoder_cache(cfg: ModelConfig, batch: int, cache_len: int, device,
+                       lead: Tuple[int, ...] = ()):
+    """Zero cache; ``lead`` stacks it (the model passes ``(n_layers,)``)."""
+    shape = (*lead, batch, cache_len, cfg.n_kv_heads, cfg.hd)
+    dt = layers.dtype_of(cfg)
+    return {
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+    }

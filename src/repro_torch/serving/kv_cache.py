@@ -1,0 +1,45 @@
+"""KV-cache utilities: sizing, slot insertion for continuous batching.
+
+Port of ``repro.serving.kv_cache`` for the dense family.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ModelConfig
+
+
+def cache_bytes(cfg: ModelConfig, batch: int, seq_len: int) -> int:
+    """Analytical decode-state footprint (bytes): the serving-capacity
+    planner for admission control and the roofline memory term."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"cache_bytes: family {cfg.family!r} is not ported yet")
+    itemsize = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    per_tok = 2 * cfg.n_kv_heads * cfg.hd
+    return cfg.n_layers * batch * seq_len * per_tok * itemsize
+
+
+def insert_sequence(batched_cache: dict, seq_cache: dict, slot: int, batch_axis: int = 1) -> dict:
+    """Place a single-sequence cache (batch dim 1) into slot `slot` of a
+    batched cache, IN PLACE. Caches are stacked over layers on axis 0, so the
+    batch axis is 1 by convention. The sequence is zero-padded up to the
+    batched cache's length, as the JAX version pads it."""
+    for name, dst in batched_cache.items():
+        src = seq_cache[name]
+        row = dst.narrow(batch_axis, slot, 1)
+        region = row
+        for d in range(src.ndim):
+            if d != batch_axis and src.shape[d] != dst.shape[d]:
+                region = region.narrow(d, 0, src.shape[d])
+        row.zero_()
+        region.copy_(src)
+    return batched_cache
+
+
+def summarize(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
+    b = cache_bytes(cfg, batch, seq_len)
+    return {
+        "bytes": int(b),
+        "gib": round(b / 2**30, 3),
+        "bytes_per_seq": int(b / max(batch, 1)),
+    }

@@ -1,0 +1,169 @@
+"""The port's attention against the JAX package's.
+
+On the CPU the port's plain versions (``ref.py``, and the kernel wrappers,
+which take the plain path for CPU tensors) are held against JAX's ``ref.*``
+and, on a few cases, ``flash_attention_pallas(interpret=True)``, on the same
+numpy inputs, at the reference's tolerances (2e-5 f32, 2e-2 bf16;
+tests/test_kernels_flash.py:18). The CUDA kernels themselves are held against
+the plain version on the card by tests/test_torch_kernels_cuda.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.flash_attention import ref as jref  # noqa: E402
+from repro.kernels.flash_attention.kernel import (  # noqa: E402
+    decode_attention_pallas,
+    flash_attention_pallas,
+)
+from repro_torch.kernels.flash_attention import kernel as tkernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as tops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as tref  # noqa: E402
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+SHAPES = [  # B, Sq, Skv, H, KV, hd — the sweep of tests/test_kernels_flash.py
+    (1, 64, 64, 4, 4, 32),     # MHA
+    (2, 128, 128, 8, 2, 64),   # GQA 4:1
+    (1, 96, 96, 6, 1, 16),     # MQA, non-pow2 heads
+    (1, 100, 132, 4, 2, 32),   # unaligned seq
+    (2, 32, 256, 4, 4, 64),    # Skv >> Sq
+]
+SWEEP = [(s, c) for s in SHAPES for c in (True, False) if not (c and s[1] != s[2])]
+
+
+def _inputs(seed, *shapes):
+    r = np.random.default_rng(seed)
+    return [r.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def _both(arrays, dtype):
+    jdt, tdt, _ = DTYPES[dtype]
+    return [jnp.asarray(a, jdt) for a in arrays], [torch.from_numpy(a).to(tdt) for a in arrays]
+
+
+def _close(ours, theirs, tol):
+    np.testing.assert_allclose(ours.float().numpy(), np.asarray(theirs.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape,causal", SWEEP, ids=[f"{s}-causal={c}" for s, c in SWEEP])
+def test_mha_reference_matches_jax(shape, causal, dtype):
+    B, Sq, Skv, H, KV, hd = shape
+    arrs = _inputs(0, (B, Sq, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd))
+    (jq, jk, jv), (q, k, v) = _both(arrs, dtype)
+    _close(tref.mha_reference(q, k, v, causal=causal),
+           jref.mha_reference(jq, jk, jv, causal=causal), DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("kv_len", [20, 1, 64, [7, 40]], ids=["20", "1", "64", "per-row"])
+def test_kv_len_masking_matches_jax(kv_len, dtype):
+    B = 2
+    arrs = _inputs(1, (B, 16, 2, 16), (B, 64, 2, 16), (B, 64, 2, 16))
+    (jq, jk, jv), (q, k, v) = _both(arrs, dtype)
+    _close(tref.mha_reference(q, k, v, causal=False, kv_len=torch.tensor(kv_len)),
+           jref.mha_reference(jq, jk, jv, causal=False, kv_len=jnp.asarray(kv_len, jnp.int32)),
+           DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("q_offset", [0, 17, 48])
+def test_q_offset_matches_jax(q_offset, dtype):
+    S = 64
+    arrs = _inputs(2, (1, S - q_offset, 2, 16), (1, S, 2, 16), (1, S, 2, 16))
+    (jq, jk, jv), (q, k, v) = _both(arrs, dtype)
+    _close(tref.mha_reference(q, k, v, causal=True, q_offset=q_offset),
+           jref.mha_reference(jq, jk, jv, causal=True, q_offset=jnp.int32(q_offset)),
+           DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("kv", [1, 2, 4])
+@pytest.mark.parametrize("pos", [0, 23, 47])
+def test_decode_scalar_pos_matches_jax(pos, kv, dtype):
+    B, S, H, hd = 2, 48, 4, 16
+    arrs = _inputs(3, (B, 1, H, hd), (B, S, kv, hd), (B, S, kv, hd))
+    (jq, jk, jv), (q, k, v) = _both(arrs, dtype)
+    _close(tref.decode_attention_reference(q, k, v, torch.tensor(pos, dtype=torch.int32)),
+           jref.decode_attention_reference(jq, jk, jv, jnp.int32(pos)), DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("kv", [1, 2])
+def test_decode_vector_pos_matches_jax(kv, dtype):
+    B, S, H, hd = 3, 32, 4, 16
+    arrs = _inputs(4, (B, 1, H, hd), (B, S, kv, hd), (B, S, kv, hd))
+    (jq, jk, jv), (q, k, v) = _both(arrs, dtype)
+    pos = np.array([3, 17, 31], np.int32)
+    _close(tref.decode_attention_reference(q, k, v, torch.from_numpy(pos)),
+           jref.decode_attention_reference(jq, jk, jv, jnp.asarray(pos)), DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("case", ["gqa-causal", "mqa-noncausal", "kv_len"])
+def test_port_matches_pallas_interpret(case):
+    """A few cases against the Pallas kernel itself, run as its own tests run it."""
+    if case == "gqa-causal":
+        B, Sq, Skv, H, KV, hd, causal, kw = 1, 64, 64, 6, 2, 16, True, {}
+    elif case == "mqa-noncausal":
+        B, Sq, Skv, H, KV, hd, causal, kw = 1, 40, 72, 4, 1, 16, False, {}
+    else:
+        B, Sq, Skv, H, KV, hd, causal, kw = 1, 16, 64, 2, 2, 16, False, {"kv_len": 20}
+    arrs = _inputs(5, (B, Sq, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd))
+    (jq, jk, jv), (q, k, v) = _both(arrs, "float32")
+    jkw = {n: jnp.int32(x) for n, x in kw.items()}
+    theirs = flash_attention_pallas(jq, jk, jv, causal=causal, block_q=16, block_k=16,
+                                    interpret=True, **jkw)
+    _close(tops.flash_attention(q, k, v, causal=causal, **kw), theirs, 2e-5)
+
+
+def test_decode_matches_pallas_interpret_vector_pos():
+    B, S, KV, H, hd = 3, 32, 2, 4, 16
+    arrs = _inputs(6, (B, 1, H, hd), (B, S, KV, hd), (B, S, KV, hd))
+    (jq, jk, jv), (q, k, v) = _both(arrs, "float32")
+    pos = np.array([0, 17, 31], np.int32)
+    theirs = decode_attention_pallas(jq, jk, jv, jnp.asarray(pos), interpret=True)
+    _close(tops.decode_attention(q, k, v, torch.from_numpy(pos)), theirs, 3e-5)
+
+
+# ---------------------------------------------------------------- dispatch on the CPU
+def test_cpu_wrappers_take_the_plain_path_and_count_no_launch():
+    arrs = _inputs(7, (1, 8, 4, 16), (1, 8, 2, 16), (1, 8, 2, 16))
+    q, k, v = (torch.from_numpy(a) for a in arrs)
+    before = dict(tkernel.LAUNCHES)
+    out = tkernel.flash_attention(q, k, v, causal=True)
+    dec = tkernel.decode_attention(q[:, :1], k, v, torch.tensor([5]))
+    assert torch.equal(out, tref.mha_reference(q, k, v, causal=True))
+    assert torch.equal(dec, tref.decode_attention_reference(q[:, :1], k, v, torch.tensor([5])))
+    assert tkernel.LAUNCHES == before
+
+
+@pytest.mark.parametrize("impl", ["auto", "ref"])
+def test_ops_dispatch_on_cpu_is_the_reference(impl):
+    arrs = _inputs(8, (2, 8, 4, 16), (2, 8, 2, 16), (2, 8, 2, 16))
+    q, k, v = (torch.from_numpy(a) for a in arrs)
+    assert torch.equal(tops.flash_attention(q, k, v, impl=impl),
+                       tref.mha_reference(q, k, v))
+    pos = torch.tensor([3, 7])
+    assert torch.equal(tops.decode_attention(q[:, :1], k, v, pos, impl=impl),
+                       tref.decode_attention_reference(q[:, :1], k, v, pos))
+
+
+def test_ops_rejects_kernel_on_cpu_and_unknown_impl():
+    q = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        tops.flash_attention(q, q, q, impl="kernel")
+    with pytest.raises(ValueError, match="impl must be one of"):
+        tops.decode_attention(q[:, :1], q, q, 0, impl="pallas")
+
+
+def test_fully_masked_rows_stay_finite():
+    """The finite NEG_INF: a row with no valid key averages instead of NaN."""
+    arrs = _inputs(9, (1, 4, 2, 8), (1, 6, 2, 8), (1, 6, 2, 8))
+    q, k, v = (torch.from_numpy(a) for a in arrs)
+    out = tref.mha_reference(q, k, v, causal=False, kv_len=0)
+    assert torch.isfinite(out).all()
+

@@ -1,0 +1,140 @@
+"""The port's serve engine: twins of tests/test_serving_and_training.py's engine
+tests, plus one cross-package test (the port's engine and the JAX engine give
+the same greedy tokens on the same carried weights)."""
+import threading
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_reduced as jax_reduced  # noqa: E402
+from repro.models.model import Model as JaxModel  # noqa: E402
+from repro.serving import kv_cache as jax_kv_cache  # noqa: E402
+from repro.serving.engine import ServeEngine as JaxServeEngine  # noqa: E402
+from repro_torch import params as tparams  # noqa: E402
+from repro_torch.configs import get_reduced  # noqa: E402
+from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.serving.engine import ServeEngine  # noqa: E402
+from repro_torch.serving.kv_cache import cache_bytes, insert_sequence, summarize  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def small_model():
+    """qwen1.5-0.5b reduced, f32: JAX weights and the port holding the same."""
+    jcfg = jax_reduced("qwen1.5-0.5b").with_(dtype="float32")
+    jmodel = JaxModel(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    model = Model(get_reduced("qwen1.5-0.5b").with_(dtype="float32"), device="cpu")
+    model.load_state_dict(tparams.to_state_dict(jax.tree.map(np.asarray, jparams), "cpu"))
+    return jmodel, jparams, model
+
+
+@torch.inference_mode()
+def _greedy_reference(model, prompt, n_new):
+    """Sequential full-recompute greedy decoding (no cache): the oracle for
+    the engine's continuous batching."""
+    toks = list(np.asarray(prompt, np.int64))
+    out = []
+    for _ in range(n_new):
+        h, _ = model({"tokens": torch.tensor([toks])})
+        nxt = int(torch.argmax(model._logits(h)[0, -1]))
+        out.append(nxt)
+        toks.append(nxt)
+    return out
+
+
+def test_engine_matches_sequential_greedy(small_model):
+    _, _, model = small_model
+    engine = ServeEngine(model, max_batch=2, max_len=48)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, model.cfg.vocab, n) for n in (5, 9, 7)]
+    reqs = [engine.submit(p, max_new_tokens=4) for p in prompts]
+    engine.run_until_drained(timeout=120)
+    for p, r in zip(prompts, reqs):
+        assert r.done.is_set()
+        expected = _greedy_reference(model, p, 4)
+        assert r.tokens == expected, (r.tokens, expected)
+
+
+def test_engine_continuous_batching_slots_reused(small_model):
+    _, _, model = small_model
+    engine = ServeEngine(model, max_batch=2, max_len=32)
+    rng = np.random.default_rng(1)
+    reqs = [engine.submit(rng.integers(0, model.cfg.vocab, 4), max_new_tokens=3)
+            for _ in range(5)]  # 5 requests > 2 slots
+    engine.run_until_drained(timeout=120)
+    assert all(r.done.is_set() and len(r.tokens) == 3 for r in reqs)
+    assert engine.stats()["pending"] == 0
+
+
+def test_engine_serve_forever_handles_trickling_requests(small_model):
+    _, _, model = small_model
+    engine = ServeEngine(model, max_batch=2, max_len=48)
+    stop = threading.Event()
+    t = threading.Thread(target=engine.serve_forever, args=(stop,), daemon=True)
+    t.start()
+    rng = np.random.default_rng(2)
+    reqs = []
+    for _ in range(4):  # trickle: would defeat run_until_drained's exit check
+        reqs.append(engine.submit(rng.integers(0, model.cfg.vocab, 5), max_new_tokens=3))
+        time.sleep(0.05)
+    for r in reqs:
+        assert r.done.wait(120), "request never completed under serve_forever"
+        assert len(r.tokens) == 3
+    stop.set()
+    t.join(timeout=10)
+    assert not t.is_alive()
+
+
+def test_engine_tokens_equal_jax_engine(small_model):
+    """Cross-package: same carried weights, same prompts -> same greedy tokens."""
+    jmodel, jparams, model = small_model
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, model.cfg.vocab, n) for n in (6, 11, 3, 8)]
+    theirs = JaxServeEngine(jmodel, jparams, max_batch=2, max_len=40)
+    ours = ServeEngine(model, max_batch=2, max_len=40)
+    jreqs = [theirs.submit(p, max_new_tokens=6) for p in prompts]
+    treqs = [ours.submit(p, max_new_tokens=6) for p in prompts]
+    theirs.run_until_drained(timeout=120)
+    ours.run_until_drained(timeout=120)
+    assert [r.tokens for r in treqs] == [r.tokens for r in jreqs]
+    assert ours.steps == theirs.steps
+    ts, js = ours.metrics.snapshot(), theirs.metrics.snapshot()
+    assert ts["counters"] == js["counters"]
+    assert ts["gauges"] == js["gauges"]
+    assert ts["histograms"].keys() == js["histograms"].keys()
+
+
+def test_cache_bytes_analytical():
+    cfg = get_reduced("qwen1.5-0.5b")
+    b = cache_bytes(cfg, batch=2, seq_len=64)
+    expected = cfg.n_layers * 2 * 64 * 2 * cfg.n_kv_heads * cfg.hd * 2
+    assert b == expected
+    assert summarize(cfg, 2, 64)["bytes_per_seq"] == expected // 2
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen1.5-0.5b", "deepseek-67b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cache_bytes_equals_reference(arch, dtype):
+    from repro_torch.configs import get_config
+    from repro.configs import get_config as jax_config
+    for ours, theirs in ((get_config(arch), jax_config(arch)),
+                         (get_reduced(arch), jax_reduced(arch))):
+        ours, theirs = ours.with_(dtype=dtype), theirs.with_(dtype=dtype)
+        assert cache_bytes(ours, 8, 1024) == jax_kv_cache.cache_bytes(theirs, 8, 1024)
+        assert summarize(ours, 3, 100) == jax_kv_cache.summarize(theirs, 3, 100)
+
+
+def test_insert_sequence_pads_like_the_reference():
+    rng = np.random.default_rng(4)
+    L, Bc, S, KV, hd, n = 2, 3, 10, 2, 4, 6
+    dst = rng.standard_normal((L, Bc, S, KV, hd)).astype(np.float32)
+    src = rng.standard_normal((L, 1, n, KV, hd)).astype(np.float32)
+    theirs = jax_kv_cache.insert_sequence({"k": jnp.asarray(dst)}, {"k": jnp.asarray(src)}, 1)
+    ours = insert_sequence({"k": torch.from_numpy(dst.copy())}, {"k": torch.from_numpy(src)}, 1)
+    np.testing.assert_array_equal(ours["k"].numpy(), np.asarray(theirs["k"]))
+    assert (ours["k"][:, 1, n:] == 0).all()  # stale entries past the prompt are zeroed
