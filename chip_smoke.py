@@ -6,19 +6,27 @@
 Run from the repository root; it needs one CUDA card and ``nvcc``. Phases, in
 order, each printing its lines; any failure raises and the exit code is not 0:
 
-1. device   - require CUDA and compute capability 9.0; print the card's name
-              and power limit (nvidia-smi); fp32 products in full fp32.
-2. build    - compile both attention kernels from ``src/repro_torch`` with
-              nvcc for sm_90a, in parallel.
-3. kernels  - hold each kernel against its plain PyTorch version (ref.py) at
-              2e-5 (f32) / 2e-2 (bf16) on the reference's test shapes and the
-              slice's own shapes; time kernel, plain version and
-              ``F.scaled_dot_product_attention`` (a yardstick only) there.
-4. slice    - full-width qwen2-0.5b, random weights from seed 0: prefill 4 x 384
-              tokens then 16 teacher-forced decode steps with vector positions,
-              kernel path against the plain path on the same weights.
-5. serve    - ServeEngine on full-width bf16 qwen2-0.5b answers 16 requests;
-              the launch counters must show both kernels on the path.
+1. device      - require CUDA and compute capability 9.0; print the card's name
+                 and power limit (nvidia-smi); fp32 products in full fp32.
+2. build       - compile the three kernels from ``src/repro_torch`` with nvcc
+                 for sm_90a, one nvcc per source, all started together.
+3. kernels     - hold each attention kernel against its plain PyTorch version
+                 (ref.py) at 2e-5 (f32) / 2e-2 (bf16) on the reference's test
+                 shapes and the slice's own shapes; time kernel, plain version
+                 and ``F.scaled_dot_product_attention`` (a yardstick only) there.
+4. kernels-ssd - hold the SSD scan against its plain version at 1e-4 (f32) /
+                 5e-2 (bf16) on the reference's shapes, a ragged chunk, a dt = 0
+                 padded tail, a nonzero initial state and the slice's shape;
+                 time kernel and plain version there (no single PyTorch call
+                 computes the scan, so there is no library time).
+5. slice       - full-width qwen2-0.5b, random weights from seed 0: prefill 4 x
+                 384 tokens then 16 teacher-forced decode steps with vector
+                 positions, kernel path against the plain path on the same weights.
+6. serve       - ServeEngine on full-width bf16 qwen2-0.5b answers 16 requests;
+                 the launch counters must show both attention kernels on the path.
+7. slice-ssm   - the same for full-width mamba2-2.7b (prefills pad 384 to 512).
+8. serve-ssm   - ServeEngine on full-width bf16 mamba2-2.7b answers 16 requests;
+                 the counters must show the SSD kernel in every layer's prefill.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.
@@ -39,8 +47,11 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as attn_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as attn_ref  # noqa: E402
+from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
+from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving import kv_cache  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
@@ -55,11 +66,14 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SOURCES = {
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/kernels/flash_attention/csrc/decode_attention.cu",
+    "ssd": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
 }
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:107",
     "decode_attention": "src/repro/kernels/flash_attention/kernel.py:173",
+    "ssd": "src/repro/kernels/ssd/kernel.py:93",
 }
+KERNEL_MODULES = (attn_kernel, ssd_kernel)
 # slice shapes: prefill of one 512-token prompt; decode over B=8 slots of a
 # 1024-long cache (qwen2-0.5b: H=14 query heads over KV=2, hd=64)
 PREFILL_SHAPE = (1, 512, 14, 2, 64)          # B, S, H, KV, hd
@@ -74,6 +88,18 @@ SLICE_F32_TOL = 1e-3
 # and wherever the greedy tokens differ, the plain path ranks the kernel
 # path's token within that same margin of its own top logit (a near-tie).
 SLICE_BF16_TOL = 0.25
+
+SSM_ARCH = "mamba2-2.7b"
+# bf16 slice of mamba2-2.7b, held as the qwen2 slice is: both paths round the
+# scan's output y to bf16 once per layer, so a one-ulp difference in one element
+# propagates through 64 layers (2.7x qwen2's 24), and the logits are bf16
+# products (one ulp is 2^-5 at |logit| 4..8). Held: max|dlogit| within 16 such
+# ulps, and every top-1 disagreement a near-tie within that same margin.
+SLICE_SSM_BF16_TOL = 0.5
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}  # tests/test_kernels_ssd.py:10
+# the slice's SSD call: one 512-token prefill (a 384-token prompt padded to two
+# chunks of 256) of mamba2-2.7b: 80 heads of P=64 over one group of N=128
+SSD_SHAPE = (1, 512, 80, 64, 1, 128, 256)    # B, S, H, P, G, N, chunk
 
 
 def say(phase: str, msg: str) -> None:
@@ -143,14 +169,19 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    info = attn_kernel.build()
+    sources = {name: src for mod in KERNEL_MODULES for name, src in mod.SOURCES.items()}
+    info = _build.build(list(sources.values()))   # one nvcc per source, all at once
+    for mod in KERNEL_MODULES:
+        mod.build()                                # loads the libraries just built
     wall = time.perf_counter() - t0
-    for name, r in info.items():
+    for name, src in sources.items():
+        r = info[src]
         say("build", f"{name}: {r['seconds']:.1f} s -> {Path(r['path']).name}")
         for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 say("build", f"  ptxas: {line.strip()}")
-    say("build", f"both kernels built in {wall:.1f} s wall (one nvcc per source, in parallel)")
+    say("build", f"{len(sources)} kernels built in {wall:.1f} s wall "
+                 "(one nvcc per source, in parallel)")
 
 
 def _prefill_case(gen, B, Sq, Skv, H, KV, hd, dtype, causal, **kw):
@@ -252,9 +283,97 @@ def phase_kernels() -> dict:
     return rows
 
 
-def _blit(cache: dict, seq_cache: dict, S: int) -> None:
-    for name in cache:
-        cache[name][:, :, :S].copy_(seq_cache[name])
+def _ssd_inputs(gen, B, S, H, P, G, N, dtype):
+    """As tests/test_kernels_ssd.py draws them: dt = softplus(randn) / 2,
+    A = -exp(0.3 randn), B and C scaled by 0.3."""
+    x = randn(gen, (B, S, H, P), dtype)
+    dt = F.softplus(torch.randn((B, S, H), generator=gen, device=DEVICE)) * 0.5
+    A = -torch.exp(torch.randn((H,), generator=gen, device=DEVICE) * 0.3)
+    Bm = (torch.randn((B, S, G, N), generator=gen, device=DEVICE) * 0.3).to(dtype)
+    Cm = (torch.randn((B, S, G, N), generator=gen, device=DEVICE) * 0.3).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+def _ssd_case(gen, B, S, H, P, G, N, chunk, dtype, init=False, args=None):
+    """Kernel against plain on one case; returns (max abs err, inputs, outputs)."""
+    args = args if args is not None else _ssd_inputs(gen, B, S, H, P, G, N, dtype)
+    h0 = torch.randn((B, H, P, N), generator=gen, device=DEVICE) if init else None
+    y, st = ssd_kernel.ssd(*args, chunk=chunk, initial_state=h0, return_final_state=True)
+    torch.cuda.synchronize()
+    ey, est = ssd_ref.ssd_reference(*args, chunk=chunk, initial_state=h0,
+                                    return_final_state=True)
+    what = f"ssd {tuple(args[0].shape)} G={G} N={N} chunk={chunk} init={init} {dtype}"
+    err = max(max_err(y, ey, SSD_TOL[dtype], what + " y"),
+              max_err(st, est, SSD_TOL[dtype], what + " state"))
+    return err, args, (y, st)
+
+
+def phase_kernels_ssd() -> dict:
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in [(1, 64, 2, 16, 1, 16, 16), (2, 128, 4, 32, 2, 8, 32),
+                      (1, 96, 6, 16, 1, 32, 32), (2, 64, 8, 64, 4, 16, 64)]:
+            _ssd_case(gen, *shape, dtype)      # tests/test_kernels_ssd.py:41-46
+            n += 1
+        _ssd_case(gen, 2, 96, 4, 64, 2, 32, 32, dtype, init=True)
+        # a ragged chunk (a 137-token prompt is one chunk of 137), then the same
+        # inputs padded with dt = 0 to one chunk of 256, as the model pads them
+        S, pad = 137, 119
+        _, args, (y, st) = _ssd_case(gen, 1, S, 8, 64, 1, 128, S, dtype)
+        padded = [F.pad(a, (0, 0) * (a.ndim - 2) + (0, pad)) if a.ndim > 1 else a for a in args]
+        _, _, (yp, stp) = _ssd_case(gen, 1, S + pad, 8, 64, 1, 128, 256, dtype, args=padded)
+        max_err(yp[:, :S], y, 1e-5, f"ssd dt=0 tail {dtype}: y")
+        max_err(stp, st, 1e-5, f"ssd dt=0 tail {dtype}: state")
+        n += 3
+    say("kernels-ssd", f"{n} cases (reference sweep, initial state, ragged chunk, dt=0 tail) "
+                       f"within {SSD_TOL[torch.float32]:g} (f32) / "
+                       f"{SSD_TOL[torch.bfloat16]:g} (bf16); the padded tail changes y[:S] "
+                       "and the state by at most 1e-5")
+
+    B, S, H, P, G, N, chunk = SSD_SHAPE
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        errs[dtype], args, _ = _ssd_case(gen, B, S, H, P, G, N, chunk, dtype)
+    say("kernels-ssd", f"slice shape x {(B, S, H, P)}, B/C {(B, S, G, N)}, chunk {chunk}: "
+                       f"max_abs_err {errs[torch.float32]:.3e} (f32), "
+                       f"{errs[torch.bfloat16]:.3e} (bf16)")
+    # timing in bf16 (the serve dtype), with the final state as prefill asks for it
+    x, dt, A, Bm, Cm = args
+    esz = x.element_size()
+    s_bytes = (2 * x.numel() + Bm.numel() + Cm.numel()) * esz + (dt.numel() + A.numel()) * 4 \
+        + B * H * P * N * 4                             # x in, y out, B, C, dt, A, state out
+    nc, tri = S // chunk, chunk * (chunk + 1) // 2       # causal: pairs j <= i per chunk
+    least_flops = 2 * B * nc * (G * tri * N              # C B^T once per group
+                                + H * tri * P            # (C B^T o L) (dt x)
+                                + 2 * H * chunk * P * N)  # C h^T read-out, state update
+    tpu_flops = 2 * B * nc * H * (chunk * chunk * (N + P) + 2 * chunk * P * N)
+    row = dict(
+        max_abs_err=errs[torch.bfloat16],
+        ms=cuda_ms(lambda: ssd_kernel.ssd(x, dt, A, Bm, Cm, chunk=chunk,
+                                          return_final_state=True)),
+        plain_ms=cuda_ms(lambda: ssd_ref.ssd_reference(x, dt, A, Bm, Cm, chunk=chunk,
+                                                       return_final_state=True)),
+        library_ms=None,
+        bound=bound(s_bytes, least_flops, torch.bfloat16),
+        work=f"{least_flops/1e9:.3f} GFLOP ({tpu_flops/1e9:.3f} as the TPU kernel does them: "
+             f"C B^T per head, full squares), {s_bytes/1e6:.3f} MB",
+    )
+    say("kernels-ssd", f"ssd bf16: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                       f"bound {row['bound'][0]:.5f} ms by {row['bound'][1]} ({row['work']}); "
+                       "library: none (no single PyTorch call computes the SSD scan)")
+    say("kernels-ssd", f"occupancy: one block of 256 threads per (row, head) = {B * H} blocks "
+                       f"on {torch.cuda.get_device_properties(0).multi_processor_count} SMs, "
+                       f"each walking its {nc} chunks in order")
+    return {"ssd": row}
+
+
+def _blit(cache: dict, seq_cache: dict) -> None:
+    """Copy a prefill cache into the leading entries of a zero decode cache
+    (the k/v sequence axis; the SSM leaves are the same shape)."""
+    for name, dst in cache.items():
+        src = seq_cache[name]
+        dst[tuple(slice(0, n) for n in src.shape)].copy_(src)
 
 
 def _teacher_forced(model: Model, tokens: np.ndarray, n_prefill: int) -> torch.Tensor:
@@ -264,7 +383,7 @@ def _teacher_forced(model: Model, tokens: np.ndarray, n_prefill: int) -> torch.T
     tok = torch.from_numpy(tokens).to(DEVICE)
     logits, seq_cache = model.prefill({"tokens": tok[:, :n_prefill]})
     cache = model.init_cache(B, total)
-    _blit(cache, seq_cache, n_prefill)
+    _blit(cache, seq_cache)
     out = [logits]
     for i in range(total - n_prefill):
         pos = torch.full((B,), n_prefill + i, dtype=torch.int32, device=DEVICE)
@@ -273,8 +392,8 @@ def _teacher_forced(model: Model, tokens: np.ndarray, n_prefill: int) -> torch.T
     return torch.stack(out)
 
 
-def phase_slice() -> Model:
-    cfg = get_config(ARCH)
+def phase_slice(arch: str, tag: str, bf16_tol: float) -> Model:
+    cfg = get_config(arch)
     B, n_prefill, steps = 4, 384, 16
     tokens = np.random.default_rng(1).integers(0, cfg.vocab, (B, n_prefill + steps))
     tokens = tokens.astype(np.int32)
@@ -284,32 +403,32 @@ def phase_slice() -> Model:
         torch.cuda.empty_cache()
         model = Model(cfg.with_(dtype=dtype), device=DEVICE).init(
             torch.Generator(device=DEVICE).manual_seed(0))
-        model.attn_impl = "auto"
+        model.kernel_impl = "auto"
         got = _teacher_forced(model, tokens, n_prefill)
-        model.attn_impl = "ref"
+        model.kernel_impl = "ref"
         want = _teacher_forced(model, tokens, n_prefill)
-        model.attn_impl = "auto"
+        model.kernel_impl = "auto"
         if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
-            raise AssertionError(f"slice {dtype}: non-finite logits")
+            raise AssertionError(f"{tag} {dtype}: non-finite logits")
         diff = (got - want).abs().max().item()
         got_top, want_top = got.argmax(-1), want.argmax(-1)
         top1 = (got_top == want_top).float().mean().item()
         # how far below its own top logit the plain path ranks the kernel's pick
         gap = (want.amax(-1) - want.gather(-1, got_top[..., None])[..., 0]).max().item()
         positions = got.shape[0] * got.shape[1]
-        say("slice", f"{ARCH} {dtype}: {B}x{n_prefill} prefill + {steps} decode steps, "
+        say(tag, f"{arch} {dtype}: {B}x{n_prefill} prefill + {steps} decode steps, "
                      f"{positions} positions: max|dlogit| {diff:.3e}, top-1 agreement "
                      f"{top1:.4f}, largest near-tie gap {gap:.3e} (logit range "
                      f"{want.min().item():.2f}..{want.max().item():.2f})")
         if dtype == "float32" and (diff > SLICE_F32_TOL or top1 < 1.0):
-            raise AssertionError(f"slice f32: max|dlogit| {diff:.3e} > {SLICE_F32_TOL} "
+            raise AssertionError(f"{tag} f32: max|dlogit| {diff:.3e} > {SLICE_F32_TOL} "
                                  f"or top-1 agreement {top1} < 1")
-        if dtype == "bfloat16" and (diff > SLICE_BF16_TOL or gap > SLICE_BF16_TOL):
-            raise AssertionError(f"slice bf16: max|dlogit| {diff:.3e} or near-tie gap "
-                                 f"{gap:.3e} > {SLICE_BF16_TOL}")
-    say("slice", f"tolerances: f32 max|dlogit| <= {SLICE_F32_TOL:g} and the same argmax "
-                 f"everywhere; bf16 max|dlogit| <= {SLICE_BF16_TOL:g} and every top-1 "
-                 f"disagreement a near-tie within {SLICE_BF16_TOL:g}")
+        if dtype == "bfloat16" and (diff > bf16_tol or gap > bf16_tol):
+            raise AssertionError(f"{tag} bf16: max|dlogit| {diff:.3e} or near-tie gap "
+                                 f"{gap:.3e} > {bf16_tol}")
+    say(tag, f"tolerances: f32 max|dlogit| <= {SLICE_F32_TOL:g} and the same argmax "
+             f"everywhere; bf16 max|dlogit| <= {bf16_tol:g} and every top-1 "
+             f"disagreement a near-tie within {bf16_tol:g}")
     return model  # the bf16 model, reused by the serve phase
 
 
@@ -329,7 +448,9 @@ class _TimedEngine(ServeEngine):
         return ran
 
 
-def phase_serve(model: Model) -> dict:
+def phase_serve(model: Model, tag: str) -> dict:
+    """Serve 16 requests through ServeEngine; returns the launches of the
+    kernels on this family's path, counted over the run alone."""
     cfg = model.cfg
     n_req, new_tokens, max_batch, max_len = 16, 64, 8, 1024
     # warm-up through the same entry points (cuBLAS handles, allocator)
@@ -344,12 +465,13 @@ def phase_serve(model: Model) -> dict:
     engine = _TimedEngine(model, max_batch=max_batch, max_len=max_len)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    attn_kernel.reset_launches()               # the main path starts here
+    for mod in KERNEL_MODULES:                 # the main path starts here
+        mod.reset_launches()
     t0 = time.monotonic()
     reqs = [engine.submit(p, max_new_tokens=new_tokens) for p in prompts]
     engine.run_until_drained(timeout=900)
     wall = time.monotonic() - t0
-    launches = dict(attn_kernel.LAUNCHES)      # ... and ends here
+    launches = {k: v for mod in KERNEL_MODULES for k, v in mod.LAUNCHES.items()}  # ... and here
     peak = torch.cuda.max_memory_allocated()
 
     for r in reqs:
@@ -358,31 +480,45 @@ def phase_serve(model: Model) -> dict:
                                  f"with {len(r.tokens)} of {new_tokens} tokens")
         if not all(0 <= t < cfg.vocab for t in r.tokens):
             raise AssertionError(f"request {r.request_id}: token out of range")
-    need_prefill, need_decode = n_req * cfg.n_layers, engine.steps * cfg.n_layers
-    if launches["flash_attention"] < need_prefill or launches["decode_attention"] < need_decode:
-        raise AssertionError(f"launch counters {launches} below prefill {need_prefill} / "
-                             f"decode {need_decode}: the path skipped a kernel")
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        # one scan per layer per prefill; decode is the plain one-token
+        # recurrence (as in JAX) and launches no kernel of the repo
+        need = {"ssd": n_req * L}
+        absent = ("flash_attention", "decode_attention")
+    else:
+        need = {"flash_attention": n_req * L, "decode_attention": engine.steps * L}
+        absent = ("ssd",)
+    if any(launches[k] < n for k, n in need.items()) or any(launches[k] != 0 for k in absent):
+        raise AssertionError(f"launch counters {launches} do not meet {need}: the path "
+                             "skipped a kernel or ran another family's")
     total = sum(len(r.tokens) for r in reqs)
     ttft = np.array([(r.first_token_at - r.submitted) * 1e3 for r in reqs])
-    say("serve", f"{cfg.name} bf16, {n_req} requests (prompts {lens.min()}..{lens.max()} "
-                 f"tokens, {new_tokens} new each), max_batch {max_batch}, max_len {max_len}")
-    say("serve", f"{total} tokens in {wall:.3f} s = {total / wall:.1f} tokens/s; "
-                 f"TTFT p50 {np.percentile(ttft, 50):.1f} ms, p99 {np.percentile(ttft, 99):.1f} ms "
-                 f"(16 samples); {engine.steps} decode steps, mean "
-                 f"{np.mean(engine.step_s) * 1e3:.3f} ms, median "
-                 f"{np.median(engine.step_s) * 1e3:.3f} ms")
-    say("serve", f"max_memory_allocated {peak / 2**30:.3f} GiB (cache "
-                 f"{kv_cache.summarize(cfg, max_batch, max_len)['gib']} GiB); launches {launches} "
-                 f"(need >= {need_prefill} prefill, >= {need_decode} decode)")
-    return launches
+    say(tag, f"{cfg.name} bf16, {n_req} requests (prompts {lens.min()}..{lens.max()} "
+             f"tokens, {new_tokens} new each), max_batch {max_batch}, max_len {max_len}")
+    say(tag, f"{total} tokens in {wall:.3f} s = {total / wall:.1f} tokens/s; "
+             f"TTFT p50 {np.percentile(ttft, 50):.1f} ms, p99 {np.percentile(ttft, 99):.1f} ms "
+             f"(16 samples); {engine.steps} decode steps, mean "
+             f"{np.mean(engine.step_s) * 1e3:.3f} ms, median "
+             f"{np.median(engine.step_s) * 1e3:.3f} ms")
+    say(tag, f"max_memory_allocated {peak / 2**30:.3f} GiB (cache "
+             f"{kv_cache.summarize(cfg, max_batch, max_len)}); launches {launches} "
+             f"(need >= {need}, "
+             f"none of {list(absent)})")
+    return {k: launches[k] for k in need}
 
 
 def main() -> int:
     name = phase_device()
     phase_build()
     rows = phase_kernels()
-    model = phase_slice()
-    launches = phase_serve(model)
+    rows.update(phase_kernels_ssd())
+    model = phase_slice(ARCH, "slice", SLICE_BF16_TOL)
+    launches = phase_serve(model, "serve")
+    del model
+    torch.cuda.empty_cache()
+    model = phase_slice(SSM_ARCH, "slice-ssm", SLICE_SSM_BF16_TOL)
+    launches.update(phase_serve(model, "serve-ssm"))
     kernels = []
     for kname, r in rows.items():
         kernels.append({

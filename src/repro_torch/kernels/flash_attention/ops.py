@@ -9,28 +9,19 @@ from __future__ import annotations
 
 from typing import Optional
 
+from .. import use_ref
 from . import kernel, ref
-
-IMPLS = ("auto", "kernel", "ref")
-
-
-def _use_ref(q, impl: str) -> bool:
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    if impl == "kernel" and not q.is_cuda:
-        raise ValueError(f"impl='kernel' needs CUDA tensors, got {q.device}")
-    return impl == "ref"
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset=None, kv_len=None,
                     scale: Optional[float] = None, impl: str = "auto"):
     """GQA attention. q (B,Sq,H,hd); k,v (B,Skv,KV,hd) -> (B,Sq,H,hd)."""
-    fn = ref.mha_reference if _use_ref(q, impl) else kernel.flash_attention
+    fn = ref.mha_reference if use_ref(q, impl) else kernel.flash_attention
     return fn(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len, scale=scale)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, scale: Optional[float] = None,
                      impl: str = "auto"):
     """Single-token attention against a cache; entries <= pos are valid."""
-    fn = ref.decode_attention_reference if _use_ref(q, impl) else kernel.decode_attention
+    fn = ref.decode_attention_reference if use_ref(q, impl) else kernel.decode_attention
     return fn(q, k_cache, v_cache, pos, scale=scale)

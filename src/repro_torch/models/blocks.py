@@ -1,8 +1,9 @@
-"""Transformer blocks of the dense family: init / train-apply / decode-apply / cache.
+"""Blocks of the dense and SSM families: init / train-apply / decode-apply / cache.
 
-Port of the dense part of ``repro.models.blocks``: GQA attention + SwiGLU
-MLP. A "layer" is the unit the model stack loops over. The JAX
-``partition.shard_act`` calls are dropped: the port runs on one device.
+Port of the dense and SSM parts of ``repro.models.blocks``: GQA attention +
+SwiGLU MLP, and RMSNorm + Mamba2 mixer. A "layer" is the unit the model stack
+loops over. The JAX ``partition.shard_act`` calls are dropped: the port runs
+on one device.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from . import attention, layers
+from . import attention, layers, mamba2
 
 
 def init_decoder_layer(gen, cfg: ModelConfig, device, lead: Tuple[int, ...] = ()):
@@ -57,3 +58,26 @@ def init_decoder_cache(cfg: ModelConfig, batch: int, cache_len: int, device,
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
     }
+
+
+# ------------------------------------------------------------------------ ssm
+def init_ssm_layer(gen, cfg: ModelConfig, device, lead: Tuple[int, ...] = ()):
+    return {
+        "mamba": mamba2.init_mamba2(gen, cfg, device, lead),
+        "ln": layers.init_rmsnorm(cfg.d_model, device, lead),
+    }
+
+
+def ssm_layer(p, h: torch.Tensor, cfg: ModelConfig, *, return_state: bool = False,
+              impl: str = "auto"):
+    """Train/prefill. Returns (h, state or None)."""
+    hn = layers.rmsnorm(h, p["ln"], cfg.norm_eps)
+    y, state = mamba2.mamba2_block(p["mamba"], hn, cfg, return_state=return_state, impl=impl)
+    return h + y, state
+
+
+def ssm_layer_decode(p, h: torch.Tensor, state: dict, cfg: ModelConfig):
+    """One token. ``state`` ({"conv", "ssm"}) is updated in place."""
+    hn = layers.rmsnorm(h, p["ln"], cfg.norm_eps)
+    y, state = mamba2.mamba2_decode(p["mamba"], hn, state, cfg)
+    return h + y, state

@@ -1,4 +1,4 @@
-"""Model assembly for the dense family: embedding + layer stack + head.
+"""Model assembly for the dense and SSM families: embedding + layer stack + head.
 
 Port of ``repro.models.model.Model``. The model is an ``nn.Module`` whose
 ``state_dict`` keys are the JAX parameter pytree paths joined by ``.``, with
@@ -11,7 +11,9 @@ API (the JAX one without the ``params`` argument, which the module holds):
     forward(batch)                       -> (hidden_states, aux_loss)
     prefill(batch)                       -> (last_logits (B, V), cache)
     decode_step(token, cache, pos)       -> (logits (B, V), cache updated in place)
-    init_cache(batch, cache_len)         -> zero cache {"k", "v"}: (L, B, S, KV, hd)
+    init_cache(batch, cache_len)         -> zero cache, stacked over layers:
+        dense {"k", "v"}: (L, B, S, KV, hd) in the model dtype;
+        ssm   {"conv": (L, B, K-1, Cd) in the model dtype, "ssm": (L, B, H, P, N) f32}
 """
 from __future__ import annotations
 
@@ -21,9 +23,9 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from . import blocks, layers
+from . import blocks, layers, mamba2
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "ssm")
 
 
 def _as_module(tree: dict, module: nn.Module) -> nn.Module:
@@ -47,10 +49,11 @@ def _index(tree: dict, i: int) -> dict:
 
 
 class Model(nn.Module):
-    """``device`` defaults to the card; ``attn_impl`` ("auto" | "kernel" |
-    "ref") picks the attention implementation (kernels/flash_attention/ops.py)."""
+    """``device`` defaults to the card; ``kernel_impl`` ("auto" | "kernel" |
+    "ref") picks the implementation of every kernel the model reaches
+    (attention or SSD scan; ``kernels.use_ref``)."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda", attn_impl: str = "auto"):
+    def __init__(self, cfg: ModelConfig, device="cuda", kernel_impl: str = "auto"):
         super().__init__()
         if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
@@ -58,7 +61,7 @@ class Model(nn.Module):
             )
         self.cfg = cfg
         self.device = torch.device(device)
-        self.attn_impl = attn_impl
+        self.kernel_impl = kernel_impl
         shapes = self._draw(None, torch.device("meta"))
         empty = _map(shapes, lambda t: torch.empty_like(t, device=self.device))
         _as_module(empty, self)
@@ -76,7 +79,8 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             tree["unembed"] = layers.init_unembed(gen, cfg.vocab, cfg.d_model, dt, device)
         tree["final_norm"] = layers.init_rmsnorm(cfg.d_model, device)
-        tree["layers"] = blocks.init_decoder_layer(gen, cfg, device, lead=(cfg.n_layers,))
+        init_layer = blocks.init_ssm_layer if cfg.family == "ssm" else blocks.init_decoder_layer
+        tree["layers"] = init_layer(gen, cfg, device, lead=(cfg.n_layers,))
         return tree
 
     @torch.no_grad()
@@ -104,7 +108,10 @@ class Model(nn.Module):
         h = self._embed_inputs(batch)
         positions = torch.arange(h.shape[1], device=self.device)
         for lp in self._layer_params:
-            h, _, _ = blocks.decoder_layer(lp, h, cfg, positions, self.attn_impl)
+            if cfg.family == "ssm":
+                h, _ = blocks.ssm_layer(lp, h, cfg, impl=self.kernel_impl)
+            else:
+                h, _, _ = blocks.decoder_layer(lp, h, cfg, positions, self.kernel_impl)
         h = layers.rmsnorm(h, self.params["final_norm"], cfg.norm_eps)
         return h, torch.zeros((), dtype=torch.float32, device=self.device)
 
@@ -115,38 +122,49 @@ class Model(nn.Module):
     # ============================================================== prefill
     def prefill(self, batch) -> Tuple[torch.Tensor, dict]:
         """Run the full prompt, return (last-position logits (B, V), cache
-        {"k", "v"} of shape (L, B, S, KV, hd))."""
+        stacked over layers: {"k", "v"} (L, B, S, KV, hd) for dense, {"conv",
+        "ssm"} for ssm)."""
         cfg = self.cfg
         h = self._embed_inputs(batch)
         positions = torch.arange(h.shape[1], device=self.device)
-        ks, vs = [], []
+        per_layer = []
         for lp in self._layer_params:
-            h, _, (k, v) = blocks.decoder_layer(lp, h, cfg, positions, self.attn_impl)
-            ks.append(k)
-            vs.append(v)
+            if cfg.family == "ssm":
+                h, state = blocks.ssm_layer(lp, h, cfg, return_state=True, impl=self.kernel_impl)
+            else:
+                h, _, (k, v) = blocks.decoder_layer(lp, h, cfg, positions, self.kernel_impl)
+                state = {"k": k, "v": v}
+            per_layer.append(state)
         h = layers.rmsnorm(h, self.params["final_norm"], cfg.norm_eps)
         logits = self._logits(h[:, -1:])[:, 0]
-        return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+        return logits, {name: torch.stack([s[name] for s in per_layer]) for name in per_layer[0]}
 
     # =============================================================== decode
     def decode_step(self, token, cache: dict, pos) -> Tuple[torch.Tensor, dict]:
-        """token: (B, 1) int; pos: scalar or (B,) int write position. Writes
-        the new k/v into `cache` in place and returns (logits (B, V), cache)."""
+        """token: (B, 1) int; pos: scalar or (B,) int write position (the ssm
+        family ignores it, as in JAX). Updates `cache` in place and returns
+        (logits (B, V), cache)."""
         cfg = self.cfg
         pos = torch.as_tensor(pos, device=self.device)
         h = layers.embed(torch.as_tensor(token, device=self.device), self.params["embed"])
         for i, lp in enumerate(self._layer_params):
-            lc = {"k": cache["k"][i], "v": cache["v"][i]}
-            h, _ = blocks.decoder_layer_decode(lp, h, lc, pos, cfg, self.attn_impl)
+            lc = {name: leaf[i] for name, leaf in cache.items()}
+            if cfg.family == "ssm":
+                h, _ = blocks.ssm_layer_decode(lp, h, lc, cfg)
+            else:
+                h, _ = blocks.decoder_layer_decode(lp, h, lc, pos, cfg, self.kernel_impl)
         h = layers.rmsnorm(h, self.params["final_norm"], cfg.norm_eps)
         return self._logits(h)[:, 0], cache
 
     # ================================================================ cache
     def init_cache(self, batch: int, cache_len: int) -> dict:
         """Zero decode cache stacked over layers (the JAX version also returns
-        logical sharding specs, which one device does not need)."""
-        return blocks.init_decoder_cache(self.cfg, batch, cache_len, self.device,
-                                         lead=(self.cfg.n_layers,))
+        logical sharding specs, which one device does not need). The ssm
+        state does not grow with the sequence: ``cache_len`` is not used."""
+        lead = (self.cfg.n_layers,)
+        if self.cfg.family == "ssm":
+            return mamba2.init_decode_state(self.cfg, batch, self.device, lead=lead)
+        return blocks.init_decoder_cache(self.cfg, batch, cache_len, self.device, lead=lead)
 
 
 def _map(tree: dict, fn) -> dict:

@@ -12,8 +12,10 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-# leaves the JAX init keeps in float32 whatever the model dtype (norm scales)
-FP32_LEAVES = ("scale", "q_norm", "k_norm")
+# leaves the JAX init keeps in float32 whatever the model dtype: the norm
+# scales, and the SSM's decay, skip, step-bias and gated-norm scale
+# (repro/models/mamba2.py:44-47)
+FP32_LEAVES = ("scale", "q_norm", "k_norm", "A_log", "D", "dt_bias", "norm")
 
 
 def to_tensor(a, device="cuda") -> torch.Tensor:
@@ -45,8 +47,8 @@ def to_state_dict(tree: Mapping, device="cuda",
     """Nested numpy pytree -> flat state dict on `device`.
 
     With `dtype` None every leaf keeps its own dtype (bit-exact carry-over);
-    otherwise floating leaves are cast to `dtype`, except the norm scales
-    (``FP32_LEAVES``), which stay float32 as in the JAX init."""
+    otherwise floating leaves are cast to `dtype`, except ``FP32_LEAVES``,
+    which stay float32 as in the JAX init."""
     sd = {}
     for name, a in flatten(tree).items():
         t = to_tensor(a, device)

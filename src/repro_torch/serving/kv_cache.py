@@ -1,6 +1,6 @@
 """KV-cache utilities: sizing, slot insertion for continuous batching.
 
-Port of ``repro.serving.kv_cache`` for the dense family.
+Port of ``repro.serving.kv_cache`` for the dense, SSM and hybrid families.
 """
 from __future__ import annotations
 
@@ -12,18 +12,32 @@ from ..configs.base import ModelConfig
 def cache_bytes(cfg: ModelConfig, batch: int, seq_len: int) -> int:
     """Analytical decode-state footprint (bytes): the serving-capacity
     planner for admission control and the roofline memory term."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"cache_bytes: family {cfg.family!r} is not ported yet")
     itemsize = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
-    per_tok = 2 * cfg.n_kv_heads * cfg.hd
-    return cfg.n_layers * batch * seq_len * per_tok * itemsize
+    if cfg.family == "dense":
+        per_tok = 2 * cfg.n_kv_heads * cfg.hd
+        return cfg.n_layers * batch * seq_len * per_tok * itemsize
+    if cfg.family not in ("ssm", "hybrid"):
+        raise NotImplementedError(f"cache_bytes: family {cfg.family!r} is not ported yet")
+    s = cfg.ssm
+    d_in = s.d_inner(cfg.d_model)
+    H = s.n_heads(cfg.d_model)
+    conv = (s.conv_kernel - 1) * (d_in + 2 * s.n_groups * s.d_state) * itemsize
+    ssm = H * s.head_dim * s.d_state * 4  # fp32 state
+    per_layer = (conv + ssm) * batch
+    if cfg.family == "ssm":
+        return cfg.n_layers * per_layer
+    # hybrid: mamba states + shared-attn KV per group
+    G = cfg.n_layers // cfg.shared_attn_every
+    attn = G * batch * seq_len * 2 * cfg.n_kv_heads * cfg.hd * itemsize
+    return cfg.n_layers * per_layer + attn
 
 
 def insert_sequence(batched_cache: dict, seq_cache: dict, slot: int, batch_axis: int = 1) -> dict:
     """Place a single-sequence cache (batch dim 1) into slot `slot` of a
     batched cache, IN PLACE. Caches are stacked over layers on axis 0, so the
     batch axis is 1 by convention. The sequence is zero-padded up to the
-    batched cache's length, as the JAX version pads it."""
+    batched cache's length, as the JAX version pads it; the SSM leaves
+    ({"conv", "ssm"}) have no sequence axis and are copied whole."""
     for name, dst in batched_cache.items():
         src = seq_cache[name]
         row = dst.narrow(batch_axis, slot, 1)

@@ -6,8 +6,9 @@ also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances are the reference's (tests/test_kernels_flash.py:18): 2e-5 f32,
-2e-2 bf16.
+Tolerances are the reference's: 2e-5 f32, 2e-2 bf16 for attention
+(tests/test_kernels_flash.py:18); 1e-4 f32, 5e-2 bf16 for the SSD scan
+(tests/test_kernels_ssd.py:10).
 """
 import numpy as np
 import pytest
@@ -17,6 +18,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as tkernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as tref  # noqa: E402
+from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
+from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -108,7 +111,95 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
         tkernel.decode_attention(q, k, v, 3)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen1.5-0.5b", "deepseek-67b"])
+SSD_DTYPES = {"float32": (torch.float32, 1e-4), "bfloat16": (torch.bfloat16, 5e-2)}
+SSD_SWEEP = [  # B, S, H, P, G, N, chunk — tests/test_kernels_ssd.py:41-46, then the slice's
+    (1, 64, 2, 16, 1, 16, 16),
+    (2, 128, 4, 32, 2, 8, 32),
+    (1, 96, 6, 16, 1, 32, 32),
+    (2, 64, 8, 64, 4, 16, 64),
+    (1, 137, 4, 64, 1, 128, 137),   # a ragged chunk: S = chunk = 137
+    (1, 512, 80, 64, 1, 128, 256),
+]
+
+
+def _ssd_inputs(device, dtype, seed, B, S, H, P, G, N):
+    r = np.random.default_rng(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(a.astype(np.float32)).to(device, dt)
+    return (t(r.standard_normal((B, S, H, P)), dtype),
+            t(np.log1p(np.exp(r.standard_normal((B, S, H)))) * 0.5),
+            t(-np.exp(r.standard_normal(H) * 0.3)),
+            t(r.standard_normal((B, S, G, N)) * 0.3, dtype),
+            t(r.standard_normal((B, S, G, N)) * 0.3, dtype))
+
+
+def _ssd_close(got, want, tol):
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(SSD_DTYPES))
+@pytest.mark.parametrize("shape", SSD_SWEEP, ids=[str(s) for s in SSD_SWEEP])
+def test_ssd_kernel_matches_plain(shape, dtype, cuda_device):
+    *dims, chunk = shape
+    tdt, tol = SSD_DTYPES[dtype]
+    args = _ssd_inputs(cuda_device, tdt, 5, *dims)
+    before = ssd_kernel.LAUNCHES["ssd"]
+    got = ssd_kernel.ssd(*args, chunk=chunk, return_final_state=True)
+    torch.cuda.synchronize()
+    assert ssd_kernel.LAUNCHES["ssd"] == before + 1
+    assert got[0].dtype == tdt and got[1].dtype == torch.float32
+    _ssd_close(got, ssd_ref.ssd_reference(*args, chunk=chunk, return_final_state=True), tol)
+
+
+@pytest.mark.parametrize("dtype", list(SSD_DTYPES))
+def test_ssd_kernel_initial_state_and_strided_inputs(dtype, cuda_device):
+    """A nonzero initial state, and B/C/x as views of one wide tensor, as the
+    model's split hands them over."""
+    tdt, tol = SSD_DTYPES[dtype]
+    B, S, H, P, G, N = 2, 96, 4, 64, 2, 32
+    x, dt, A, _, _ = _ssd_inputs(cuda_device, tdt, 6, B, S, H, P, G, N)
+    wide = torch.randn(B, S, H * P + 2 * G * N, device=cuda_device).to(tdt)
+    xs = wide[..., :H * P].unflatten(-1, (H, P))
+    Bs = wide[..., H * P:H * P + G * N].unflatten(-1, (G, N))
+    Cs = wide[..., H * P + G * N:].unflatten(-1, (G, N))
+    h0 = torch.randn(B, H, P, N, device=cuda_device)
+    got = ssd_kernel.ssd(xs, dt, A, Bs, Cs, chunk=32, initial_state=h0, return_final_state=True)
+    want = ssd_ref.ssd_reference(xs, dt, A, Bs, Cs, chunk=32, initial_state=h0,
+                                 return_final_state=True)
+    _ssd_close(got, want, tol)
+
+
+def test_ssd_kernel_dt_zero_tail_changes_nothing(cuda_device):
+    S, pad = 137, 119
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, torch.float32, 7, 1, S, 8, 64, 1, 128)
+    y, st = ssd_kernel.ssd(x, dt, A, Bm, Cm, chunk=S, return_final_state=True)
+
+    def zpad(a):
+        return torch.nn.functional.pad(a, (0, 0) * (a.ndim - 2) + (0, pad))
+    yp, stp = ssd_kernel.ssd(zpad(x), zpad(dt), A, zpad(Bm), zpad(Cm), chunk=256,
+                             return_final_state=True)
+    torch.testing.assert_close(yp[:, :S], y, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(stp, st, rtol=1e-5, atol=1e-5)
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda_device):
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, torch.float32, 8, 1, 64, 2, 16, 1, 16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ssd_kernel.ssd(x.half(), dt, A, Bm.half(), Cm.half(), chunk=16)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_kernel.ssd(x, dt, A, Bm, Cm, chunk=24)
+    with pytest.raises(ValueError, match="dt must be float32"):
+        ssd_kernel.ssd(x, dt.bfloat16(), A, Bm, Cm, chunk=16)
+
+
+def _blit(cache: dict, seq: dict) -> None:
+    for name, dst in cache.items():
+        dst[tuple(slice(0, n) for n in seq[name].shape)] = seq[name]
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen1.5-0.5b", "deepseek-67b", "mamba2-2.7b"])
 def test_model_kernel_path_matches_plain_path(arch, cuda_device):
     """Prefill + decode of a reduced model through the kernels against the
     same model with impl="ref" (f32: the decode-equivalence tolerances)."""
@@ -118,11 +209,10 @@ def test_model_kernel_path_matches_plain_path(arch, cuda_device):
         cuda_device)
     outs = {}
     for impl in ("auto", "ref"):
-        model.attn_impl = impl
+        model.kernel_impl = impl
         logits, seq = model.prefill({"tokens": tokens[:, :16]})
         cache = model.init_cache(2, 24)
-        for name in cache:
-            cache[name][:, :, :16] = seq[name]
+        _blit(cache, seq)
         steps = [logits]
         for i in range(16, 23):
             pos = torch.tensor([i, i], device=cuda_device)

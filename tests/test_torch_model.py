@@ -1,4 +1,4 @@
-"""The port's dense model against the JAX package's, on weights carried across.
+"""The port's dense and SSM models against the JAX package's, on weights carried across.
 
 JAX ``Model.init`` parameters go through ``repro_torch.params`` into the
 port; both packages then run the same numpy batch (reduced configs, f32).
@@ -8,6 +8,7 @@ forward/prefill logits, 3e-4 for each decode step.
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -21,7 +22,7 @@ from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving.kv_cache import insert_sequence  # noqa: E402
 
-ARCHS = ("qwen2-0.5b", "qwen1.5-0.5b", "deepseek-67b")
+ARCHS = ("qwen2-0.5b", "qwen1.5-0.5b", "deepseek-67b", "mamba2-2.7b")
 B, S, PREFILL = 2, 24, 16
 
 
@@ -55,6 +56,14 @@ def test_forward_logits_match_jax(arch):
     np.testing.assert_allclose(logits.numpy(), ref, rtol=2e-4, atol=2e-4)
 
 
+def _blit(cache: dict, seq_cache: dict) -> None:
+    """Copy a prefill cache into the leading entries of a zero decode cache
+    (the k/v sequence axis; the SSM leaves are the same shape)."""
+    for name, dst in cache.items():
+        src = seq_cache[name]
+        dst[tuple(slice(0, n) for n in src.shape)] = src
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_then_scalar_pos_decode_match_jax(arch):
     _, _, model = _pair(arch)
@@ -64,8 +73,7 @@ def test_prefill_then_scalar_pos_decode_match_jax(arch):
         logits, seq_cache = model.prefill({"tokens": tokens[:, :PREFILL]})
         np.testing.assert_allclose(logits.numpy(), ref[:, PREFILL - 1], rtol=2e-4, atol=2e-4)
         cache = model.init_cache(B, S)
-        for name in cache:
-            cache[name][:, :, :PREFILL] = seq_cache[name]
+        _blit(cache, seq_cache)
         for i in range(S - PREFILL - 1):
             pos = torch.tensor(PREFILL + i, dtype=torch.int32)
             logits, cache = model.decode_step(tokens[:, PREFILL + i:PREFILL + i + 1], cache, pos)
@@ -121,8 +129,11 @@ def test_state_dict_keys_and_shapes_are_the_jax_pytree(arch):
     flat = tparams.flatten(jax.tree.map(np.asarray, jparams))
     ours = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     assert ours == {k: tuple(v.shape) for k, v in flat.items()}
-    assert ours["layers.attn.wq"] == (model.cfg.n_layers, model.cfg.d_model,
-                                      model.cfg.n_heads, model.cfg.hd)
+    cfg = model.cfg
+    if cfg.family == "ssm":
+        assert ours["layers.mamba.wx"] == (cfg.n_layers, cfg.d_model, cfg.ssm.d_inner(cfg.d_model))
+    else:
+        assert ours["layers.attn.wq"] == (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.hd)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -148,6 +159,49 @@ def test_to_state_dict_casts_weights_but_keeps_norm_scales_fp32():
     assert sd["layers.attn.bq"].dtype == torch.bfloat16
     assert sd["layers.ln1.scale"].dtype == torch.float32
     assert sd["final_norm.scale"].dtype == torch.float32
+
+
+def test_to_state_dict_keeps_the_ssm_fp32_leaves_fp32():
+    _, jparams, _ = _pair("mamba2-2.7b")
+    sd = tparams.to_state_dict(jax.tree.map(np.asarray, jparams), "cpu", dtype=torch.bfloat16)
+    for name in ("wx", "conv_w", "conv_b", "out_proj"):
+        assert sd[f"layers.mamba.{name}"].dtype == torch.bfloat16, name
+    for name in ("A_log", "D", "dt_bias", "norm"):
+        assert sd[f"layers.mamba.{name}"].dtype == torch.float32, name
+    assert sd["layers.ln.scale"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("S", [3, 5, 16, 19])
+def test_ssm_prefill_states_match_jax(S):
+    """The conv tail and the final SSD state of every layer (S >= K-1 = 3,
+    where the reference's tail is right; S = 19 pads to two chunks of 16)."""
+    jmodel, jparams, model = _pair("mamba2-2.7b")
+    batch, _ = _reference_logits("mamba2-2.7b")
+    tokens = batch["tokens"][:, :S]
+    _, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(tokens)})
+    with torch.inference_mode():
+        _, cache = model.prefill({"tokens": torch.from_numpy(tokens)})
+    assert set(cache) == set(jcache) == {"conv", "ssm"}
+    for name in cache:
+        assert cache[name].shape == jcache[name].shape, name
+        np.testing.assert_allclose(cache[name].numpy(), np.asarray(jcache[name]), rtol=2e-4,
+                                   atol=2e-4, err_msg=name)
+
+
+def test_ssm_init_draws_like_the_reference_recipe():
+    cfg = get_reduced("mamba2-2.7b").with_(dtype="float32")
+    p = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0)).params["layers"]["mamba"]
+    L, H = cfg.n_layers, cfg.ssm.n_heads(cfg.d_model)
+    d_in, K = cfg.ssm.d_inner(cfg.d_model), cfg.ssm.conv_kernel
+    torch.testing.assert_close(p["A_log"], torch.log(torch.linspace(1.0, 16.0, H)).expand(L, H))
+    assert torch.equal(p["D"], torch.ones(L, H))
+    torch.testing.assert_close(torch.nn.functional.softplus(p["dt_bias"]),
+                               torch.full((L, H), 0.01))
+    assert torch.equal(p["norm"], torch.ones(L, d_in))
+    assert torch.equal(p["conv_b"], torch.zeros_like(p["conv_b"]))
+    assert abs(p["conv_w"].std().item() * K ** 0.5 - 1.0) < 0.05
+    for w, fan_in in ((p["wz"], cfg.d_model), (p["out_proj"], d_in)):
+        assert abs(w.std().item() * fan_in ** 0.5 - 1.0) < 0.05
 
 
 def test_init_draws_like_the_reference_recipe():

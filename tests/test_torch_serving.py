@@ -1,6 +1,7 @@
 """The port's serve engine: twins of tests/test_serving_and_training.py's engine
-tests, plus one cross-package test (the port's engine and the JAX engine give
-the same greedy tokens on the same carried weights)."""
+tests, plus cross-package tests (the port's engine and the JAX engine give
+the same greedy tokens on the same carried weights), for the dense and the
+SSM family."""
 import threading
 import time
 
@@ -29,6 +30,17 @@ def small_model():
     jmodel = JaxModel(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
     model = Model(get_reduced("qwen1.5-0.5b").with_(dtype="float32"), device="cpu")
+    model.load_state_dict(tparams.to_state_dict(jax.tree.map(np.asarray, jparams), "cpu"))
+    return jmodel, jparams, model
+
+
+@pytest.fixture(scope="module")
+def ssm_model():
+    """mamba2-2.7b reduced, f32: JAX weights and the port holding the same."""
+    jcfg = jax_reduced("mamba2-2.7b").with_(dtype="float32")
+    jmodel = JaxModel(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    model = Model(get_reduced("mamba2-2.7b").with_(dtype="float32"), device="cpu")
     model.load_state_dict(tparams.to_state_dict(jax.tree.map(np.asarray, jparams), "cpu"))
     return jmodel, jparams, model
 
@@ -109,6 +121,63 @@ def test_engine_tokens_equal_jax_engine(small_model):
     assert ts["histograms"].keys() == js["histograms"].keys()
 
 
+def test_ssm_engine_matches_sequential_greedy(ssm_model):
+    """Prompts of 1 and 2 tokens included: shorter than the conv's K-1 = 3,
+    where the reference engine pads the conv tail on the wrong side."""
+    _, _, model = ssm_model
+    engine = ServeEngine(model, max_batch=2, max_len=48)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, model.cfg.vocab, n) for n in (1, 2, 3, 9, 20)]
+    reqs = [engine.submit(p, max_new_tokens=4) for p in prompts]
+    engine.run_until_drained(timeout=120)
+    for p, r in zip(prompts, reqs):
+        assert r.done.is_set()
+        expected = _greedy_reference(model, p, 4)
+        assert r.tokens == expected, (len(p), r.tokens, expected)
+
+
+def test_ssm_short_prompt_conv_tail_is_left_padded(ssm_model):
+    _, _, model = ssm_model
+    K = model.cfg.ssm.conv_kernel
+    with torch.inference_mode():
+        _, short = model.prefill({"tokens": torch.tensor([[7, 11]])})
+        _, longer = model.prefill({"tokens": torch.tensor([[3, 7, 11]])})
+    assert short["conv"].shape == longer["conv"].shape
+    assert short["conv"].shape[2] == K - 1
+    assert (short["conv"][:, :, 0] == 0).all()
+    # the two real rows sit last, in time order: in the first layer each row is
+    # the projection of its own token's embedding
+    torch.testing.assert_close(short["conv"][0, :, 1:], longer["conv"][0, :, 1:])
+
+
+def test_ssm_engine_tokens_equal_jax_engine(ssm_model):
+    """Cross-package on prompts of >= 3 tokens (the reference engine is right
+    there): same carried weights, same prompts -> same greedy tokens."""
+    jmodel, jparams, model = ssm_model
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, model.cfg.vocab, n) for n in (6, 17, 3, 8)]
+    theirs = JaxServeEngine(jmodel, jparams, max_batch=2, max_len=40)
+    ours = ServeEngine(model, max_batch=2, max_len=40)
+    jreqs = [theirs.submit(p, max_new_tokens=6) for p in prompts]
+    treqs = [ours.submit(p, max_new_tokens=6) for p in prompts]
+    theirs.run_until_drained(timeout=120)
+    ours.run_until_drained(timeout=120)
+    assert [r.tokens for r in treqs] == [r.tokens for r in jreqs]
+    assert ours.steps == theirs.steps
+    assert ours.metrics.snapshot()["counters"] == theirs.metrics.snapshot()["counters"]
+
+
+def test_ssm_engine_slots_reused(ssm_model):
+    _, _, model = ssm_model
+    engine = ServeEngine(model, max_batch=2, max_len=32)
+    rng = np.random.default_rng(7)
+    reqs = [engine.submit(rng.integers(0, model.cfg.vocab, 4), max_new_tokens=3)
+            for _ in range(5)]  # 5 requests > 2 slots
+    engine.run_until_drained(timeout=120)
+    assert all(r.done.is_set() and len(r.tokens) == 3 for r in reqs)
+    assert engine.stats()["pending"] == 0
+
+
 def test_cache_bytes_analytical():
     cfg = get_reduced("qwen1.5-0.5b")
     b = cache_bytes(cfg, batch=2, seq_len=64)
@@ -117,7 +186,7 @@ def test_cache_bytes_analytical():
     assert summarize(cfg, 2, 64)["bytes_per_seq"] == expected // 2
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen1.5-0.5b", "deepseek-67b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen1.5-0.5b", "deepseek-67b", "mamba2-2.7b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cache_bytes_equals_reference(arch, dtype):
     from repro_torch.configs import get_config

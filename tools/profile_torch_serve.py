@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where the time of the port's serve path goes on the card (torch.profiler).
 
-    python tools/profile_torch_serve.py [--steps 20] [--trace out.json]
+    python tools/profile_torch_serve.py [--arch mamba2-2.7b] [--steps 20] [--trace out.json]
 
-Builds full-width bf16 qwen2-0.5b (random weights, seed 0) and a ServeEngine
+Builds a full-width bf16 model (``--arch``: qwen2-0.5b by default, or
+mamba2-2.7b; random weights, seed 0) and a ServeEngine
 (max_batch 8, max_len 1024), fills its 8 slots with prompts of 64..512 tokens,
 then profiles two windows through the engine's own entry points: one admission
 (a prefill of one 512-token prompt plus its cache insertion) and ``--steps``
@@ -60,6 +61,7 @@ def _window(name: str, fn, n: int, trace: str = "") -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", choices=["qwen2-0.5b", "mamba2-2.7b"], default="qwen2-0.5b")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--trace", default="", help="write the decode window's chrome trace here")
     args = ap.parse_args()
@@ -68,7 +70,7 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
 
-    cfg = get_config("qwen2-0.5b")
+    cfg = get_config(args.arch)
     model = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
     rng = np.random.default_rng(0)
     engine = ServeEngine(model, max_batch=8, max_len=1024)
