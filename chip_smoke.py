@@ -6,27 +6,49 @@
 Run from the repository root; it needs one CUDA card and ``nvcc``. Phases, in
 order, each printing its lines; any failure raises and the exit code is not 0:
 
-1. device      - require CUDA and compute capability 9.0; print the card's name
-                 and power limit (nvidia-smi); fp32 products in full fp32.
-2. build       - compile the three kernels from ``src/repro_torch`` with nvcc
-                 for sm_90a, one nvcc per source, all started together.
-3. kernels     - hold each attention kernel against its plain PyTorch version
-                 (ref.py) at 2e-5 (f32) / 2e-2 (bf16) on the reference's test
-                 shapes and the slice's own shapes; time kernel, plain version
-                 and ``F.scaled_dot_product_attention`` (a yardstick only) there.
-4. kernels-ssd - hold the SSD scan against its plain version at 1e-4 (f32) /
-                 5e-2 (bf16) on the reference's shapes, a ragged chunk, a dt = 0
-                 padded tail, a nonzero initial state and the slice's shape;
-                 time kernel and plain version there (no single PyTorch call
-                 computes the scan, so there is no library time).
-5. slice       - full-width qwen2-0.5b, random weights from seed 0: prefill 4 x
-                 384 tokens then 16 teacher-forced decode steps with vector
-                 positions, kernel path against the plain path on the same weights.
-6. serve       - ServeEngine on full-width bf16 qwen2-0.5b answers 16 requests;
-                 the launch counters must show both attention kernels on the path.
-7. slice-ssm   - the same for full-width mamba2-2.7b (prefills pad 384 to 512).
-8. serve-ssm   - ServeEngine on full-width bf16 mamba2-2.7b answers 16 requests;
-                 the counters must show the SSD kernel in every layer's prefill.
+1. device          - require CUDA and compute capability 9.0; print the card's
+                     name and power limit (nvidia-smi); fp32 products in full fp32.
+2. build            - compile the four kernels from ``src/repro_torch`` with nvcc
+                     for sm_90a, one nvcc per source, all started together.
+3. kernels          - hold each attention kernel against its plain PyTorch version
+                     (ref.py) at 2e-5 (f32) / 2e-2 (bf16) on the reference's test
+                     shapes and the slices' own shapes (qwen2-0.5b GQA hd 64,
+                     zamba2-2.7b MHA hd 80); time kernel, plain version and
+                     ``F.scaled_dot_product_attention`` (a yardstick only) there.
+4. kernels-rmsnorm  - hold the fused add + RMSNorm kernel against its plain
+                     version at 1e-6 (f32) / 1e-2 (bf16) on the reference's sweep
+                     and the slices' rows (d_model 896 and 2560, 512-token prefill
+                     and 8-slot decode); time kernel and plain version there (no
+                     single PyTorch call computes add + norm: no library time;
+                     the two-call chain ``x + d`` then ``F.rms_norm`` is printed
+                     beside it, labelled as two calls).
+5. kernels-ssd      - hold the SSD scan against its plain version at 1e-4 (f32) /
+                     5e-2 (bf16) on the reference's shapes, a ragged chunk, a
+                     dt = 0 padded tail, a nonzero initial state and the slices'
+                     shapes (mamba2 N = 128, zamba2 N = 64); time kernel and plain
+                     version there (no single PyTorch call computes the scan, so
+                     there is no library time).
+6. slice            - full-width qwen2-0.5b, random weights from seed 0: prefill
+                     4 x 384 tokens then 16 teacher-forced decode steps with vector
+                     positions, kernel path against the plain path on the same
+                     weights.
+7. serve            - ServeEngine on full-width bf16 qwen2-0.5b answers 16
+                     requests; the launch counters must show both attention
+                     kernels and the fused add + RMSNorm on the path.
+8. slice-ssm        - the same for full-width mamba2-2.7b (prefills pad 384 to 512).
+9. serve-ssm        - ServeEngine on full-width bf16 mamba2-2.7b answers 16
+                     requests; the counters must show the SSD kernel in every
+                     layer's prefill and none of the other three.
+10. slice-hybrid    - the same for full-width zamba2-2.7b (54 Mamba2 layers in 9
+                     groups of 6, one shared attention + MLP block before each).
+11. serve-hybrid    - ServeEngine on full-width bf16 zamba2-2.7b answers 16
+                     requests; the counters must show all four kernels: the
+                     shared block's attention and add + norm 9 times per prefill
+                     and per step, the SSD scan 54 times per prefill.
+
+Each serve phase resets the launch counters just before it submits its
+requests and reads them just after; the summary's ``launches`` of a kernel is
+its sum over the three serve phases.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.
@@ -50,6 +72,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as attn_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as attn_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm import kernel as rms_kernel  # noqa: E402
+from repro_torch.kernels.rmsnorm import ref as rms_ref  # noqa: E402
 from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
@@ -66,18 +90,24 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SOURCES = {
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/kernels/flash_attention/csrc/decode_attention.cu",
+    "fused_add_rmsnorm": "src/repro_torch/kernels/rmsnorm/csrc/fused_add_rmsnorm.cu",
     "ssd": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
 }
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:107",
     "decode_attention": "src/repro/kernels/flash_attention/kernel.py:173",
+    "fused_add_rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:30",
     "ssd": "src/repro/kernels/ssd/kernel.py:93",
 }
-KERNEL_MODULES = (attn_kernel, ssd_kernel)
+KERNEL_MODULES = (attn_kernel, rms_kernel, ssd_kernel)
 # slice shapes: prefill of one 512-token prompt; decode over B=8 slots of a
 # 1024-long cache (qwen2-0.5b: H=14 query heads over KV=2, hd=64)
 PREFILL_SHAPE = (1, 512, 14, 2, 64)          # B, S, H, KV, hd
 DECODE_SHAPE = (8, 1024, 14, 2, 64)          # B, S, H, KV, hd
+# zamba2-2.7b's shared block: MHA, 32 heads over 32 KV heads (G = 1), hd 80
+# (a multiple of 8, not of 16), at the same prefill and decode sizes
+HYBRID_PREFILL_SHAPE = (1, 512, 32, 32, 80)
+HYBRID_DECODE_SHAPE = (8, 1024, 32, 32, 80)
 # 2 prefill + teacher-forced decode in fp32: the kernel sums in another order
 # than cuBLAS; 24 layers amplify ~1e-6 differences to ~1e-4 at most
 SLICE_F32_TOL = 1e-3
@@ -100,6 +130,20 @@ SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}  # tests/test_kernels_ssd.
 # the slice's SSD call: one 512-token prefill (a 384-token prompt padded to two
 # chunks of 256) of mamba2-2.7b: 80 heads of P=64 over one group of N=128
 SSD_SHAPE = (1, 512, 80, 64, 1, 128, 256)    # B, S, H, P, G, N, chunk
+# zamba2-2.7b's scan: the same heads over a state of N = 64
+HYBRID_SSD_SHAPE = (1, 512, 80, 64, 1, 64, 256)
+RMS_TOL = {torch.float32: 1e-6, torch.bfloat16: 1e-2}  # tests/test_kernels_rmsnorm.py:10
+# the add + norm rows of the slices: a 512-token prefill and an 8-slot decode
+# step, at qwen2-0.5b's and zamba2-2.7b's d_model; the first is the summary's row
+RMS_SHAPES = ((1, 512, 2560), (8, 1, 2560), (1, 512, 896), (8, 1, 896))
+
+HYBRID_ARCH = "zamba2-2.7b"
+# bf16 slice of zamba2-2.7b, held as the mamba2 slice is: 54 Mamba2 layers each
+# round the scan's output y to bf16 once and the shared block rounds attention
+# outputs 9 times (63 rounding points against mamba2's 64), and the logits are
+# bf16 products (one ulp is 2^-5 at |logit| 4..8). Held: max|dlogit| within 16
+# such ulps, and every top-1 disagreement a near-tie within that same margin.
+SLICE_HYBRID_BF16_TOL = 0.5
 
 
 def say(phase: str, msg: str) -> None:
@@ -109,13 +153,18 @@ def say(phase: str, msg: str) -> None:
 # ------------------------------------------------------------------ helpers
 def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     """Median device time of fn() in ms, CUDA events around each call, with the
-    50 MB L2 flushed before each (the main path finds the cache cold)."""
+    50 MB L2 flushed before each (the main path finds the cache cold). A spin
+    of about 1 ms on the device after the flush lets the host enqueue all of
+    fn() before the start event fires, so the events time the device's work
+    and not the host's wrapper code (which, for a kernel of a few
+    microseconds, would otherwise dominate)."""
     flush = torch.empty(256 << 20, dtype=torch.int8, device=DEVICE)
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(2_000_000)          # ~1 ms of clock cycles at ~1.98 GHz
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -231,20 +280,29 @@ def phase_kernels() -> dict:
     say("kernels", f"{n} reference-sweep cases within {TOL[torch.float32]:g} (f32) / "
                    f"{TOL[torch.bfloat16]:g} (bf16)")
 
-    # the slice's own shapes, both dtypes; timed in bf16 (the serve dtype)
-    rows = {}
     rng = np.random.default_rng(0)
-    B, S, H, KV, hd = DECODE_SHAPE
+    B, S = DECODE_SHAPE[:2]
     pos_np = rng.integers(64, S - 1, B).astype(np.int32)
     pos_np[0], pos_np[-1] = 0, S - 1          # an empty-but-one row and a full row
+    rows = _attn_slice_rows(gen, PREFILL_SHAPE, DECODE_SHAPE, pos_np, ARCH)
+    _attn_slice_rows(gen, HYBRID_PREFILL_SHAPE, HYBRID_DECODE_SHAPE, pos_np, HYBRID_ARCH)
+    return rows
+
+
+def _attn_slice_rows(gen, prefill_shape, decode_shape, pos_np, arch) -> dict:
+    """Both attention kernels at one slice's shapes, f32 and bf16 against the
+    plain version; timed in bf16 (the serve dtype)."""
+    rows = {}
+    B, S, H, KV, hd = decode_shape
     pos = torch.from_numpy(pos_np).to(DEVICE)
     for dtype in (torch.float32, torch.bfloat16):
-        Bp, Sp, Hp, KVp, hdp = PREFILL_SHAPE
+        Bp, Sp, Hp, KVp, hdp = prefill_shape
         err_p, (q, k, v) = _prefill_case(gen, Bp, Sp, Sp, Hp, KVp, hdp, dtype, True)
         err_d, (qd, kc, vc) = _decode_case(gen, B, S, H, KV, hd, dtype, pos)
-        say("kernels", f"slice shapes {dtype}: prefill max_abs_err {err_p:.3e}, "
-                       f"decode (pos {pos_np.tolist()}) max_abs_err {err_d:.3e}")
-    # timing at the slice's shapes in bf16 (q, k, v ... from the bf16 pass above)
+        say("kernels", f"{arch} shapes {dtype}: prefill {prefill_shape} max_abs_err "
+                       f"{err_p:.3e}, decode {decode_shape} (pos {pos_np.tolist()}) "
+                       f"max_abs_err {err_d:.3e}")
+    # timing in bf16 (q, k, v ... from the bf16 pass above)
     pairs = Sp * (Sp + 1) // 2                       # causal: keys each query row needs
     p_bytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size()
     p_flops = 4 * Bp * pairs * Hp * hdp
@@ -274,12 +332,63 @@ def phase_kernels() -> dict:
         work=f"{d_flops/1e9:.4f} GFLOP, {d_bytes/1e6:.3f} MB",
     )
     for name, r in rows.items():
-        say("kernels", f"{name} bf16: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                       f"sdpa {r['library_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms by "
-                       f"{r['bound'][1]} ({r['work']})")
-    say("kernels", "decode occupancy: one block per (row, KV head) = "
-                   f"{B * KV} blocks of 256 threads on "
+        say("kernels", f"{arch} {name} bf16: kernel {r['ms']:.4f} ms, plain "
+                       f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
+                       f"{r['bound'][0]:.5f} ms by {r['bound'][1]} ({r['work']})")
+    say("kernels", f"{arch} occupancy: prefill {-(-Sp // 64) * Hp * Bp} blocks, decode one "
+                   f"block per (row, KV head) = {B * KV} blocks, of 256 threads on "
                    f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    return rows
+
+
+def _rms_case(gen, shape, dtype, eps=1e-6):
+    x, d = randn(gen, shape, dtype), randn(gen, shape, dtype)
+    scale = torch.rand((shape[-1],), generator=gen, device=DEVICE) + 0.5
+    res, out = rms_kernel.fused_add_rmsnorm(x, d, scale, eps)
+    torch.cuda.synchronize()
+    want_res, want_out = rms_ref.fused_add_rmsnorm_reference(x, d, scale, eps)
+    what = f"fused_add_rmsnorm {shape} {dtype}"
+    err = max(max_err(res, want_res, RMS_TOL[dtype], what + " res"),
+              max_err(out, want_out, RMS_TOL[dtype], what + " out"))
+    return err, (x, d, scale)
+
+
+def phase_kernels_rmsnorm() -> dict:
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in [(4, 32, 64), (2, 100, 128), (1, 8, 256), (7, 96)]:
+            _rms_case(gen, shape, dtype)       # tests/test_kernels_rmsnorm.py:14
+            n += 1
+    say("kernels-rmsnorm", f"{n} reference-sweep cases within {RMS_TOL[torch.float32]:g} "
+                           f"(f32) / {RMS_TOL[torch.bfloat16]:g} (bf16)")
+    rows = {}
+    for shape in RMS_SHAPES:
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            errs[dtype], (x, d, scale) = _rms_case(gen, shape, dtype)
+        # timing in bf16 (the serve dtype), the inputs of the bf16 case
+        T, D = x.numel() // shape[-1], shape[-1]
+        r_bytes = 4 * T * D * x.element_size() + D * 4     # x, d in; res, out out; scale
+        r_flops = 5 * T * D                                 # add, square-sum, two products
+        r = dict(
+            max_abs_err=errs[torch.bfloat16],
+            ms=cuda_ms(lambda: rms_kernel.fused_add_rmsnorm(x, d, scale, 1e-6)),
+            plain_ms=cuda_ms(lambda: rms_ref.fused_add_rmsnorm_reference(x, d, scale, 1e-6)),
+            library_ms=None,
+            bound=bound(r_bytes, r_flops, torch.bfloat16),
+            work=f"{r_flops/1e6:.3f} MFLOP, {r_bytes/1e6:.4f} MB",
+        )
+        two_calls = cuda_ms(lambda: F.rms_norm(x + d, (D,), scale.to(x.dtype), 1e-6))
+        say("kernels-rmsnorm", f"{shape}: max_abs_err {errs[torch.float32]:.3e} (f32), "
+                               f"{errs[torch.bfloat16]:.3e} (bf16); bf16 kernel {r['ms']:.4f} ms, "
+                               f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms by "
+                               f"{r['bound'][1]} ({r['work']}); two PyTorch calls (x + d, "
+                               f"F.rms_norm) {two_calls:.4f} ms")
+        rows.setdefault("fused_add_rmsnorm", r)   # the first shape is the summary's row
+    say("kernels-rmsnorm", "library: none (no single PyTorch call computes add + norm); "
+                           "one block per row, up to 256 threads, each holding its 8-wide "
+                           "chunks of the row in registers")
     return rows
 
 
@@ -331,14 +440,27 @@ def phase_kernels_ssd() -> dict:
                        f"{SSD_TOL[torch.bfloat16]:g} (bf16); the padded tail changes y[:S] "
                        "and the state by at most 1e-5")
 
-    B, S, H, P, G, N, chunk = SSD_SHAPE
+    # zamba2-2.7b's state N = 64 (the kernel sizes its state columns for 128):
+    # a ragged chunk of 137 at the full 80 heads
+    for dtype in (torch.float32, torch.bfloat16):
+        _ssd_case(gen, 1, 137, 80, 64, 1, 64, 137, dtype)
+    say("kernels-ssd", "zamba2 ragged chunk x (1, 137, 80, 64), N = 64 within the same "
+                       "tolerances")
+    row = _ssd_slice_row(gen, SSD_SHAPE, SSM_ARCH)
+    _ssd_slice_row(gen, HYBRID_SSD_SHAPE, HYBRID_ARCH)
+    return {"ssd": row}
+
+
+def _ssd_slice_row(gen, shape, arch) -> dict:
+    """The scan at one slice's shape, f32 and bf16 against the plain version;
+    timed in bf16 (the serve dtype), with the final state as prefill asks for it."""
+    B, S, H, P, G, N, chunk = shape
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         errs[dtype], args, _ = _ssd_case(gen, B, S, H, P, G, N, chunk, dtype)
-    say("kernels-ssd", f"slice shape x {(B, S, H, P)}, B/C {(B, S, G, N)}, chunk {chunk}: "
+    say("kernels-ssd", f"{arch} shape x {(B, S, H, P)}, B/C {(B, S, G, N)}, chunk {chunk}: "
                        f"max_abs_err {errs[torch.float32]:.3e} (f32), "
                        f"{errs[torch.bfloat16]:.3e} (bf16)")
-    # timing in bf16 (the serve dtype), with the final state as prefill asks for it
     x, dt, A, Bm, Cm = args
     esz = x.element_size()
     s_bytes = (2 * x.numel() + Bm.numel() + Cm.numel()) * esz + (dt.numel() + A.numel()) * 4 \
@@ -359,21 +481,27 @@ def phase_kernels_ssd() -> dict:
         work=f"{least_flops/1e9:.3f} GFLOP ({tpu_flops/1e9:.3f} as the TPU kernel does them: "
              f"C B^T per head, full squares), {s_bytes/1e6:.3f} MB",
     )
-    say("kernels-ssd", f"ssd bf16: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                       f"bound {row['bound'][0]:.5f} ms by {row['bound'][1]} ({row['work']}); "
-                       "library: none (no single PyTorch call computes the SSD scan)")
-    say("kernels-ssd", f"occupancy: one block of 256 threads per (row, head) = {B * H} blocks "
-                       f"on {torch.cuda.get_device_properties(0).multi_processor_count} SMs, "
+    say("kernels-ssd", f"{arch} ssd bf16: kernel {row['ms']:.4f} ms, plain "
+                       f"{row['plain_ms']:.4f} ms, bound {row['bound'][0]:.5f} ms by "
+                       f"{row['bound'][1]} ({row['work']}); library: none (no single "
+                       "PyTorch call computes the SSD scan)")
+    say("kernels-ssd", f"{arch} occupancy: one block of 256 threads per (row, head) = "
+                       f"{B * H} blocks on "
+                       f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs, "
                        f"each walking its {nc} chunks in order")
-    return {"ssd": row}
+    return row
 
 
 def _blit(cache: dict, seq_cache: dict) -> None:
     """Copy a prefill cache into the leading entries of a zero decode cache
-    (the k/v sequence axis; the SSM leaves are the same shape)."""
+    (the k/v sequence axis; the SSM leaves are the same shape; the hybrid's
+    nested tree is walked)."""
     for name, dst in cache.items():
         src = seq_cache[name]
-        dst[tuple(slice(0, n) for n in src.shape)].copy_(src)
+        if isinstance(dst, dict):
+            _blit(dst, src)
+        else:
+            dst[tuple(slice(0, n) for n in src.shape)].copy_(src)
 
 
 def _teacher_forced(model: Model, tokens: np.ndarray, n_prefill: int) -> torch.Tensor:
@@ -480,15 +608,21 @@ def phase_serve(model: Model, tag: str) -> dict:
                                  f"with {len(r.tokens)} of {new_tokens} tokens")
         if not all(0 <= t < cfg.vocab for t in r.tokens):
             raise AssertionError(f"request {r.request_id}: token out of range")
-    L = cfg.n_layers
+    L, steps = cfg.n_layers, engine.steps
     if cfg.family == "ssm":
         # one scan per layer per prefill; decode is the plain one-token
         # recurrence (as in JAX) and launches no kernel of the repo
         need = {"ssd": n_req * L}
-        absent = ("flash_attention", "decode_attention")
+    elif cfg.family == "hybrid":
+        # the shared block runs before each of the G groups, in every prefill
+        # and every decode step; the scan once per mamba layer per prefill
+        G = L // cfg.shared_attn_every
+        need = {"flash_attention": n_req * G, "decode_attention": steps * G,
+                "fused_add_rmsnorm": (n_req + steps) * G, "ssd": n_req * L}
     else:
-        need = {"flash_attention": n_req * L, "decode_attention": engine.steps * L}
-        absent = ("ssd",)
+        need = {"flash_attention": n_req * L, "decode_attention": steps * L,
+                "fused_add_rmsnorm": (n_req + steps) * L}
+    absent = [k for k in launches if k not in need]
     if any(launches[k] < n for k, n in need.items()) or any(launches[k] != 0 for k in absent):
         raise AssertionError(f"launch counters {launches} do not meet {need}: the path "
                              "skipped a kernel or ran another family's")
@@ -512,13 +646,16 @@ def main() -> int:
     name = phase_device()
     phase_build()
     rows = phase_kernels()
+    rows.update(phase_kernels_rmsnorm())
     rows.update(phase_kernels_ssd())
-    model = phase_slice(ARCH, "slice", SLICE_BF16_TOL)
-    launches = phase_serve(model, "serve")
-    del model
-    torch.cuda.empty_cache()
-    model = phase_slice(SSM_ARCH, "slice-ssm", SLICE_SSM_BF16_TOL)
-    launches.update(phase_serve(model, "serve-ssm"))
+    launches = dict.fromkeys(rows, 0)
+    for arch, tag, tol in ((ARCH, "", SLICE_BF16_TOL), (SSM_ARCH, "-ssm", SLICE_SSM_BF16_TOL),
+                           (HYBRID_ARCH, "-hybrid", SLICE_HYBRID_BF16_TOL)):
+        model = phase_slice(arch, "slice" + tag, tol)
+        for k, n in phase_serve(model, "serve" + tag).items():
+            launches[k] += n
+        del model                               # free the weights before the next family
+        torch.cuda.empty_cache()
     kernels = []
     for kname, r in rows.items():
         kernels.append({

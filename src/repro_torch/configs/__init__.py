@@ -7,7 +7,7 @@ reached raise a ``KeyError`` that says so.
 from .base import ARCHS, ModelConfig  # noqa: F401
 
 # importing each module populates ARCHS
-from . import deepseek_67b, mamba2_2_7b, qwen1_5_0_5b, qwen2_0_5b  # noqa: F401,E402
+from . import deepseek_67b, mamba2_2_7b, qwen1_5_0_5b, qwen2_0_5b, zamba2_2_7b  # noqa: F401,E402
 
 ARCH_IDS = tuple(sorted(ARCHS))
 

@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --full \\
         --requests 16 --max-new-tokens 12
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --device cpu
 
 The flags of ``repro.launch.serve`` plus ``--device`` (default ``cuda``).
 Requests go to ``ServeEngine.submit`` directly while the engine runs in a

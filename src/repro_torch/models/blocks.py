@@ -2,8 +2,15 @@
 
 Port of the dense and SSM parts of ``repro.models.blocks``: GQA attention +
 SwiGLU MLP, and RMSNorm + Mamba2 mixer. A "layer" is the unit the model stack
-loops over. The JAX ``partition.shard_act`` calls are dropped: the port runs
-on one device.
+loops over (the hybrid family runs both). The JAX ``partition.shard_act``
+calls are dropped: the port runs on one device.
+
+The dense layer's residual add and second RMSNorm are one call,
+``kernels.rmsnorm.ops.fused_add_rmsnorm`` (the Hopper kernel on CUDA tensors).
+It differs from JAX in one place: in bf16, JAX rounds ``h + a`` to bf16 and
+normalises the rounded sum, where the fused version normalises the unrounded
+fp32 sum (the residual it returns is rounded as JAX's is). In f32 the two are
+equal.
 """
 from __future__ import annotations
 
@@ -12,6 +19,7 @@ from typing import Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..kernels.rmsnorm import ops as rmsnorm_ops
 from . import attention, layers, mamba2
 
 
@@ -31,8 +39,7 @@ def decoder_layer(p, h: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
     a, kv = attention.self_attention(
         p["attn"], hn, cfg, positions=positions, causal=True, return_kv=True, impl=impl
     )
-    h = h + a
-    hn = layers.rmsnorm(h, p["ln2"], cfg.norm_eps)
+    h, hn = rmsnorm_ops.fused_add_rmsnorm(h, a, p["ln2"]["scale"], cfg.norm_eps, impl)
     f = layers.swiglu(hn, p["ffn"])
     return h + f, 0.0, kv
 
@@ -44,8 +51,7 @@ def decoder_layer_decode(p, h: torch.Tensor, cache: dict, pos: torch.Tensor,
     a, (k, v) = attention.self_attention_decode(
         p["attn"], hn, cache["k"], cache["v"], pos, cfg, impl=impl
     )
-    h = h + a
-    hn = layers.rmsnorm(h, p["ln2"], cfg.norm_eps)
+    h, hn = rmsnorm_ops.fused_add_rmsnorm(h, a, p["ln2"]["scale"], cfg.norm_eps, impl)
     return h + layers.swiglu(hn, p["ffn"]), {"k": k, "v": v}
 
 

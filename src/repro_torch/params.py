@@ -3,7 +3,9 @@
 The JAX parameters arrive as nested dicts of numpy arrays (``jax.tree.map(
 np.asarray, params)``); the result is keyed by the pytree path joined with
 ``.`` (``layers.attn.wq``), which is exactly ``repro_torch.models.model.Model``'s
-``state_dict`` layout, layers stacked on axis 0.
+``state_dict`` layout, layers stacked on axis 0. The hybrid's keys follow its
+pytree too: ``layers.mamba.*`` stacked ``(G, PG, ...)`` and the one shared
+dense block unstacked under ``shared.*``.
 """
 from __future__ import annotations
 

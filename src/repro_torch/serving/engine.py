@@ -52,6 +52,7 @@ class ServeEngine:
         self.metrics = metrics if metrics is not None else MetricsRegistry()
 
         self.cache = model.init_cache(max_batch, max_len)
+        self.batch_axes = model.cache_batch_axes()
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         self.slot_pos = np.zeros(max_batch, np.int32)
         self.pending: List[Request] = []
@@ -85,7 +86,7 @@ class ServeEngine:
                 tokens = torch.from_numpy(req.prompt[None, :]).to(self.device)
                 logits, seq_cache = self.model.prefill({"tokens": tokens})
                 first = int(torch.argmax(logits[0]))
-                kv_cache.insert_sequence(self.cache, seq_cache, slot)
+                kv_cache.insert_sequence(self.cache, seq_cache, slot, self.batch_axes)
                 req.tokens.append(first)
                 req.first_token_at = time.monotonic()
                 self.metrics.histogram("serving.ttft_s").observe(

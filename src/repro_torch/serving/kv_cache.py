@@ -4,6 +4,8 @@ Port of ``repro.serving.kv_cache`` for the dense, SSM and hybrid families.
 """
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 
 from ..configs.base import ModelConfig
@@ -32,18 +34,28 @@ def cache_bytes(cfg: ModelConfig, batch: int, seq_len: int) -> int:
     return cfg.n_layers * per_layer + attn
 
 
-def insert_sequence(batched_cache: dict, seq_cache: dict, slot: int, batch_axis: int = 1) -> dict:
+def insert_sequence(batched_cache: dict, seq_cache: dict, slot: int,
+                    batch_axis: Union[int, dict] = 1) -> dict:
     """Place a single-sequence cache (batch dim 1) into slot `slot` of a
-    batched cache, IN PLACE. Caches are stacked over layers on axis 0, so the
-    batch axis is 1 by convention. The sequence is zero-padded up to the
+    batched cache, IN PLACE. ``batch_axis`` is one axis for every leaf or a
+    tree of axes shaped like the cache (``Model.cache_batch_axes()``): caches
+    are stacked over layers, so the batch axis follows the layer axes. It is 1
+    for the dense and ssm leaves; the hybrid nests its caches, and its
+    ``(G, PG, B, ...)`` mamba leaves take 2 where its ``(G, B, S, ...)``
+    attention leaves take 1. (The reference takes one axis for every leaf and
+    so cannot serve the hybrid.) The sequence is zero-padded up to the
     batched cache's length, as the JAX version pads it; the SSM leaves
     ({"conv", "ssm"}) have no sequence axis and are copied whole."""
     for name, dst in batched_cache.items():
         src = seq_cache[name]
-        row = dst.narrow(batch_axis, slot, 1)
+        axis = batch_axis[name] if isinstance(batch_axis, dict) else batch_axis
+        if isinstance(dst, dict):
+            insert_sequence(dst, src, slot, axis)
+            continue
+        row = dst.narrow(axis, slot, 1)
         region = row
         for d in range(src.ndim):
-            if d != batch_axis and src.shape[d] != dst.shape[d]:
+            if d != axis and src.shape[d] != dst.shape[d]:
                 region = region.narrow(d, 0, src.shape[d])
         row.zero_()
         region.copy_(src)

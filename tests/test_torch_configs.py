@@ -8,7 +8,7 @@ pytest.importorskip("torch")
 from repro import configs as jax_configs  # noqa: E402
 from repro_torch import configs as torch_configs  # noqa: E402
 
-PORTED = ("qwen2-0.5b", "qwen1.5-0.5b", "deepseek-67b", "mamba2-2.7b")
+PORTED = ("qwen2-0.5b", "qwen1.5-0.5b", "deepseek-67b", "mamba2-2.7b", "zamba2-2.7b")
 
 
 def test_port_lists_exactly_the_ported_archs():
@@ -26,7 +26,7 @@ def test_config_equals_reference(arch, which):
     assert ours.param_count() == theirs.param_count()
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "qwen2-moe-a2.7b", "whisper-small", "no-such"])
+@pytest.mark.parametrize("arch", ["internvl2-26b", "qwen2-moe-a2.7b", "whisper-small", "no-such"])
 def test_unported_arch_raises_clear_keyerror(arch):
     with pytest.raises(KeyError, match="not ported to repro_torch"):
         torch_configs.get_config(arch)

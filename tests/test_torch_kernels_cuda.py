@@ -8,7 +8,8 @@ also runs where JAX is not installed:
 
 Tolerances are the reference's: 2e-5 f32, 2e-2 bf16 for attention
 (tests/test_kernels_flash.py:18); 1e-4 f32, 5e-2 bf16 for the SSD scan
-(tests/test_kernels_ssd.py:10).
+(tests/test_kernels_ssd.py:10); 1e-6 f32, 1e-2 bf16 for the fused add +
+RMSNorm (tests/test_kernels_rmsnorm.py:10).
 """
 import numpy as np
 import pytest
@@ -18,6 +19,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as tkernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as tref  # noqa: E402
+from repro_torch.kernels.rmsnorm import kernel as rms_kernel  # noqa: E402
+from repro_torch.kernels.rmsnorm import ref as rms_ref  # noqa: E402
 from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
@@ -33,6 +36,8 @@ SHAPES = [  # B, Sq, Skv, H, KV, hd — the sweep of tests/test_kernels_flash.py
     (2, 32, 256, 4, 4, 64),
     (1, 512, 512, 14, 2, 64),
     (1, 70, 70, 8, 1, 128),
+    (1, 512, 512, 32, 32, 80),   # zamba2-2.7b's shared block: MHA (G = 1), hd 80
+    (2, 100, 100, 32, 32, 80),
 ]
 SWEEP = [(s, c) for s in SHAPES for c in (True, False) if not (c and s[1] != s[2])]
 
@@ -99,6 +104,22 @@ def test_decode_kernel_matches_plain(kv, dtype, cuda_device):
             rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_decode_kernel_at_the_hybrid_shape(dtype, cuda_device):
+    """zamba2-2.7b's shared block: 8 slots of a 1024-long cache, 32 heads over
+    32 KV heads (G = 1), hd 80, ragged lengths including an empty-but-one and
+    a full row."""
+    B, S, H, hd = 8, 1024, 32, 80
+    tdt, tol = DTYPES[dtype]
+    q, kc, vc = _inputs(cuda_device, tdt, 9, (B, 1, H, hd), (B, S, H, hd), (B, S, H, hd))
+    pos = torch.tensor([0, 675, 555, 323, 360, 104, 137, S - 1], device=cuda_device)
+    out = tkernel.decode_attention(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(),
+                               tref.decode_attention_reference(q, kc, vc, pos).float(),
+                               rtol=tol, atol=tol)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda_device):
     q, k, v = _inputs(cuda_device, torch.float32, 3, (1, 8, 4, 16), (1, 8, 2, 16), (1, 8, 2, 16))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -119,6 +140,8 @@ SSD_SWEEP = [  # B, S, H, P, G, N, chunk — tests/test_kernels_ssd.py:41-46, th
     (2, 64, 8, 64, 4, 16, 64),
     (1, 137, 4, 64, 1, 128, 137),   # a ragged chunk: S = chunk = 137
     (1, 512, 80, 64, 1, 128, 256),
+    (1, 512, 80, 64, 1, 64, 256),    # zamba2-2.7b: state N = 64
+    (1, 137, 80, 64, 1, 64, 137),    # ... and a ragged chunk
 ]
 
 
@@ -194,12 +217,72 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda_device):
         ssd_kernel.ssd(x, dt.bfloat16(), A, Bm, Cm, chunk=16)
 
 
+RMS_DTYPES = {"float32": (torch.float32, 1e-6), "bfloat16": (torch.bfloat16, 1e-2)}
+RMS_SHAPES = [  # tests/test_kernels_rmsnorm.py:14, then the slices' prefill and decode rows
+    (4, 32, 64), (2, 100, 128), (1, 8, 256), (7, 96),
+    (1, 512, 896), (8, 1, 896), (1, 512, 2560), (8, 1, 2560),
+]
+
+
+def _rms_inputs(device, dtype, seed, shape):
+    r = np.random.default_rng(seed)
+    x, d = (torch.from_numpy(r.standard_normal(shape).astype(np.float32)).to(device, dtype)
+            for _ in range(2))
+    scale = torch.from_numpy((np.abs(r.standard_normal(shape[-1])) + 0.5).astype(np.float32))
+    return x, d, scale.to(device)
+
+
+@pytest.mark.parametrize("dtype", list(RMS_DTYPES))
+@pytest.mark.parametrize("shape", RMS_SHAPES, ids=str)
+def test_fused_add_rmsnorm_kernel_matches_plain(shape, dtype, cuda_device):
+    tdt, tol = RMS_DTYPES[dtype]
+    x, d, scale = _rms_inputs(cuda_device, tdt, 10, shape)
+    before = rms_kernel.LAUNCHES["fused_add_rmsnorm"]
+    res, out = rms_kernel.fused_add_rmsnorm(x, d, scale, 1e-6)
+    torch.cuda.synchronize()
+    assert rms_kernel.LAUNCHES["fused_add_rmsnorm"] == before + 1
+    assert res.dtype == out.dtype == tdt and res.shape == out.shape == shape
+    want_res, want_out = rms_ref.fused_add_rmsnorm_reference(x, d, scale, 1e-6)
+    assert torch.equal(res, want_res)  # one rounding of the same fp32 sum
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=tol, atol=tol)
+
+
+def test_fused_add_rmsnorm_kernel_takes_strided_rows(cuda_device):
+    """Rows of x and delta that are views of wider tensors (row strides of
+    their own), as a slice of a wider activation hands them over."""
+    wide_x, wide_d, scale = _rms_inputs(cuda_device, torch.bfloat16, 11, (6, 2560 + 64))
+    x, d = wide_x[:, :2560], wide_d[:, 64:]
+    res, out = rms_kernel.fused_add_rmsnorm(x, d, scale[:2560].contiguous())
+    want = rms_ref.fused_add_rmsnorm_reference(x, d, scale[:2560])
+    assert torch.equal(res, want[0])
+    torch.testing.assert_close(out.float(), want[1].float(), rtol=1e-2, atol=1e-2)
+
+
+def test_fused_add_rmsnorm_kernel_refuses_what_it_does_not_take(cuda_device):
+    x, d, scale = _rms_inputs(cuda_device, torch.float32, 12, (4, 64))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        rms_kernel.fused_add_rmsnorm(x.half(), d.half(), scale)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        rms_kernel.fused_add_rmsnorm(x[:, :60], d[:, :60], scale[:60])
+    square = torch.randn(64, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="unit stride"):
+        rms_kernel.fused_add_rmsnorm(square.t(), square.t(), scale)
+    with pytest.raises(ValueError, match="scale must be"):
+        rms_kernel.fused_add_rmsnorm(x, d, scale.bfloat16())
+    with pytest.raises(ValueError, match="must match"):
+        rms_kernel.fused_add_rmsnorm(x, d[:2], scale)
+
+
 def _blit(cache: dict, seq: dict) -> None:
     for name, dst in cache.items():
-        dst[tuple(slice(0, n) for n in seq[name].shape)] = seq[name]
+        if isinstance(dst, dict):
+            _blit(dst, seq[name])
+        else:
+            dst[tuple(slice(0, n) for n in seq[name].shape)] = seq[name]
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen1.5-0.5b", "deepseek-67b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen1.5-0.5b", "deepseek-67b", "mamba2-2.7b",
+                                  "zamba2-2.7b"])
 def test_model_kernel_path_matches_plain_path(arch, cuda_device):
     """Prefill + decode of a reduced model through the kernels against the
     same model with impl="ref" (f32: the decode-equivalence tolerances)."""

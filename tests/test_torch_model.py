@@ -1,4 +1,4 @@
-"""The port's dense and SSM models against the JAX package's, on weights carried across.
+"""The port's dense, SSM and hybrid models against the JAX package's, on weights carried across.
 
 JAX ``Model.init`` parameters go through ``repro_torch.params`` into the
 port; both packages then run the same numpy batch (reduced configs, f32).
@@ -22,7 +22,7 @@ from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving.kv_cache import insert_sequence  # noqa: E402
 
-ARCHS = ("qwen2-0.5b", "qwen1.5-0.5b", "deepseek-67b", "mamba2-2.7b")
+ARCHS = ("qwen2-0.5b", "qwen1.5-0.5b", "deepseek-67b", "mamba2-2.7b", "zamba2-2.7b")
 B, S, PREFILL = 2, 24, 16
 
 
@@ -58,10 +58,14 @@ def test_forward_logits_match_jax(arch):
 
 def _blit(cache: dict, seq_cache: dict) -> None:
     """Copy a prefill cache into the leading entries of a zero decode cache
-    (the k/v sequence axis; the SSM leaves are the same shape)."""
+    (the k/v sequence axis; the SSM leaves are the same shape; the hybrid's
+    tree is walked)."""
     for name, dst in cache.items():
         src = seq_cache[name]
-        dst[tuple(slice(0, n) for n in src.shape)] = src
+        if isinstance(dst, dict):
+            _blit(dst, src)
+        else:
+            dst[tuple(slice(0, n) for n in src.shape)] = src
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -94,7 +98,7 @@ def test_vector_pos_decode_matches_jax(arch):
         for row, n in enumerate(starts):
             logits, seq_cache = model.prefill({"tokens": tokens[row:row + 1, :n]})
             np.testing.assert_allclose(logits[0].numpy(), ref[row, n - 1], rtol=2e-4, atol=2e-4)
-            insert_sequence(cache, seq_cache, row)
+            insert_sequence(cache, seq_cache, row, model.cache_batch_axes())
         for i in range(S - PREFILL - 1):
             pos = torch.tensor([n + i for n in starts], dtype=torch.int32)
             tok = torch.stack([tokens[row, p] for row, p in enumerate(pos.tolist())])[:, None]
@@ -130,8 +134,15 @@ def test_state_dict_keys_and_shapes_are_the_jax_pytree(arch):
     ours = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     assert ours == {k: tuple(v.shape) for k, v in flat.items()}
     cfg = model.cfg
+    d_in = cfg.ssm.d_inner(cfg.d_model) if cfg.ssm else 0
     if cfg.family == "ssm":
-        assert ours["layers.mamba.wx"] == (cfg.n_layers, cfg.d_model, cfg.ssm.d_inner(cfg.d_model))
+        assert ours["layers.mamba.wx"] == (cfg.n_layers, cfg.d_model, d_in)
+    elif cfg.family == "hybrid":
+        G, PG = cfg.n_layers // cfg.shared_attn_every, cfg.shared_attn_every
+        assert ours["layers.mamba.wx"] == (G, PG, cfg.d_model, d_in)
+        assert ours["layers.ln.scale"] == (G, PG, cfg.d_model)
+        assert ours["shared.attn.wq"] == (cfg.d_model, cfg.n_heads, cfg.hd)
+        assert ours["shared.ln2.scale"] == (cfg.d_model,)
     else:
         assert ours["layers.attn.wq"] == (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.hd)
 
@@ -169,6 +180,58 @@ def test_to_state_dict_keeps_the_ssm_fp32_leaves_fp32():
     for name in ("A_log", "D", "dt_bias", "norm"):
         assert sd[f"layers.mamba.{name}"].dtype == torch.float32, name
     assert sd["layers.ln.scale"].dtype == torch.float32
+
+
+def test_to_state_dict_keeps_the_hybrid_fp32_leaves_fp32():
+    _, jparams, _ = _pair("zamba2-2.7b")
+    sd = tparams.to_state_dict(jax.tree.map(np.asarray, jparams), "cpu", dtype=torch.bfloat16)
+    for name in ("layers.mamba.wx", "layers.mamba.conv_w", "shared.attn.wq", "shared.ffn.wo"):
+        assert sd[name].dtype == torch.bfloat16, name
+    for name in ("layers.mamba.A_log", "layers.mamba.D", "layers.mamba.dt_bias",
+                 "layers.mamba.norm", "layers.ln.scale", "shared.ln1.scale",
+                 "shared.ln2.scale", "final_norm.scale"):
+        assert sd[name].dtype == torch.float32, name
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+@pytest.mark.parametrize("S", [3, 5, 16, 19])
+def test_hybrid_prefill_cache_matches_jax_leaf_by_leaf(S):
+    """The hybrid's nested prefill cache: the shared block's k/v per group
+    and every mamba layer's conv tail and final state, (G, PG, 1, ...)."""
+    jmodel, jparams, model = _pair("zamba2-2.7b")
+    batch, _ = _reference_logits("zamba2-2.7b")
+    tokens = batch["tokens"][:1, :S]
+    _, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(tokens)})
+    with torch.inference_mode():
+        _, cache = model.prefill({"tokens": torch.from_numpy(tokens)})
+    ours, theirs = dict(_leaves(cache)), dict(_leaves(jcache))
+    assert set(ours) == set(theirs) == {"attn.k", "attn.v", "mamba.conv", "mamba.ssm"}
+    for name, t in ours.items():
+        assert t.shape == theirs[name].shape, name
+        np.testing.assert_allclose(t.numpy(), np.asarray(theirs[name]), rtol=2e-4, atol=2e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b", "qwen2-0.5b"])
+def test_init_cache_tree_and_batch_axes_are_the_jax_ones(arch):
+    jmodel, _, model = _pair(arch)
+    jcache, _ = jmodel.init_cache(3, 10)
+    cache = model.init_cache(3, 10)
+    ours, theirs = dict(_leaves(cache)), dict(_leaves(jcache))
+    assert {k: tuple(v.shape) for k, v in ours.items()} == \
+        {k: tuple(v.shape) for k, v in theirs.items()}
+    axes = dict(_leaves(model.cache_batch_axes()))
+    assert set(axes) == set(ours)
+    for name, t in ours.items():
+        assert t.shape[axes[name]] == 3, name
+        assert str(t.dtype).split(".")[-1] == str(theirs[name].dtype), name
 
 
 @pytest.mark.parametrize("S", [3, 5, 16, 19])

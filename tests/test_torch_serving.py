@@ -1,7 +1,10 @@
 """The port's serve engine: twins of tests/test_serving_and_training.py's engine
 tests, plus cross-package tests (the port's engine and the JAX engine give
 the same greedy tokens on the same carried weights), for the dense and the
-SSM family."""
+SSM family. The JAX engine cannot serve the hybrid family (its
+``insert_sequence`` takes batch axis 1 for the (G, PG, B, ...) mamba leaves),
+so the hybrid engine is held against the JAX ``Model.prefill`` /
+``decode_step`` stream driven by hand."""
 import threading
 import time
 
@@ -41,6 +44,17 @@ def ssm_model():
     jmodel = JaxModel(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
     model = Model(get_reduced("mamba2-2.7b").with_(dtype="float32"), device="cpu")
+    model.load_state_dict(tparams.to_state_dict(jax.tree.map(np.asarray, jparams), "cpu"))
+    return jmodel, jparams, model
+
+
+@pytest.fixture(scope="module")
+def hybrid_model():
+    """zamba2-2.7b reduced, f32: JAX weights and the port holding the same."""
+    jcfg = jax_reduced("zamba2-2.7b").with_(dtype="float32")
+    jmodel = JaxModel(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    model = Model(get_reduced("zamba2-2.7b").with_(dtype="float32"), device="cpu")
     model.load_state_dict(tparams.to_state_dict(jax.tree.map(np.asarray, jparams), "cpu"))
     return jmodel, jparams, model
 
@@ -178,6 +192,106 @@ def test_ssm_engine_slots_reused(ssm_model):
     assert engine.stats()["pending"] == 0
 
 
+def test_hybrid_engine_matches_sequential_greedy(hybrid_model):
+    """Prompts of 1 and 2 tokens included (shorter than the conv's K-1 = 3),
+    more requests than slots, so slots are refilled mid-run."""
+    _, _, model = hybrid_model
+    engine = ServeEngine(model, max_batch=2, max_len=48)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, model.cfg.vocab, n) for n in (1, 2, 3, 9, 20)]
+    reqs = [engine.submit(p, max_new_tokens=4) for p in prompts]
+    engine.run_until_drained(timeout=120)
+    for p, r in zip(prompts, reqs):
+        assert r.done.is_set()
+        expected = _greedy_reference(model, p, 4)
+        assert r.tokens == expected, (len(p), r.tokens, expected)
+
+
+def _jax_greedy_stream(jmodel, jparams, prompt, n_new, max_len):
+    """JAX Model.prefill then decode_step by hand at B = 1 (scalar positions):
+    the prefill cache zero-padded to max_len along the attention leaves'
+    sequence axis, the mamba leaves taken as they are."""
+    logits, seq = jmodel.prefill(jparams, {"tokens": jnp.asarray(prompt[None], jnp.int32)})
+    cache, _ = jmodel.init_cache(1, max_len)
+    cache = {"attn": jax_kv_cache.insert_sequence(cache["attn"], seq["attn"], 0),
+             "mamba": seq["mamba"]}
+    out = [int(jnp.argmax(logits[0]))]
+    for i in range(n_new - 1):
+        tok = jnp.asarray([[out[-1]]], jnp.int32)
+        logits, cache = jmodel.decode_step(jparams, tok, cache, jnp.int32(len(prompt) + i))
+        out.append(int(jnp.argmax(logits[0])))
+    return out
+
+
+def test_hybrid_engine_tokens_equal_jax_stream(hybrid_model):
+    """Cross-package on prompts of >= 3 tokens (where the reference's conv
+    tail is right): same carried weights, same prompts -> same greedy tokens."""
+    jmodel, jparams, model = hybrid_model
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, model.cfg.vocab, n) for n in (6, 17, 3, 8)]
+    ours = ServeEngine(model, max_batch=2, max_len=40)
+    treqs = [ours.submit(p, max_new_tokens=6) for p in prompts]
+    ours.run_until_drained(timeout=120)
+    for p, r in zip(prompts, treqs):
+        assert r.tokens == _jax_greedy_stream(jmodel, jparams, np.asarray(p), 6, 40), len(p)
+
+
+def test_hybrid_engine_slots_reused(hybrid_model):
+    _, _, model = hybrid_model
+    engine = ServeEngine(model, max_batch=2, max_len=32)
+    rng = np.random.default_rng(10)
+    reqs = [engine.submit(rng.integers(0, model.cfg.vocab, 4), max_new_tokens=3)
+            for _ in range(5)]  # 5 requests > 2 slots
+    engine.run_until_drained(timeout=120)
+    assert all(r.done.is_set() and len(r.tokens) == 3 for r in reqs)
+    assert engine.stats()["pending"] == 0
+    assert engine.stats()["cache"] == summarize(model.cfg, 2, 32)
+
+
+def test_insert_sequence_puts_each_leaf_at_its_own_batch_axis(hybrid_model):
+    """The hybrid's nested cache: attention leaves (G, B, S, KV, hd) take the
+    slot on axis 1, mamba leaves (G, PG, B, ...) on axis 2; other slots keep
+    their contents."""
+    _, _, model = hybrid_model
+    G, PG = 2, 2
+    cache = model.init_cache(3, 12)
+    for _, leaf in _tree_leaves(cache):
+        leaf.fill_(7.0)
+    with torch.inference_mode():
+        _, seq = model.prefill({"tokens": torch.tensor([[5, 9, 11, 4, 2]])})
+    insert_sequence(cache, seq, 1, model.cache_batch_axes())
+    for layer in ("k", "v"):
+        dst, src = cache["attn"][layer], seq["attn"][layer]
+        assert dst.shape[:2] == (G, 3)
+        torch.testing.assert_close(dst[:, 1:2, :5], src, rtol=0, atol=0)
+        assert (dst[:, 1, 5:] == 0).all()
+        assert (dst[:, 0] == 7).all() and (dst[:, 2] == 7).all()
+    for name in ("conv", "ssm"):
+        dst, src = cache["mamba"][name], seq["mamba"][name]
+        assert dst.shape[:3] == (G, PG, 3)
+        torch.testing.assert_close(dst[:, :, 1:2], src, rtol=0, atol=0)
+        assert (dst[:, :, 0] == 7).all() and (dst[:, :, 2] == 7).all()
+
+
+def test_insert_sequence_one_axis_for_the_hybrid_is_the_reference_fault(hybrid_model):
+    """One batch axis for every leaf (the reference's rule) cannot place the
+    mamba leaves: their axis 1 is the layer-in-group axis."""
+    _, _, model = hybrid_model
+    cache = model.init_cache(3, 12)
+    with torch.inference_mode():
+        _, seq = model.prefill({"tokens": torch.tensor([[5, 9, 11]])})
+    with pytest.raises(RuntimeError):
+        insert_sequence(cache, seq, 1)
+
+
+def _tree_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _tree_leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
 def test_cache_bytes_analytical():
     cfg = get_reduced("qwen1.5-0.5b")
     b = cache_bytes(cfg, batch=2, seq_len=64)
@@ -186,7 +300,8 @@ def test_cache_bytes_analytical():
     assert summarize(cfg, 2, 64)["bytes_per_seq"] == expected // 2
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen1.5-0.5b", "deepseek-67b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen1.5-0.5b", "deepseek-67b", "mamba2-2.7b",
+                                  "zamba2-2.7b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cache_bytes_equals_reference(arch, dtype):
     from repro_torch.configs import get_config
@@ -207,3 +322,11 @@ def test_insert_sequence_pads_like_the_reference():
     ours = insert_sequence({"k": torch.from_numpy(dst.copy())}, {"k": torch.from_numpy(src)}, 1)
     np.testing.assert_array_equal(ours["k"].numpy(), np.asarray(theirs["k"]))
     assert (ours["k"][:, 1, n:] == 0).all()  # stale entries past the prompt are zeroed
+
+
+def test_hybrid_cache_bytes_counts_the_allocated_cache(hybrid_model):
+    """cache_bytes of the hybrid is what init_cache allocates, leaf by leaf."""
+    _, _, model = hybrid_model
+    cache = model.init_cache(4, 20)
+    allocated = sum(t.numel() * t.element_size() for _, t in _tree_leaves(cache))
+    assert cache_bytes(model.cfg, 4, 20) == allocated

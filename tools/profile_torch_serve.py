@@ -3,8 +3,8 @@
 
     python tools/profile_torch_serve.py [--arch mamba2-2.7b] [--steps 20] [--trace out.json]
 
-Builds a full-width bf16 model (``--arch``: qwen2-0.5b by default, or
-mamba2-2.7b; random weights, seed 0) and a ServeEngine
+Builds a full-width bf16 model (``--arch``: qwen2-0.5b by default,
+mamba2-2.7b or zamba2-2.7b; random weights, seed 0) and a ServeEngine
 (max_batch 8, max_len 1024), fills its 8 slots with prompts of 64..512 tokens,
 then profiles two windows through the engine's own entry points: one admission
 (a prefill of one 512-token prompt plus its cache insertion) and ``--steps``
@@ -61,7 +61,8 @@ def _window(name: str, fn, n: int, trace: str = "") -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", choices=["qwen2-0.5b", "mamba2-2.7b"], default="qwen2-0.5b")
+    ap.add_argument("--arch", choices=["qwen2-0.5b", "mamba2-2.7b", "zamba2-2.7b"],
+                    default="qwen2-0.5b")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--trace", default="", help="write the decode window's chrome trace here")
     args = ap.parse_args()
