@@ -12,9 +12,11 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      for sm_90a, one nvcc per source, all started together.
 3. kernels          - hold each attention kernel against its plain PyTorch version
                      (ref.py) at 2e-5 (f32) / 2e-2 (bf16) on the reference's test
-                     shapes and the slices' own shapes (qwen2-0.5b GQA hd 64,
-                     zamba2-2.7b MHA hd 80); time kernel, plain version and
-                     ``F.scaled_dot_product_attention`` (a yardstick only) there.
+                     shapes, prefill at hd 80, 128 and 24 (the bf16 wgmma kernel's
+                     two-slab and zero-padded head dims), decode at lengths around
+                     the split-KV boundary, and the slices' own shapes (qwen2-0.5b
+                     GQA hd 64, zamba2-2.7b MHA hd 80); time kernel, plain version
+                     and ``F.scaled_dot_product_attention`` (a yardstick only) there.
 4. kernels-rmsnorm  - hold the fused add + RMSNorm kernel against its plain
                      version at 1e-6 (f32) / 1e-2 (bf16) on the reference's sweep
                      and the slices' rows (d_model 896 and 2560, 512-token prefill
@@ -277,8 +279,22 @@ def phase_kernels() -> dict:
         _decode_case(gen, 3, 32, 4, 2, 16, dtype,
                      torch.tensor([3, 17, 31], dtype=torch.int32, device=DEVICE))
         n += 3 + 7
+        # hd in 64-column slabs: two at 80 and 128, one zero-padded at 24
+        for hd in (80, 128, 24):
+            for causal in (True, False):
+                _prefill_case(gen, 2, 130, 130, 6, 3, hd, dtype, causal)
+                n += 1
+        # decode lengths around the split-KV boundary, and a full cache, in one batch
+        split = attn_kernel.DECODE_SPLIT
+        S = 3 * split + 44
+        lens = torch.tensor([1, split - 1, split, split + 1, S], device=DEVICE)
+        for H, KV in ((4, 4), (14, 2)):
+            _decode_case(gen, len(lens), S, H, KV, 80, dtype, lens - 1)
+            n += 1
     say("kernels", f"{n} reference-sweep cases within {TOL[torch.float32]:g} (f32) / "
-                   f"{TOL[torch.bfloat16]:g} (bf16)")
+                   f"{TOL[torch.bfloat16]:g} (bf16), among them prefill at hd 80, 128, 24 "
+                   f"and decode lengths 1, {split - 1}, {split}, {split + 1}, {S} "
+                   f"(split {split}) at G = 1 and 7")
 
     rng = np.random.default_rng(0)
     B, S = DECODE_SHAPE[:2]
@@ -335,8 +351,14 @@ def _attn_slice_rows(gen, prefill_shape, decode_shape, pos_np, arch) -> dict:
         say("kernels", f"{arch} {name} bf16: kernel {r['ms']:.4f} ms, plain "
                        f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
                        f"{r['bound'][0]:.5f} ms by {r['bound'][1]} ({r['work']})")
-    say("kernels", f"{arch} occupancy: prefill {-(-Sp // 64) * Hp * Bp} blocks, decode one "
-                   f"block per (row, KV head) = {B * KV} blocks, of 256 threads on "
+    split = attn_kernel.DECODE_SPLIT
+    n_split, live = -(-S // split), int(np.sum(-(-lens // split)))
+    say("kernels", f"{arch} occupancy: prefill (bf16) one warpgroup of 128 threads per "
+                   f"(head, row, 64-row query tile) = {Hp} x {Bp} x {-(-Sp // 64)} = "
+                   f"{-(-Sp // 64) * Hp * Bp} blocks; decode pass 1 one block of 128 threads "
+                   f"per (split of {split}, KV head, row) = {n_split} x {KV} x {B} = "
+                   f"{n_split * KV * B} blocks ({live * KV} live at these lengths), pass 2 "
+                   f"one per (head, row) = {H * B}; on "
                    f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     return rows
 

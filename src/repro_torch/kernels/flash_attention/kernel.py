@@ -3,7 +3,8 @@
 - ``flash_attention``: prefill, replaces ``flash_attention_pallas``
   (src/repro/kernels/flash_attention/kernel.py:107).
 - ``decode_attention``: one token against the cache, replaces
-  ``decode_attention_pallas`` (same file, :173).
+  ``decode_attention_pallas`` (same file, :173). One call is two device
+  launches (split-KV, then the combine); ``LAUNCHES`` counts calls.
 
 A wrapper given CPU tensors computes the plain version in ``ref.py``, and only
 then. Given CUDA tensors it checks them, allocates the output with
@@ -34,6 +35,9 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh kFloat32/kBFloat16
 _MAX_HD = 128
+# cache positions per split of the decode kernel's first pass
+# (csrc/decode_attention.cu kSplit, checked when the library loads)
+DECODE_SPLIT = 128
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -44,8 +48,9 @@ _ARGTYPES = {
     # q_offset, stream
     "flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I64P, _I64P, _I64P, _F, _I, _I, _P],
-    # q, k_cache, v_cache, o, lens, dtype, B, S, H, KV, hd, q/k/v strides, scale, stream
-    "decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    # q, k_cache, v_cache, o, pos, pos is int64, pos stride, scratch, dtype, B, S, H,
+    # KV, hd, q/k/v strides, scale, stream
+    "decode_attention": [_P, _P, _P, _P, _P, _I, ctypes.c_int64, _P, _I, _I, _I, _I, _I, _I,
                          _I64P, _I64P, _I64P, _F, _P],
 }
 
@@ -68,6 +73,10 @@ def build() -> Dict[str, dict]:
                 fn.restype = ctypes.c_int
                 lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
                 lib.repro_cuda_error_string.restype = ctypes.c_char_p
+                if name == "decode_attention" and lib.decode_attention_split() != DECODE_SPLIT:
+                    raise RuntimeError(f"decode_attention.cu splits by "
+                                       f"{lib.decode_attention_split()}, kernel.py by "
+                                       f"{DECODE_SPLIT}")
                 _libs[name] = lib
     return {name: results[src] for name, src in SOURCES.items()}
 
@@ -93,7 +102,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         if t.ndim != 4 or t.stride(-1) != 1:
             raise ValueError(f"{name} must be 4-D with a unit stride on head_dim: "
                              f"shape {tuple(t.shape)}, strides {t.stride()}")
-        # the kernels read rows as 16-byte vectors (csrc/common.cuh Vec8)
+        # the kernels read rows as 16-byte vectors, cp.async copies and TMA boxes
         if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
             raise ValueError(f"{name} must be 16-byte aligned with strides in multiples "
                              f"of 8 elements: strides {t.stride()}")
@@ -169,11 +178,20 @@ def decode_attention(q, k_cache, v_cache, pos, *, scale: Optional[float] = None)
     o = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
-    lens = _lengths(torch.as_tensor(pos, device=q.device) + 1, B, q.device)
+    # the kernels read pos (int32 or int64) themselves: no host sync, no extra launch
+    pos = torch.as_tensor(pos, device=q.device)
+    if pos.dtype not in (torch.int32, torch.int64):
+        pos = pos.to(torch.int64)
+    if pos.shape not in ((), (B,)):
+        raise ValueError(f"pos must be a scalar or ({B},), got {tuple(pos.shape)}")
+    # per (row, split, head): the split's accumulator (hd), max and sum, fp32
+    n_split = -(-S // DECODE_SPLIT)
+    scratch = torch.empty(B * n_split * H * (hd + 2), dtype=torch.float32, device=q.device)
     lib = _lib("decode_attention")
     err = lib.decode_attention_launch(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(), lens.data_ptr(),
-        _DTYPE_CODES[q.dtype], B, S, H, KV, hd,
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(), pos.data_ptr(),
+        int(pos.dtype == torch.int64), pos.stride(0) if pos.ndim else 0,
+        scratch.data_ptr(), _DTYPE_CODES[q.dtype], B, S, H, KV, hd,
         _strides(q, (0, 2)), _strides(k_cache, (0, 1, 2)), _strides(v_cache, (0, 1, 2)),
         float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )

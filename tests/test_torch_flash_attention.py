@@ -167,3 +167,90 @@ def test_fully_masked_rows_stay_finite():
     out = tref.mha_reference(q, k, v, causal=False, kv_len=0)
     assert torch.isfinite(out).all()
 
+
+
+# ------------------------------------------- the kernels' decompositions, in plain torch
+def _split_kv_decode(q, k, v, pos, split):
+    """The decode kernel's algorithm: per split of ``split`` cache positions a
+    local max, sum and unnormalised accumulator; then a log-sum-exp merge of
+    the live splits of each row (csrc/decode_attention.cu, passes 1 and 2)."""
+    B, _, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    out = torch.zeros(B, H, hd)
+    for b in range(B):
+        L = min(max(int(pos[b]) + 1, 0), S)
+        qg = q[b, 0].float().reshape(KV, G, hd)
+        parts = []
+        for s0 in range(0, L, split):
+            kk, vv = k[b, s0:min(s0 + split, L)].float(), v[b, s0:min(s0 + split, L)].float()
+            s = torch.einsum("kgd,nkd->kgn", qg, kk) * hd ** -0.5
+            m = s.amax(-1)
+            p = torch.exp(s - m[..., None])
+            parts.append((m, p.sum(-1), torch.einsum("kgn,nkd->kgd", p, vv)))
+        if not parts:
+            continue
+        M = torch.stack([m for m, _, _ in parts]).amax(0)
+        num = sum(torch.exp(m - M)[..., None] * acc for m, _, acc in parts)
+        den = sum(torch.exp(m - M) * l for m, l, _ in parts)
+        out[b] = (num / den[..., None]).reshape(H, hd)
+    return out[:, None]
+
+
+@pytest.mark.parametrize("lens", ["1", "split", "split+1", "S", "mix"])
+@pytest.mark.parametrize("H,KV,hd", [(14, 2, 64), (4, 4, 80)], ids=["qwen2-heads", "zamba2-heads"])
+def test_split_kv_decode_matches_jax(H, KV, hd, lens):
+    """The split-KV decomposition at the SPLIT the kernel uses, in f32 against
+    JAX's reference: lengths 1, SPLIT, SPLIT + 1, the whole cache and a mix."""
+    split = tkernel.DECODE_SPLIT
+    S = 3 * split + 44
+    per_row = {"1": [1] * 2, "split": [split] * 2, "split+1": [split + 1] * 2, "S": [S] * 2,
+               "mix": [1, split - 1, split, split + 1, 2 * split + 7, S]}[lens]
+    B = len(per_row)
+    arrs = _inputs(10, (B, 1, H, hd), (B, S, KV, hd), (B, S, KV, hd))
+    (jq, jk, jv), (q, k, v) = _both(arrs, "float32")
+    pos = np.array(per_row, np.int32) - 1
+    _close(_split_kv_decode(q, k, v, pos, split),
+           jref.decode_attention_reference(jq, jk, jv, jnp.asarray(pos)), 2e-5)
+
+
+def _blocked_prefill_p_bf16(q, k, v, block=64):
+    """The bf16 prefill kernel's algorithm: causal, 64 x 64 tiles, fp32 scores,
+    an online softmax in log2 units, P rounded to bf16 before P V, the fp32
+    accumulator divided by the row sum at the end (csrc/flash_attention.cu)."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale_log2 = hd ** -0.5 * 1.4426950408889634
+    qg = q.float().reshape(B, Sq, KV, G, hd)
+    kf, vf = k.float(), v.float()
+    out = torch.zeros(B, Sq, KV, G, hd)
+    for q0 in range(0, Sq, block):
+        rows = torch.arange(q0, min(q0 + block, Sq))
+        m = torch.full((B, KV, G, len(rows)), tref.NEG_INF)
+        l = torch.zeros(B, KV, G, len(rows))
+        acc = torch.zeros(B, KV, G, len(rows), hd)
+        for k0 in range(0, min(Skv, int(rows[-1]) + 1), block):
+            keys = torch.arange(k0, min(k0 + block, Skv))
+            s = torch.einsum("brkgd,bnkd->bkgrn", qg[:, rows], kf[:, keys]) * scale_log2
+            s = torch.where(keys[None, :] <= rows[:, None], s, tref.NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            m_use = torch.where(m_new == tref.NEG_INF, 0.0, m_new)
+            p = torch.exp2(s - m_use[..., None])
+            corr = torch.exp2(m - m_use)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgrn,bnkd->bkgrd", p.to(torch.bfloat16).float(), vf[:, keys])
+            m = m_new
+        out[:, rows] = (acc / l[..., None]).permute(0, 3, 1, 2, 4)
+    return out.reshape(B, Sq, H, hd).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", [(1, 200, 14, 2, 64), (1, 200, 32, 32, 80)],
+                         ids=["qwen2-heads", "zamba2-heads"])
+def test_blocked_prefill_with_bf16_p_matches_jax(B, S, H, KV, hd):
+    """Rounding P to bf16 before P V (the one place the wgmma kernel departs
+    from ref.py's fp32 P) stays inside the bf16 tolerance of 2e-2."""
+    arrs = _inputs(11, (B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))
+    (jq, jk, jv), (q, k, v) = _both(arrs, "bfloat16")
+    _close(_blocked_prefill_p_bf16(q, k, v), jref.mha_reference(jq, jk, jv, causal=True), 2e-2)

@@ -82,7 +82,10 @@ def test_flash_kernel_masks(kw, dtype, cuda_device):
     q, k, v = _inputs(cuda_device, tdt, 1, (2, Sq, 4, 16), (2, 64, 2, 16), (2, 64, 2, 16))
     if isinstance(kw.get("kv_len"), list):
         kw = {"kv_len": torch.tensor(kw["kv_len"], device=cuda_device)}
+    before = tkernel.LAUNCHES["flash_attention"]
     out = tkernel.flash_attention(q, k, v, causal=causal, **kw)
+    torch.cuda.synchronize()
+    assert tkernel.LAUNCHES["flash_attention"] == before + 1
     torch.testing.assert_close(out.float(),
                                tref.mha_reference(q, k, v, causal=causal, **kw).float(),
                                rtol=tol, atol=tol)
@@ -113,8 +116,125 @@ def test_decode_kernel_at_the_hybrid_shape(dtype, cuda_device):
     tdt, tol = DTYPES[dtype]
     q, kc, vc = _inputs(cuda_device, tdt, 9, (B, 1, H, hd), (B, S, H, hd), (B, S, H, hd))
     pos = torch.tensor([0, 675, 555, 323, 360, 104, 137, S - 1], device=cuda_device)
+    before = tkernel.LAUNCHES["decode_attention"]
     out = tkernel.decode_attention(q, kc, vc, pos)
     torch.cuda.synchronize()
+    assert tkernel.LAUNCHES["decode_attention"] == before + 1
+    torch.testing.assert_close(out.float(),
+                               tref.decode_attention_reference(q, kc, vc, pos).float(),
+                               rtol=tol, atol=tol)
+
+
+HEAD_DIMS = [80, 128, 24]   # zamba2-2.7b's; the widest; one that is not a multiple of 16
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_flash_kernel_head_dims(hd, causal, dtype, cuda_device):
+    """hd in 64-column slabs: two slabs at 80 and 128 (the second zero-filled
+    past 80), and 24 zero-padded to 32 inside the kernel."""
+    tdt, tol = DTYPES[dtype]
+    q, k, v = _inputs(cuda_device, tdt, 12, (2, 130, 6, hd), (2, 130, 3, hd), (2, 130, 3, hd))
+    before = tkernel.LAUNCHES["flash_attention"]
+    out = tkernel.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tkernel.LAUNCHES["flash_attention"] == before + 1
+    torch.testing.assert_close(out.float(), tref.mha_reference(q, k, v, causal=causal).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", ["sq100-skv132", "sq1", "sq1-causal-offset",
+                                  "hd80-q_offset", "hd80-kv_len-per-row"])
+def test_flash_kernel_ragged_shapes_and_masks(case, dtype, cuda_device):
+    tdt, tol = DTYPES[dtype]
+    Sq, Skv, hd, causal, kw = {
+        "sq100-skv132": (100, 132, 64, False, {}),
+        "sq1": (1, 132, 64, False, {}),
+        "sq1-causal-offset": (1, 132, 64, True, {"q_offset": 131}),
+        "hd80-q_offset": (70, 200, 80, True, {"q_offset": 130}),
+        "hd80-kv_len-per-row": (100, 200, 80, False, {"kv_len": [1, 137]}),
+    }[case]
+    q, k, v = _inputs(cuda_device, tdt, 13, (2, Sq, 4, hd), (2, Skv, 2, hd), (2, Skv, 2, hd))
+    if "kv_len" in kw:
+        kw = {"kv_len": torch.tensor(kw["kv_len"], device=cuda_device)}
+    before = tkernel.LAUNCHES["flash_attention"]
+    out = tkernel.flash_attention(q, k, v, causal=causal, **kw)
+    torch.cuda.synchronize()
+    assert tkernel.LAUNCHES["flash_attention"] == before + 1
+    torch.testing.assert_close(out.float(),
+                               tref.mha_reference(q, k, v, causal=causal, **kw).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("layout", ["fused-qkv", "every-other-head", "kv-expanded-over-batch"])
+def test_flash_kernel_strided_views(layout, dtype, cuda_device):
+    """q, k, v as views with head and row strides of their own: slices of one
+    fused projection (B, S, (H + 2 KV) hd), as a fused q/k/v matmul hands them
+    over; every other head of a wider tensor (head stride 2 hd); and one K/V
+    row expanded over the batch (batch stride 0)."""
+    tdt, tol = DTYPES[dtype]
+    B, S, H, KV, hd = 2, 96, 4, 2, 80
+    if layout == "fused-qkv":
+        (wide,) = _inputs(cuda_device, tdt, 14, (B, S, (H + 2 * KV) * hd))
+        q = wide[..., :H * hd].unflatten(-1, (H, hd))
+        k = wide[..., H * hd:(H + KV) * hd].unflatten(-1, (KV, hd))
+        v = wide[..., (H + KV) * hd:].unflatten(-1, (KV, hd))
+    elif layout == "every-other-head":
+        qw, kw_, vw = _inputs(cuda_device, tdt, 14, (B, S, 2 * H, hd), (B, S, 2 * KV, hd),
+                              (B, S, 2 * KV, hd))
+        q, k, v = qw[:, :, ::2], kw_[:, :, 1::2], vw[:, :, ::2]
+    else:  # a batch stride of 0, which _check admits
+        q, k1, v1 = _inputs(cuda_device, tdt, 14, (B, S, H, hd), (1, S, KV, hd), (1, S, KV, hd))
+        k, v = k1.expand(B, -1, -1, -1), v1.expand(B, -1, -1, -1)
+    assert not (q.is_contiguous() and k.is_contiguous())
+    before = tkernel.LAUNCHES["flash_attention"]
+    out = tkernel.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert tkernel.LAUNCHES["flash_attention"] == before + 1
+    torch.testing.assert_close(out.float(), tref.mha_reference(q, k, v, causal=True).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("H,KV", [(4, 4), (14, 2)], ids=["G=1", "G=7"])
+def test_decode_kernel_split_boundaries(H, KV, dtype, cuda_device):
+    """Lengths 1, SPLIT - 1, SPLIT, SPLIT + 1 and S in one batch: a split that
+    is one key long, a last split that is full, and a row that fills the cache."""
+    split = tkernel.DECODE_SPLIT
+    S, hd = 3 * split + 44, 80
+    tdt, tol = DTYPES[dtype]
+    lens = [1, split - 1, split, split + 1, S]
+    q, kc, vc = _inputs(cuda_device, tdt, 15, (len(lens), 1, H, hd), (len(lens), S, KV, hd),
+                        (len(lens), S, KV, hd))
+    pos = torch.tensor(lens, device=cuda_device) - 1
+    before = tkernel.LAUNCHES["decode_attention"]
+    out = tkernel.decode_attention(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    assert tkernel.LAUNCHES["decode_attention"] == before + 1
+    torch.testing.assert_close(out.float(),
+                               tref.decode_attention_reference(q, kc, vc, pos).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("layout", ["group-slice", "batch-strided"])
+def test_decode_kernel_per_group_cache_views(layout, dtype, cuda_device):
+    """The hybrid's decode_step hands each group's attn cache over as a view:
+    group g of a (groups, B, S, KV, hd) cache (an offset base), and, strided,
+    group g of a (B, groups, S, KV, hd) one (batch stride groups * S * KV * hd)."""
+    tdt, tol = DTYPES[dtype]
+    groups, B, S, H, KV, hd = 3, 4, 300, 8, 8, 80
+    shape = (groups, B, S, KV, hd) if layout == "group-slice" else (B, groups, S, KV, hd)
+    q, kall, vall = _inputs(cuda_device, tdt, 16, (B, 1, H, hd), shape, shape)
+    kc, vc = (kall[1], vall[1]) if layout == "group-slice" else (kall[:, 1], vall[:, 1])
+    pos = torch.tensor([0, 128, 200, S - 1], device=cuda_device)
+    before = tkernel.LAUNCHES["decode_attention"]
+    out = tkernel.decode_attention(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    assert tkernel.LAUNCHES["decode_attention"] == before + 1
     torch.testing.assert_close(out.float(),
                                tref.decode_attention_reference(q, kc, vc, pos).float(),
                                rtol=tol, atol=tol)

@@ -10,7 +10,8 @@ then profiles two windows through the engine's own entry points: one admission
 (a prefill of one 512-token prompt plus its cache insertion) and ``--steps``
 batched decode steps. For each window it prints the host wall time, the device
 busy time (the kernels' own time, summed), the device's idle share, and the
-kernels ordered by device time. Needs one CUDA card.
+twelve kernels with the most device time, each with its rank, plus every kernel
+of the port wherever it ranks. Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -55,8 +56,10 @@ def _window(name: str, fn, n: int, trace: str = "") -> None:
     print(f"[{name}] {n} call(s): host wall {wall_ms / n:.3f} ms each, device busy "
           f"{busy / n:.3f} ms each, idle share {1 - busy / wall_ms:.3f}, "
           f"{launches / n:.0f} device launches each")
-    for kname, (count, ms) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:12]:
-        print(f"[{name}]   {ms / n:9.4f} ms {count / n:6.1f}x  {kname[:110]}")
+    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])
+    for rank, (kname, (count, ms)) in enumerate(ranked):
+        if rank < 12 or "repro_torch" in kname:   # the top 12, and every kernel of the port
+            print(f"[{name}] {rank + 1:3d} {ms / n:9.4f} ms {count / n:6.1f}x  {kname[:110]}")
 
 
 def main() -> int:
