@@ -26,10 +26,13 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      beside it, labelled as two calls).
 5. kernels-ssd      - hold the SSD scan against its plain version at 1e-4 (f32) /
                      5e-2 (bf16) on the reference's shapes, a ragged chunk, a
-                     dt = 0 padded tail, a nonzero initial state and the slices'
-                     shapes (mamba2 N = 128, zamba2 N = 64); time kernel and plain
-                     version there (no single PyTorch call computes the scan, so
-                     there is no library time).
+                     dt = 0 padded tail, a nonzero initial state and, at the full
+                     80 heads, three chunks, chunks of 1 and 2, a batch of 2 from
+                     an initial state, one chunk against two and three (the bf16
+                     branches), and the slices' shapes (mamba2 N = 128, zamba2
+                     N = 64); time kernel and plain version there (no single
+                     PyTorch call computes the scan, so there is no library time),
+                     and each bf16 pass's device time (torch.profiler).
 6. slice            - full-width qwen2-0.5b, random weights from seed 0: prefill
                      4 x 384 tokens then 16 teacher-forced decode steps with vector
                      positions, kernel path against the plain path on the same
@@ -58,6 +61,7 @@ The last two lines are the ``{"kernels": [...]}`` summary and
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -426,7 +430,8 @@ def _ssd_inputs(gen, B, S, H, P, G, N, dtype):
 
 
 def _ssd_case(gen, B, S, H, P, G, N, chunk, dtype, init=False, args=None):
-    """Kernel against plain on one case; returns (max abs err, inputs, outputs)."""
+    """Kernel against plain on one case; returns ((max abs err of y, of the
+    state), inputs, outputs)."""
     args = args if args is not None else _ssd_inputs(gen, B, S, H, P, G, N, dtype)
     h0 = torch.randn((B, H, P, N), generator=gen, device=DEVICE) if init else None
     y, st = ssd_kernel.ssd(*args, chunk=chunk, initial_state=h0, return_final_state=True)
@@ -434,9 +439,9 @@ def _ssd_case(gen, B, S, H, P, G, N, chunk, dtype, init=False, args=None):
     ey, est = ssd_ref.ssd_reference(*args, chunk=chunk, initial_state=h0,
                                     return_final_state=True)
     what = f"ssd {tuple(args[0].shape)} G={G} N={N} chunk={chunk} init={init} {dtype}"
-    err = max(max_err(y, ey, SSD_TOL[dtype], what + " y"),
-              max_err(st, est, SSD_TOL[dtype], what + " state"))
-    return err, args, (y, st)
+    errs = (max_err(y, ey, SSD_TOL[dtype], what + " y"),
+            max_err(st, est, SSD_TOL[dtype], what + " state"))
+    return errs, args, (y, st)
 
 
 def phase_kernels_ssd() -> dict:
@@ -462,15 +467,66 @@ def phase_kernels_ssd() -> dict:
                        f"{SSD_TOL[torch.bfloat16]:g} (bf16); the padded tail changes y[:S] "
                        "and the state by at most 1e-5")
 
-    # zamba2-2.7b's state N = 64 (the kernel sizes its state columns for 128):
-    # a ragged chunk of 137 at the full 80 heads
+    # the full 80 heads: zamba2-2.7b's state N = 64 at a ragged chunk of 137;
+    # three chunks; chunks of 1 and 2 (1- and 2-token prompts); a batch of 2
+    # from a nonzero initial state at two chunks and at one
+    cases = [(1, 137, 80, 64, 1, 64, 137, False), (1, 768, 80, 64, 1, 128, 256, False),
+             (1, 1, 80, 64, 1, 128, 1, False), (1, 2, 80, 64, 1, 64, 2, False),
+             (2, 512, 80, 64, 1, 128, 256, True), (2, 137, 80, 64, 1, 64, 137, True)]
     for dtype in (torch.float32, torch.bfloat16):
-        _ssd_case(gen, 1, 137, 80, 64, 1, 64, 137, dtype)
-    say("kernels-ssd", "zamba2 ragged chunk x (1, 137, 80, 64), N = 64 within the same "
-                       "tolerances")
+        for *shape, init in cases:
+            _ssd_case(gen, *shape, dtype, init=init)
+        # the bf16 branches on the same inputs: a 137-token prompt as one chunk
+        # (pass 1 writes the final state), then padded with dt = 0 to two and
+        # three chunks of 256 (the state-passing pass writes it)
+        S = 137
+        args = _ssd_inputs(gen, 2, S, 80, 64, 1, 128, dtype)
+        h0 = torch.randn((2, 80, 64, 128), generator=gen, device=DEVICE)
+        y, st = ssd_kernel.ssd(*args, chunk=S, initial_state=h0, return_final_state=True)
+        for total in (512, 768):
+            padded = [F.pad(a, (0, 0) * (a.ndim - 2) + (0, total - S)) if a.ndim > 1 else a
+                      for a in args]
+            yp, stp = ssd_kernel.ssd(*padded, chunk=256, initial_state=h0,
+                                     return_final_state=True)
+            torch.cuda.synchronize()
+            what = f"ssd one chunk vs {total // 256} chunks {dtype}"
+            max_err(yp[:, :S], y, 1e-5, what + ": y")
+            max_err(stp, st, 1e-5, what + ": state")
+    say("kernels-ssd", "full 80 heads within the same tolerances: " + ", ".join(
+        f"x {tuple(c[:4])} N {c[5]} chunk {c[6]}{' init' if c[7] else ''}" for c in cases)
+        + "; one, two and three chunks agree within 1e-5 on a 137-token prompt padded with "
+          "dt = 0, from a nonzero initial state")
     row = _ssd_slice_row(gen, SSD_SHAPE, SSM_ARCH)
     _ssd_slice_row(gen, HYBRID_SSD_SHAPE, HYBRID_ARCH)
     return {"ssd": row}
+
+
+# the previous design's times at the slices' shapes (one block per (row, head)
+# walking its chunks; PERF.md, call E of PR 14, H100 80GB HBM3 at 700 W)
+SSD_PR14_MS = {SSM_ARCH: 0.5117, HYBRID_ARCH: 0.3837}
+
+
+def _ssd_passes(fn, calls: int = 20) -> dict:
+    """{kernel name: (device ms per call, device launches per call)} of each
+    SSD kernel, from torch.profiler over `calls` calls, each after a 256 MB
+    write that flushes the L2."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=DEVICE)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.events():
+        m = re.search(r"\bssd_\w+", evt.name)  # e.g. ...::ssd_output_bf16<128, 64>(...)
+        if evt.device_type == DeviceType.CUDA and m:
+            ms, n = out.get(m.group(0), (0.0, 0.0))
+            out[m.group(0)] = (ms + evt.time_range.elapsed_us() / 1e3 / calls, n + 1 / calls)
+    return out
 
 
 def _ssd_slice_row(gen, shape, arch) -> dict:
@@ -481,8 +537,9 @@ def _ssd_slice_row(gen, shape, arch) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         errs[dtype], args, _ = _ssd_case(gen, B, S, H, P, G, N, chunk, dtype)
     say("kernels-ssd", f"{arch} shape x {(B, S, H, P)}, B/C {(B, S, G, N)}, chunk {chunk}: "
-                       f"max_abs_err {errs[torch.float32]:.3e} (f32), "
-                       f"{errs[torch.bfloat16]:.3e} (bf16)")
+                       "max_abs_err of y, of the final state: " + "; ".join(
+                           f"{e[0]:.3e}, {e[1]:.3e} ({'f32' if d == torch.float32 else 'bf16'})"
+                           for d, e in errs.items()))
     x, dt, A, Bm, Cm = args
     esz = x.element_size()
     s_bytes = (2 * x.numel() + Bm.numel() + Cm.numel()) * esz + (dt.numel() + A.numel()) * 4 \
@@ -493,7 +550,7 @@ def _ssd_slice_row(gen, shape, arch) -> dict:
                                 + 2 * H * chunk * P * N)  # C h^T read-out, state update
     tpu_flops = 2 * B * nc * H * (chunk * chunk * (N + P) + 2 * chunk * P * N)
     row = dict(
-        max_abs_err=errs[torch.bfloat16],
+        max_abs_err=max(errs[torch.bfloat16]),
         ms=cuda_ms(lambda: ssd_kernel.ssd(x, dt, A, Bm, Cm, chunk=chunk,
                                           return_final_state=True)),
         plain_ms=cuda_ms(lambda: ssd_ref.ssd_reference(x, dt, A, Bm, Cm, chunk=chunk,
@@ -503,14 +560,31 @@ def _ssd_slice_row(gen, shape, arch) -> dict:
         work=f"{least_flops/1e9:.3f} GFLOP ({tpu_flops/1e9:.3f} as the TPU kernel does them: "
              f"C B^T per head, full squares), {s_bytes/1e6:.3f} MB",
     )
-    say("kernels-ssd", f"{arch} ssd bf16: kernel {row['ms']:.4f} ms, plain "
-                       f"{row['plain_ms']:.4f} ms, bound {row['bound'][0]:.5f} ms by "
-                       f"{row['bound'][1]} ({row['work']}); library: none (no single "
-                       "PyTorch call computes the SSD scan)")
-    say("kernels-ssd", f"{arch} occupancy: one block of 256 threads per (row, head) = "
-                       f"{B * H} blocks on "
-                       f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs, "
-                       f"each walking its {nc} chunks in order")
+    say("kernels-ssd", f"{arch} ssd bf16: kernel {row['ms']:.4f} ms (previous design "
+                       f"{SSD_PR14_MS[arch]:.4f} ms, PR 14), plain {row['plain_ms']:.4f} ms, "
+                       f"bound {row['bound'][0]:.5f} ms by {row['bound'][1]} ({row['work']}); "
+                       "library: none (no single PyTorch call computes the SSD scan)")
+    passes = _ssd_passes(lambda: ssd_kernel.ssd(x, dt, A, Bm, Cm, chunk=chunk,
+                                                return_final_state=True))
+    launches = (f"{sum(n for _, n in passes.values()):g} device launches per call, counted "
+                "by the profiler" if passes else "device launches per call not measured: the "
+                "profiler recorded no device event")
+    n_tiles = -(-chunk // 128)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    say("kernels-ssd", f"{arch} occupancy (bf16, {launches}): chunk state one block of 256 "
+                       f"threads per "
+                       f"(chunk, head, row) = {nc} x {H} x {B} = {nc * H * B} blocks"
+                       + (f"; state passing 4 state entries a thread, blocks of 256 = "
+                          f"{-(-P * N // 1024)} x {H} x {B} = {-(-P * N // 1024) * H * B} blocks"
+                          if nc > 1 else "; no state-passing pass at one chunk")
+                       + f"; output one block of 256 threads per (128-row tile, chunk, head, "
+                         f"row) = {n_tiles} x {nc} x {H} x {B} = {n_tiles * nc * H * B} "
+                         f"blocks; on {sms} SMs. f32: one block of 256 threads per (row, "
+                         f"head) = {B * H}, one launch, each walking its {nc} chunks in order")
+    say("kernels-ssd", f"{arch} bf16 device time per pass (profiler, mean of 20 calls, L2 "
+                       f"flushed; the passes overlap, so they sum to more than the call): "
+                       + (", ".join(f"{k} {ms * 1e3:.2f} us ({n:g} a call)"
+                                    for k, (ms, n) in passes.items()) or "not measured"))
     return row
 
 

@@ -6,10 +6,12 @@ back to the plain version, so the kernel has to take everything ``ops.ssd``
 accepts.
 
 A wrapper given CPU tensors computes the plain version in ``ref.py``, and only
-then. Given CUDA tensors it checks them, allocates ``y`` and the final state
-with ``torch.empty``, launches on the current stream, raises if the launch
-failed, and adds one to ``LAUNCHES["ssd"]``. The library is built by ``nvcc``
-at first use (``build()``).
+then. Given CUDA tensors it checks them, allocates ``y``, the final state and
+the bf16 passes' scratch with ``torch.empty``, launches on the current stream,
+raises if the launch failed, and adds one to ``LAUNCHES["ssd"]``. In bf16 one
+call is up to three device launches (chunk state, state passing, output; the
+launch decision lives in ``csrc/ssd.cu``); ``LAUNCHES`` counts calls. The
+library is built by ``nvcc`` at first use (``build()``).
 """
 from __future__ import annotations
 
@@ -36,9 +38,9 @@ _lock = threading.Lock()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _I64P = ctypes.POINTER(ctypes.c_int64)
-# x, dt, A, B, C, initial_state, y, final_state, dtype, B, S, H, P, G, N, chunk,
-# x/dt/B/C strides, stream
-_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+# x, dt, A, B, C, initial_state, y, final_state, states, chunk_decay, h_in, dtype,
+# B, S, H, P, G, N, chunk, x/dt/B/C strides, stream
+_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
              _I64P, _I64P, _I64P, _I64P, _P]
 
 
@@ -131,11 +133,22 @@ def ssd(x, dt, A, B_, C_, *, chunk: int = 256, initial_state: Optional[torch.Ten
              if return_final_state else None)
     if y.numel() == 0:
         return y, state
+    nc = S // chunk
+    # the bf16 passes' scratch past one chunk: each chunk's own state and decay
+    # (fp32), and the state entering each chunk as two bf16 planes, hi and lo,
+    # the form the output pass reads
+    states = decay = h_in = None
+    if x.dtype == torch.bfloat16 and nc > 1:
+        states = torch.empty((Bb, nc, H, P, N), dtype=torch.float32, device=x.device)
+        decay = torch.empty((Bb, nc, H), dtype=torch.float32, device=x.device)
+        h_in = torch.empty((Bb, nc, H, 2, P, N), dtype=torch.bfloat16, device=x.device)
     lib = _lib()
     err = lib.ssd_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(), C_.data_ptr(),
         None if initial_state is None else initial_state.data_ptr(), y.data_ptr(),
-        None if state is None else state.data_ptr(), _DTYPE_CODES[x.dtype],
+        None if state is None else state.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in (states, decay, h_in)),
+        _DTYPE_CODES[x.dtype],
         Bb, S, H, P, G, N, chunk, _strides(x), _strides(dt), _strides(B_), _strides(C_),
         torch.cuda.current_stream(x.device).cuda_stream,
     )

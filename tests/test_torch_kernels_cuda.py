@@ -262,6 +262,9 @@ SSD_SWEEP = [  # B, S, H, P, G, N, chunk — tests/test_kernels_ssd.py:41-46, th
     (1, 512, 80, 64, 1, 128, 256),
     (1, 512, 80, 64, 1, 64, 256),    # zamba2-2.7b: state N = 64
     (1, 137, 80, 64, 1, 64, 137),    # ... and a ragged chunk
+    (1, 768, 80, 64, 1, 128, 256),   # three chunks at the full heads
+    (1, 1, 80, 64, 1, 128, 1),       # chunks of 1 and 2: 1- and 2-token prompts
+    (1, 2, 80, 64, 1, 64, 2),
 ]
 
 
@@ -312,6 +315,73 @@ def test_ssd_kernel_initial_state_and_strided_inputs(dtype, cuda_device):
     want = ssd_ref.ssd_reference(xs, dt, A, Bs, Cs, chunk=32, initial_state=h0,
                                  return_final_state=True)
     _ssd_close(got, want, tol)
+
+
+@pytest.mark.parametrize("dtype", list(SSD_DTYPES))
+@pytest.mark.parametrize("shape", [(2, 512, 80, 64, 1, 128, 256), (2, 137, 80, 64, 1, 64, 137)],
+                         ids=["mamba2-2chunks", "zamba2-1chunk"])
+def test_ssd_kernel_initial_state_at_full_heads(shape, dtype, cuda_device):
+    """A batch of 2 with a nonzero initial state at the full 80 heads, at two
+    chunks (the state-passing pass writes the final state) and at one (the
+    chunk-state pass writes it)."""
+    *dims, chunk = shape
+    tdt, tol = SSD_DTYPES[dtype]
+    args = _ssd_inputs(cuda_device, tdt, 17, *dims)
+    B, _, H, P, _, N = dims
+    h0 = torch.randn(B, H, P, N, generator=torch.Generator(cuda_device).manual_seed(17),
+                     device=cuda_device)
+    before = ssd_kernel.LAUNCHES["ssd"]
+    got = ssd_kernel.ssd(*args, chunk=chunk, initial_state=h0, return_final_state=True)
+    torch.cuda.synchronize()
+    assert ssd_kernel.LAUNCHES["ssd"] == before + 1
+    want = ssd_ref.ssd_reference(*args, chunk=chunk, initial_state=h0, return_final_state=True)
+    _ssd_close(got, want, tol)
+
+
+@pytest.mark.parametrize("dtype", list(SSD_DTYPES))
+@pytest.mark.parametrize("total", [512, 768], ids=["2chunks", "3chunks"])
+def test_ssd_kernel_one_chunk_and_multi_chunk_branches_agree(total, dtype, cuda_device):
+    """A 137-token prompt as one chunk of 137 (the chunk-state pass writes the
+    final state), and the same inputs padded with dt = 0 to two or three
+    chunks of 256 (the state-passing pass writes it), from the same initial
+    state: y[:S] and the final state agree."""
+    S = 137
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, SSD_DTYPES[dtype][0], 18, 2, S, 80, 64, 1, 128)
+    h0 = torch.randn(2, 80, 64, 128, generator=torch.Generator(cuda_device).manual_seed(18),
+                     device=cuda_device)
+    y, st = ssd_kernel.ssd(x, dt, A, Bm, Cm, chunk=S, initial_state=h0, return_final_state=True)
+
+    def zpad(a):
+        return torch.nn.functional.pad(a, (0, 0) * (a.ndim - 2) + (0, total - S))
+    yp, stp = ssd_kernel.ssd(zpad(x), zpad(dt), A, zpad(Bm), zpad(Cm), chunk=256,
+                             initial_state=h0, return_final_state=True)
+    torch.testing.assert_close(yp[:, :S].float(), y.float(), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(stp, st, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", list(SSD_DTYPES))
+@pytest.mark.parametrize("layout", ["odd-offset", "batch-stride-0"])
+def test_ssd_kernel_strided_views(layout, dtype, cuda_device):
+    """x, B and C as views the 16-byte copies cannot take (bases one element
+    off, so the bf16 passes copy elements), and B/C expanded over the batch
+    (batch stride 0); the same seeded values either way."""
+    tdt, tol = SSD_DTYPES[dtype]
+    B, S, H, P, G, N, chunk = 2, 300, 8, 64, 2, 64, 100
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, tdt, 19, B, S, H, P, G, N)
+    if layout == "odd-offset":
+        wide = torch.cat([torch.zeros(B, S, 1, device=cuda_device, dtype=tdt), x.flatten(2),
+                          Bm.flatten(2), Cm.flatten(2)], dim=-1)
+        x = wide[..., 1:1 + H * P].unflatten(-1, (H, P))
+        Bm = wide[..., 1 + H * P:1 + H * P + G * N].unflatten(-1, (G, N))
+        Cm = wide[..., 1 + H * P + G * N:].unflatten(-1, (G, N))
+    else:
+        Bm, Cm = Bm[:1].expand(B, -1, -1, -1), Cm[:1].expand(B, -1, -1, -1)
+    before = ssd_kernel.LAUNCHES["ssd"]
+    got = ssd_kernel.ssd(x, dt, A, Bm, Cm, chunk=chunk, return_final_state=True)
+    torch.cuda.synchronize()
+    assert ssd_kernel.LAUNCHES["ssd"] == before + 1
+    _ssd_close(got, ssd_ref.ssd_reference(x, dt, A, Bm, Cm, chunk=chunk,
+                                          return_final_state=True), tol)
 
 
 def test_ssd_kernel_dt_zero_tail_changes_nothing(cuda_device):
