@@ -20,10 +20,18 @@ order, each printing its lines; any failure raises and the exit code is not 0:
 4. kernels-rmsnorm  - hold the fused add + RMSNorm kernel against its plain
                      version at 1e-6 (f32) / 1e-2 (bf16) on the reference's sweep
                      and the slices' rows (d_model 896 and 2560, 512-token prefill
-                     and 8-slot decode); time kernel and plain version there (no
-                     single PyTorch call computes add + norm: no library time;
-                     the two-call chain ``x + d`` then ``F.rms_norm`` is printed
-                     beside it, labelled as two calls).
+                     and 8-slot decode); time kernel and plain version there
+                     (no single PyTorch call computes add + norm: no library
+                     time; the two-call
+                     chain ``x + d`` then ``F.rms_norm`` is printed beside it,
+                     labelled as two calls); time the launch floor (an empty
+                     kernel of the same library, after a write and after a
+                     read-only flush) and the norm's marginal time in a chain of
+                     24 (attention output product, add + norm) pairs at both
+                     decode rows. The launcher's one rule: a block a row, each
+                     thread holding ceil(D / 4096) 8-wide chunks, just enough
+                     threads in whole warps (128 of one chunk at D = 896, 320
+                     at 2560).
 5. kernels-ssd      - hold the SSD scan against its plain version at 1e-4 (f32) /
                      5e-2 (bf16) on the reference's shapes, a ragged chunk, a
                      dt = 0 padded tail, a nonzero initial state and, at the full
@@ -157,20 +165,26 @@ def say(phase: str, msg: str) -> None:
 
 
 # ------------------------------------------------------------------ helpers
-def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+def cuda_ms(fn, reps: int = 30, warmup: int = 3, flush: str = "write",
+            spin: int = 2_000_000) -> float:
     """Median device time of fn() in ms, CUDA events around each call, with the
-    50 MB L2 flushed before each (the main path finds the cache cold). A spin
-    of about 1 ms on the device after the flush lets the host enqueue all of
-    fn() before the start event fires, so the events time the device's work
-    and not the host's wrapper code (which, for a kernel of a few
+    50 MB L2 flushed before each (the main path finds the cache cold): by
+    writing 256 MB ("write", which leaves the L2 full of dirty lines) or by
+    reading them ("read"). A spin of ``spin`` clock cycles on the device
+    after the flush (2e6: about 1 ms at ~1.98 GHz) lets the host enqueue all
+    of fn() before the start event fires, so the events time the device's
+    work and not the host's wrapper code (which, for a kernel of a few
     microseconds, would otherwise dominate)."""
-    flush = torch.empty(256 << 20, dtype=torch.int8, device=DEVICE)
+    buf = torch.empty(256 << 20, dtype=torch.int8, device=DEVICE)
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(2_000_000)          # ~1 ms of clock cycles at ~1.98 GHz
+        if flush == "write":
+            buf.zero_()
+        else:
+            buf.view(torch.int64).max()
+        torch.cuda._sleep(spin)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -413,9 +427,50 @@ def phase_kernels_rmsnorm() -> dict:
                                f"F.rms_norm) {two_calls:.4f} ms")
         rows.setdefault("fused_add_rmsnorm", r)   # the first shape is the summary's row
     say("kernels-rmsnorm", "library: none (no single PyTorch call computes add + norm); "
-                           "one block per row, up to 256 threads, each holding its 8-wide "
-                           "chunks of the row in registers")
+                           "layout: a block a row, 128 threads of one 8-wide chunk at "
+                           "D = 896, 320 at 2560")
+    floor_w = cuda_ms(rms_kernel.empty_launch)
+    floor_r = cuda_ms(rms_kernel.empty_launch, flush="read")
+    say("kernels-rmsnorm", f"launch floor (an empty kernel of the same library, launched "
+                           f"through the same ctypes path and cudaLaunchKernelEx): "
+                           f"{floor_w:.4f} ms after a 256 MB write flush, {floor_r:.4f} ms "
+                           "after a 256 MB read flush")
+    for D in (896, 2560):
+        chain, products = rms_chain_ms(D, rms_kernel.fused_add_rmsnorm)
+        say("kernels-rmsnorm", f"(8, 1, {D}) in a decode step's chain: {CHAIN_PAIRS} x "
+                               f"(torch.matmul (8, 1, {D}) @ ({D}, {D}), add + norm) "
+                               f"{chain:.4f} ms, the products alone {products:.4f} ms: "
+                               f"marginal {(chain - products) / CHAIN_PAIRS:.4f} ms a norm "
+                               "(bf16, one write flush before the chain)")
     return rows
+
+
+CHAIN_PAIRS = 24   # a qwen2-0.5b decode step's layers
+
+
+def rms_chain_ms(D: int, norm) -> tuple:
+    """(ms of CHAIN_PAIRS (attention output product, add + norm) pairs, ms of
+    the products alone), bf16 at a decode step's 8 rows: each pair's product
+    (8, 1, D) @ (D, D) with its own weight, then ``norm(res, product, scale)``
+    with the residual threaded from pair to pair, as the step runs them; one
+    pair of events around the whole chain after one flush. The spin before it
+    covers the host's enqueue of the 48 calls."""
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    w = randn(gen, (CHAIN_PAIRS, D, D), torch.bfloat16) * D ** -0.5
+    scale = torch.rand((CHAIN_PAIRS, D), generator=gen, device=DEVICE) + 0.5
+    a, x = randn(gen, (8, 1, D), torch.bfloat16), randn(gen, (8, 1, D), torch.bfloat16)
+
+    def chain():
+        res = x
+        for i in range(CHAIN_PAIRS):
+            res, _ = norm(res, torch.matmul(a, w[i]), scale[i], 1e-6)
+
+    def products():
+        for i in range(CHAIN_PAIRS):
+            torch.matmul(a, w[i])
+
+    spin = 20_000_000                             # ~10 ms
+    return cuda_ms(chain, spin=spin), cuda_ms(products, spin=spin)
 
 
 def _ssd_inputs(gen, B, S, H, P, G, N, dtype):

@@ -25,7 +25,14 @@ def mha_reference(
 ) -> torch.Tensor:
     """Grouped-query attention with optional causal masking and a kv validity
     length (decode: q_offset = cache position, kv_len = cache fill level).
-    Heads are grouped by reshape: query head h reads KV head h // G."""
+    Heads are grouped by reshape: query head h reads KV head h // G.
+
+    A query row whose mask leaves no valid key gives zeros, as both CUDA
+    kernels do. Here the port departs from JAX: its ``mha_reference`` gives
+    the mean of v over all Skv keys for such a row (every score is the finite
+    NEG_INF), and its Pallas kernel the mean over the keys of its padded
+    blocks (src/repro/kernels/flash_attention/kernel.py:57-72). Every row
+    with at least one valid key is computed as JAX computes it."""
     B, Sq, H, hd = q.shape
     _, Skv, KV, _ = k.shape
     assert H % KV == 0, (H, KV)
@@ -48,13 +55,13 @@ def mha_reference(
             mask = mask & (kv_pos[None, :] < kl)
         else:  # per-batch-row validity length (B,)
             mask = mask[None] & (kv_pos[None, None, :] < kl[:, None, None])
-    if mask.ndim == 2:
-        s = torch.where(mask[None, None, None], s, NEG_INF)
-    else:  # (B, Sq, Skv) -> broadcast over (KV, G)
-        s = torch.where(mask[:, None, None], s, NEG_INF)
+    # (B or 1, 1, 1, Sq, Skv): broadcast over (KV, G)
+    mask = mask[None, None, None] if mask.ndim == 2 else mask[:, None, None]
+    s = torch.where(mask, s, NEG_INF)
 
     w = torch.exp(s - s.amax(dim=-1, keepdim=True))
     w = w / w.sum(dim=-1, keepdim=True)
+    w = torch.where(mask.any(dim=-1, keepdim=True), w, 0.0)  # no valid key: zeros
     o = torch.einsum("bkgst,btkd->bskgd", w, v.float())
     return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)  # dv may differ (MLA)
 

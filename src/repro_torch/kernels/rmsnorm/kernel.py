@@ -2,7 +2,8 @@
 
 ``fused_add_rmsnorm`` replaces ``fused_add_rmsnorm_pallas``
 (src/repro/kernels/rmsnorm/kernel.py:30). It takes any number of rows and no
-``block_rows``: one thread block per row needs no padding.
+``block_rows``: one thread block per row needs no padding. ``empty_launch``
+times the path's floor.
 
 A wrapper given CPU tensors computes the plain version in ``ref.py``, and only
 then. Given CUDA tensors it checks them, allocates both outputs with
@@ -29,13 +30,17 @@ SOURCES = {"fused_add_rmsnorm": CSRC / "fused_add_rmsnorm.cu"}
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc kFloat32/kBFloat16
-MAX_D = 16384                                          # csrc kThreads * 8 * kMaxChunks
+MAX_D = 16384                                          # csrc kBlockThreads * 8 * kBlockMaxChunks
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-# x, delta, scale, res, out, dtype, rows, D, x/delta row strides, eps, stream
-_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I64, _I, _I64, _I64, _F, _P]
+_ENTRIES = {  # C entry: (argument types, result type)
+    # x, delta, scale, res, out, dtype, rows, D, x/delta row strides, eps, stream
+    "fused_add_rmsnorm_launch": ([_P, _P, _P, _P, _P, _I, _I64, _I, _I64, _I64, _F, _P], _I),
+    "rmsnorm_empty_launch": ([_P], _I),
+    "rmsnorm_error_string": ([_I], ctypes.c_char_p),
+}
 
 
 def reset_launches() -> None:
@@ -49,13 +54,19 @@ def build() -> Dict[str, dict]:
     with _lock:
         results = _build.build(list(SOURCES.values()))
         if "fused_add_rmsnorm" not in _libs:
-            lib = ctypes.CDLL(str(results[SOURCES["fused_add_rmsnorm"]]["path"]))
-            lib.fused_add_rmsnorm_launch.argtypes = _ARGTYPES
-            lib.fused_add_rmsnorm_launch.restype = ctypes.c_int
-            lib.rmsnorm_error_string.argtypes = [ctypes.c_int]
-            lib.rmsnorm_error_string.restype = ctypes.c_char_p
-            _libs["fused_add_rmsnorm"] = lib
+            _libs["fused_add_rmsnorm"] = load(results[SOURCES["fused_add_rmsnorm"]]["path"])
     return {name: results[src] for name, src in SOURCES.items()}
+
+
+def load(path) -> ctypes.CDLL:
+    """Load a library built from a source with this C interface and declare
+    the entries it has (a build of an earlier design has no empty kernel)."""
+    lib = ctypes.CDLL(str(path))
+    for name, (args, result) in _ENTRIES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, result
+    return lib
 
 
 def _lib() -> ctypes.CDLL:
@@ -128,3 +139,13 @@ def fused_add_rmsnorm(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
         raise RuntimeError(f"fused_add_rmsnorm kernel launch failed: CUDA error {err} ({msg})")
     LAUNCHES["fused_add_rmsnorm"] += 1
     return res, out
+
+
+def empty_launch() -> None:
+    """Launch an empty kernel of the same library, as ``fused_add_rmsnorm``
+    launches its kernel, on the current stream: the least time a call can take."""
+    lib = _lib()
+    err = lib.rmsnorm_empty_launch(torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err} "
+                           f"({lib.rmsnorm_error_string(err).decode()})")

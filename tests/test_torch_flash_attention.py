@@ -161,11 +161,50 @@ def test_ops_rejects_kernel_on_cpu_and_unknown_impl():
 
 
 def test_fully_masked_rows_stay_finite():
-    """The finite NEG_INF: a row with no valid key averages instead of NaN."""
+    """A row with no valid key gives zeros, as the CUDA kernels do: finite,
+    not NaN, and not JAX's mean of v over every key."""
     arrs = _inputs(9, (1, 4, 2, 8), (1, 6, 2, 8), (1, 6, 2, 8))
     q, k, v = (torch.from_numpy(a) for a in arrs)
     out = tref.mha_reference(q, k, v, causal=False, kv_len=0)
     assert torch.isfinite(out).all()
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("fn", ["mha-kv_len-0", "decode-pos-minus-1"])
+def test_no_valid_key_gives_exact_zeros(fn, dtype):
+    """kv_len = 0 (prefill) and pos = -1 (decode): every row is empty."""
+    tdt = DTYPES[dtype][1]
+    arrs = _inputs(12, (2, 5, 4, 16), (2, 24, 2, 16), (2, 24, 2, 16))
+    q, k, v = (torch.from_numpy(a).to(tdt) for a in arrs)
+    if fn == "mha-kv_len-0":
+        out = tref.mha_reference(q, k, v, causal=False, kv_len=torch.tensor(0))
+        assert out.shape == q.shape
+    else:
+        out = tref.decode_attention_reference(q[:, :1], k, v, torch.tensor([-1, -1]))
+        assert out.shape == q[:, :1].shape
+    assert out.dtype == tdt
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("fn", ["mha-kv_len", "decode-pos"])
+def test_empty_row_leaves_the_other_rows_as_jax(fn, dtype):
+    """A batch that mixes a zero-length row with a normal one: the empty row
+    is zeros, the other row equals JAX's reference at its tolerance."""
+    arrs = _inputs(13, (2, 6, 4, 16), (2, 40, 2, 16), (2, 40, 2, 16))
+    (jq, jk, jv), (q, k, v) = _both(arrs, dtype)
+    if fn == "mha-kv_len":
+        lens = np.array([0, 23], np.int32)
+        ours = tref.mha_reference(q, k, v, causal=False, kv_len=torch.from_numpy(lens))
+        theirs = jref.mha_reference(jq, jk, jv, causal=False, kv_len=jnp.asarray(lens))
+    else:
+        pos = np.array([17, -1], np.int32)
+        ours = tref.decode_attention_reference(q[:, :1], k, v, torch.from_numpy(pos))
+        theirs = jref.decode_attention_reference(jq[:, :1], jk, jv, jnp.asarray(pos))
+    empty = 0 if fn == "mha-kv_len" else 1
+    assert torch.equal(ours[empty], torch.zeros_like(ours[empty]))
+    _close(ours[1 - empty], theirs[1 - empty], DTYPES[dtype][2])
 
 
 

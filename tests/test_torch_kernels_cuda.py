@@ -240,6 +240,41 @@ def test_decode_kernel_per_group_cache_views(layout, dtype, cuda_device):
                                rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("kv_len", [0, [0, 40]], ids=["kv_len-0", "per-row-0-and-40"])
+def test_flash_kernel_row_with_no_valid_key_gives_zeros(kv_len, dtype, cuda_device):
+    """A row that sees no valid key is zeros in the kernel and in ref.py, at
+    hd 64 (the bf16 kernel's one-slab path); the other row matches ref.py."""
+    tdt, tol = DTYPES[dtype]
+    q, k, v = _inputs(cuda_device, tdt, 17, (2, 70, 4, 64), (2, 70, 2, 64), (2, 70, 2, 64))
+    lens = torch.tensor(kv_len, device=cuda_device)
+    for causal in (False, True):
+        out = tkernel.flash_attention(q, k, v, causal=causal, kv_len=lens)
+        torch.cuda.synchronize()
+        want = tref.mha_reference(q, k, v, causal=causal, kv_len=lens)
+        assert torch.equal(out[0], torch.zeros_like(out[0]))
+        assert torch.equal(want[0], torch.zeros_like(want[0]))
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("pos", [-1, [-1, 150, -1, 299]], ids=["pos-minus-1", "mixed"])
+def test_decode_kernel_row_with_no_valid_key_gives_zeros(pos, dtype, cuda_device):
+    """pos = -1 (length 0): zeros in both passes' result and in ref.py; the
+    rows with keys match ref.py."""
+    B, S, H, KV, hd = 4, 300, 14, 2, 64
+    tdt, tol = DTYPES[dtype]
+    q, kc, vc = _inputs(cuda_device, tdt, 18, (B, 1, H, hd), (B, S, KV, hd), (B, S, KV, hd))
+    pos = torch.tensor(pos, device=cuda_device)
+    out = tkernel.decode_attention(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    want = tref.decode_attention_reference(q, kc, vc, pos)
+    empty = pos.expand(B) < 0
+    assert torch.equal(out[empty], torch.zeros_like(out[empty]))
+    assert torch.equal(want[empty], torch.zeros_like(want[empty]))
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda_device):
     q, k, v = _inputs(cuda_device, torch.float32, 3, (1, 8, 4, 16), (1, 8, 2, 16), (1, 8, 2, 16))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -461,6 +496,98 @@ def test_fused_add_rmsnorm_kernel_refuses_what_it_does_not_take(cuda_device):
         rms_kernel.fused_add_rmsnorm(x, d, scale.bfloat16())
     with pytest.raises(ValueError, match="must match"):
         rms_kernel.fused_add_rmsnorm(x, d[:2], scale)
+
+
+# (rows, D, row padding of x and delta): D = 8 (one busy thread), 136 (17
+# chunks), the slices' 896 and 2560, 4096 (the widest at one chunk a thread),
+# 4104 (the first at two) and 16384 (four); one row and many; strided rows
+LAYOUT_CASES = [
+    (1, 8, 0), (300, 8, 0), (1, 136, 0), (600, 136, 24), (512, 896, 0), (133, 896, 8),
+    (3, 2056, 0), (512, 2560, 0), (1, 2560, 64), (2, 4096, 0), (5, 4104, 8),
+    (1, 16384, 0), (9, 16384, 16),
+]
+
+
+@pytest.mark.parametrize("dtype", list(RMS_DTYPES))
+@pytest.mark.parametrize("case", LAYOUT_CASES, ids=lambda c: f"{c[0]}x{c[1]}+{c[2]}")
+def test_fused_add_rmsnorm_kernel_every_layout(case, dtype, cuda_device):
+    """Every launch shape the launcher can pick (one to four 8-wide chunks a
+    thread, a part-filled last warp), held to ref.py: res bit for bit, out
+    within the reference's tolerance."""
+    T, D, pad = case
+    tdt, tol = RMS_DTYPES[dtype]
+    wide_x, wide_d, scale = _rms_inputs(cuda_device, tdt, 19, (T, D + pad))
+    x, d, scale = wide_x[:, pad:], wide_d[:, :D], scale[:D].contiguous()
+    res, out = rms_kernel.fused_add_rmsnorm(x, d, scale, 1e-6)
+    torch.cuda.synchronize()
+    want_res, want_out = rms_ref.fused_add_rmsnorm_reference(x, d, scale, 1e-6)
+    assert torch.equal(res, want_res)
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=tol, atol=tol)
+
+
+def _product_norm_chain(a, w, scale, x, norm):
+    """A decode step's 24 (attention output product, add + norm) pairs, the
+    residual threaded from each pair to the next; returns every res and out."""
+    outs = []
+    for i in range(w.shape[0]):
+        x, o = norm(x, torch.matmul(a, w[i]), scale[i], 1e-6)
+        outs += [x, o]
+    return outs
+
+
+def _chain_inputs(device, dtype, D):
+    r = np.random.default_rng(20)
+    a = torch.from_numpy(r.standard_normal((8, 1, D)).astype(np.float32)).to(device, dtype)
+    w = torch.from_numpy((r.standard_normal((24, D, D)) * D ** -0.5).astype(np.float32)).to(
+        device, dtype)
+    scale = torch.from_numpy((np.abs(r.standard_normal((24, D))) + 0.5).astype(np.float32))
+    x = torch.from_numpy(r.standard_normal((8, 1, D)).astype(np.float32)).to(device, dtype)
+    return a, w, scale.to(device), x
+
+
+@pytest.mark.parametrize("dtype", list(RMS_DTYPES))
+@pytest.mark.parametrize("D", [896, 2560])
+def test_fused_add_rmsnorm_after_a_product_in_a_chain(D, dtype, cuda_device):
+    """torch.matmul (a cuBLAS kernel that never triggers the programmatic
+    launch) then the kernel, 24 times with the residual threaded through: each
+    res equals the plain chain's bit for bit."""
+    tdt, tol = RMS_DTYPES[dtype]
+    a, w, scale, x = _chain_inputs(cuda_device, tdt, D)
+    got = _product_norm_chain(a, w, scale, x, rms_kernel.fused_add_rmsnorm)
+    torch.cuda.synchronize()
+    want = _product_norm_chain(a, w, scale, x, rms_ref.fused_add_rmsnorm_reference)
+    for i in range(0, len(got), 2):
+        assert torch.equal(got[i], want[i]), f"res of pair {i // 2}"
+        torch.testing.assert_close(got[i + 1].float(), want[i + 1].float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("D", [896, 2560])
+def test_fused_add_rmsnorm_chain_replays_from_a_cuda_graph(D, cuda_device):
+    """The 24 product + norm pairs captured in a CUDA graph: the launch is
+    capture-safe, and a replay on new inputs equals the eager run bit for bit."""
+    a, w, scale, x = _chain_inputs(cuda_device, torch.bfloat16, D)
+    static_a, static_x = a.clone(), x.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture wants
+        for _ in range(2):
+            _product_norm_chain(static_a, w, scale, static_x, rms_kernel.fused_add_rmsnorm)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = rms_kernel.LAUNCHES["fused_add_rmsnorm"]
+    with torch.cuda.graph(graph):
+        static_outs = _product_norm_chain(static_a, w, scale, static_x,
+                                          rms_kernel.fused_add_rmsnorm)
+    assert rms_kernel.LAUNCHES["fused_add_rmsnorm"] == before + 24
+    new_a, new_x = (t + 0.25 * torch.randn_like(t) for t in (a, x))
+    static_a.copy_(new_a)
+    static_x.copy_(new_x)
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = _product_norm_chain(new_a, w, scale, new_x, rms_kernel.fused_add_rmsnorm)
+    torch.cuda.synchronize()
+    for i, (g, e) in enumerate(zip(static_outs, eager)):
+        assert torch.equal(g, e), f"{'res' if i % 2 == 0 else 'out'} of pair {i // 2}"
 
 
 def _blit(cache: dict, seq: dict) -> None:
