@@ -46,22 +46,32 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      positions, kernel path against the plain path on the same
                      weights.
 7. serve            - ServeEngine on full-width bf16 qwen2-0.5b answers 16
-                     requests; the launch counters must show both attention
-                     kernels and the fused add + RMSNorm on the path.
+                     requests, its decode step one CUDA graph replay (the main
+                     path); the launch counters must show both attention
+                     kernels and the fused add + RMSNorm on the path. One
+                     replay under torch.profiler must launch on the device what
+                     the capture counted (decode_attention two kernels a call,
+                     fused_add_rmsnorm one). Then an eager engine
+                     (cuda_graph=False) answers the same 16: the two token
+                     streams must be equal, or part only at a near-tie within
+                     the slice's bf16 tolerance. Each engine's throughput,
+                     TTFT, step time and peak memory are printed, and the
+                     graph's build time and node count.
 8. slice-ssm        - the same for full-width mamba2-2.7b (prefills pad 384 to 512).
-9. serve-ssm        - ServeEngine on full-width bf16 mamba2-2.7b answers 16
-                     requests; the counters must show the SSD kernel in every
-                     layer's prefill and none of the other three.
+9. serve-ssm        - the same for full-width bf16 mamba2-2.7b; the counters
+                     must show the SSD kernel in every layer's prefill and none
+                     of the other three (its step runs no kernel of the repo).
 10. slice-hybrid    - the same for full-width zamba2-2.7b (54 Mamba2 layers in 9
                      groups of 6, one shared attention + MLP block before each).
-11. serve-hybrid    - ServeEngine on full-width bf16 zamba2-2.7b answers 16
-                     requests; the counters must show all four kernels: the
-                     shared block's attention and add + norm 9 times per prefill
-                     and per step, the SSD scan 54 times per prefill.
+11. serve-hybrid    - the same for full-width bf16 zamba2-2.7b; the counters
+                     must show all four kernels: the shared block's attention
+                     and add + norm 9 times per prefill and per step, the SSD
+                     scan 54 times per prefill.
 
 Each serve phase resets the launch counters just before it submits its
-requests and reads them just after; the summary's ``launches`` of a kernel is
-its sum over the three serve phases.
+requests and reads them just after, for each engine; a replay adds the calls
+its capture counted. The summary's ``launches`` of a kernel is its sum over
+the three graphed runs.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.
@@ -727,9 +737,126 @@ class _TimedEngine(ServeEngine):
         return ran
 
 
-def phase_serve(model: Model, tag: str) -> dict:
-    """Serve 16 requests through ServeEngine; returns the launches of the
-    kernels on this family's path, counted over the run alone."""
+# device launches per wrapper call of the kernels a decode step runs
+# (decode_attention: the split-KV pass, then the combine); ssd and
+# flash_attention run only in prefill
+STEP_DEVICE_LAUNCHES = {"decode_attention": 2, "fused_add_rmsnorm": 1}
+
+
+def _port_kernel(name: str):
+    """The port kernel a device kernel's (demangled) name belongs to, or None."""
+    if "decode_split_kernel" in name or "decode_combine_kernel" in name:
+        return "decode_attention"
+    if "repro_torch_rmsnorm::" in name:
+        return "fused_add_rmsnorm"
+    if "repro_torch_ssd::" in name:
+        return "ssd"
+    if "repro_torch::" in name and "flash_attention" in name:
+        return "flash_attention"
+    return None
+
+
+def _replay_device_launches(graph, kernel_impl: str) -> tuple:
+    """({port kernel: device launches}, all device events) of one replay of a
+    decode graph, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay(kernel_impl)
+        torch.cuda.synchronize()
+    counts, events = {}, 0
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            events += 1
+            k = _port_kernel(evt.name)
+            if k is not None:
+                counts[k] = counts.get(k, 0) + 1
+    return counts, events
+
+
+def _graph_nodes(graph):
+    """The node count of a captured graph (``cuGraphGetNodes``), or None
+    where PyTorch does not keep the graph."""
+    import ctypes
+    try:
+        raw = graph.raw_cuda_graph()
+    except (AttributeError, RuntimeError):
+        return None
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(ctypes.c_void_p(raw), None,
+                                                      ctypes.byref(n))
+    return int(n.value) if err == 0 else None
+
+
+def _serve_run(model: Model, prompts, new_tokens: int, cuda_graph: bool) -> dict:
+    """One engine (max_batch 8, max_len 1024) serves `prompts`; the launch
+    counters are reset just before the requests are submitted and read just
+    after they are drained."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = _TimedEngine(model, max_batch=8, max_len=1024, cuda_graph=cuda_graph)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()     # the graph's pool stays reserved, not allocated
+    for mod in KERNEL_MODULES:                 # the run starts here
+        mod.reset_launches()
+    t0 = time.monotonic()
+    reqs = [engine.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    engine.run_until_drained(timeout=900)
+    wall = time.monotonic() - t0
+    launches = {k: v for mod in KERNEL_MODULES for k, v in mod.LAUNCHES.items()}  # ... and here
+    return dict(engine=engine, reqs=reqs, wall=wall, launches=launches, build_s=build_s,
+                peak=torch.cuda.max_memory_allocated(),
+                peak_reserved=torch.cuda.max_memory_reserved())
+
+
+def _check_streams(model: Model, prompts, graphed, eager, tol: float, tag: str) -> int:
+    """The graphed and the eager engine's token streams, request by request:
+    where they part, both tokens must be a near-tie, each within ``tol`` of
+    the top logit of an eager B = 1 prefill of the prompt and the common
+    prefix. Returns the number of requests whose streams part."""
+    parted = 0
+    for i, (p, g, e) in enumerate(zip(prompts, graphed, eager)):
+        j = next((j for j, (a, b) in enumerate(zip(g.tokens, e.tokens)) if a != b), None)
+        if j is None:
+            continue
+        parted += 1
+        seq = np.concatenate([np.asarray(p), np.asarray(g.tokens[:j])]).astype(np.int64)
+        with torch.inference_mode():
+            logits, _ = model.prefill({"tokens": torch.from_numpy(seq[None]).to(DEVICE)})
+        top = logits[0].max().item()
+        gaps = [top - logits[0, t].item() for t in (g.tokens[j], e.tokens[j])]
+        say(tag, f"request {i} parts at token {j}: graphed {g.tokens[j]}, eager "
+                 f"{e.tokens[j]}, below the top logit by {gaps[0]:.3e} / {gaps[1]:.3e}")
+        if max(gaps) > tol:
+            raise AssertionError(f"{tag}: request {i}'s streams part at token {j} by more "
+                                 f"than a near-tie ({max(gaps):.3e} > {tol})")
+    return parted
+
+
+def _launch_floor(cfg, n_req: int, steps: int) -> dict:
+    """The least calls of each kernel a serve run of `n_req` prefills and
+    `steps` decode steps makes on this family's path."""
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        # one scan per layer per prefill; decode is the plain one-token
+        # recurrence (as in JAX) and launches no kernel of the repo
+        return {"ssd": n_req * L}
+    if cfg.family == "hybrid":
+        # the shared block runs before each of the G groups, in every prefill
+        # and every decode step; the scan once per mamba layer per prefill
+        G = L // cfg.shared_attn_every
+        return {"flash_attention": n_req * G, "decode_attention": steps * G,
+                "fused_add_rmsnorm": (n_req + steps) * G, "ssd": n_req * L}
+    return {"flash_attention": n_req * L, "decode_attention": steps * L,
+            "fused_add_rmsnorm": (n_req + steps) * L}
+
+
+def phase_serve(model: Model, tag: str, bf16_tol: float) -> dict:
+    """Serve 16 requests through a graphed ServeEngine (the main path), then
+    the same 16 through an eager one; returns the launches of the kernels on
+    this family's path, counted over the graphed run alone."""
     cfg = model.cfg
     n_req, new_tokens, max_batch, max_len = 16, 64, 8, 1024
     # warm-up through the same entry points (cuBLAS handles, allocator)
@@ -741,56 +868,59 @@ def phase_serve(model: Model, tag: str) -> dict:
     rng = np.random.default_rng(2)
     lens = rng.integers(64, 513, n_req)
     prompts = [rng.integers(0, cfg.vocab, int(n)) for n in lens]
-    engine = _TimedEngine(model, max_batch=max_batch, max_len=max_len)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for mod in KERNEL_MODULES:                 # the main path starts here
-        mod.reset_launches()
-    t0 = time.monotonic()
-    reqs = [engine.submit(p, max_new_tokens=new_tokens) for p in prompts]
-    engine.run_until_drained(timeout=900)
-    wall = time.monotonic() - t0
-    launches = {k: v for mod in KERNEL_MODULES for k, v in mod.LAUNCHES.items()}  # ... and here
-    peak = torch.cuda.max_memory_allocated()
-
-    for r in reqs:
-        if not r.done.is_set() or len(r.tokens) != new_tokens:
-            raise AssertionError(f"request {r.request_id}: done={r.done.is_set()} "
-                                 f"with {len(r.tokens)} of {new_tokens} tokens")
-        if not all(0 <= t < cfg.vocab for t in r.tokens):
-            raise AssertionError(f"request {r.request_id}: token out of range")
-    L, steps = cfg.n_layers, engine.steps
-    if cfg.family == "ssm":
-        # one scan per layer per prefill; decode is the plain one-token
-        # recurrence (as in JAX) and launches no kernel of the repo
-        need = {"ssd": n_req * L}
-    elif cfg.family == "hybrid":
-        # the shared block runs before each of the G groups, in every prefill
-        # and every decode step; the scan once per mamba layer per prefill
-        G = L // cfg.shared_attn_every
-        need = {"flash_attention": n_req * G, "decode_attention": steps * G,
-                "fused_add_rmsnorm": (n_req + steps) * G, "ssd": n_req * L}
-    else:
-        need = {"flash_attention": n_req * L, "decode_attention": steps * L,
-                "fused_add_rmsnorm": (n_req + steps) * L}
-    absent = [k for k in launches if k not in need]
-    if any(launches[k] < n for k, n in need.items()) or any(launches[k] != 0 for k in absent):
-        raise AssertionError(f"launch counters {launches} do not meet {need}: the path "
-                             "skipped a kernel or ran another family's")
-    total = sum(len(r.tokens) for r in reqs)
-    ttft = np.array([(r.first_token_at - r.submitted) * 1e3 for r in reqs])
     say(tag, f"{cfg.name} bf16, {n_req} requests (prompts {lens.min()}..{lens.max()} "
-             f"tokens, {new_tokens} new each), max_batch {max_batch}, max_len {max_len}")
-    say(tag, f"{total} tokens in {wall:.3f} s = {total / wall:.1f} tokens/s; "
-             f"TTFT p50 {np.percentile(ttft, 50):.1f} ms, p99 {np.percentile(ttft, 99):.1f} ms "
-             f"(16 samples); {engine.steps} decode steps, mean "
-             f"{np.mean(engine.step_s) * 1e3:.3f} ms, median "
-             f"{np.median(engine.step_s) * 1e3:.3f} ms")
-    say(tag, f"max_memory_allocated {peak / 2**30:.3f} GiB (cache "
-             f"{kv_cache.summarize(cfg, max_batch, max_len)}); launches {launches} "
-             f"(need >= {need}, "
-             f"none of {list(absent)})")
-    return {k: launches[k] for k in need}
+             f"tokens, {new_tokens} new each), max_batch {max_batch}, max_len {max_len}; "
+             f"cache {kv_cache.summarize(cfg, max_batch, max_len)}")
+
+    runs = {}
+    for mode, cuda_graph in (("graphed", True), ("eager", False)):
+        run = runs[mode] = _serve_run(model, prompts, new_tokens, cuda_graph)
+        engine, reqs, launches = run["engine"], run["reqs"], run["launches"]
+        for r in reqs:
+            if not r.done.is_set() or len(r.tokens) != new_tokens:
+                raise AssertionError(f"{mode} request {r.request_id}: done={r.done.is_set()} "
+                                     f"with {len(r.tokens)} of {new_tokens} tokens")
+            if not all(0 <= t < cfg.vocab for t in r.tokens):
+                raise AssertionError(f"{mode} request {r.request_id}: token out of range")
+        need = _launch_floor(cfg, n_req, engine.steps)
+        absent = [k for k in launches if k not in need]
+        if any(launches[k] < n for k, n in need.items()) or any(launches[k] != 0 for k in absent):
+            raise AssertionError(f"{mode} launch counters {launches} do not meet {need}: the "
+                                 "path skipped a kernel or ran another family's")
+        total = sum(len(r.tokens) for r in reqs)
+        ttft = np.array([(r.first_token_at - r.submitted) * 1e3 for r in reqs])
+        say(tag, f"{mode}: {total} tokens in {run['wall']:.3f} s = {total / run['wall']:.1f} "
+                 f"tokens/s; TTFT p50 {np.percentile(ttft, 50):.1f} ms, p99 "
+                 f"{np.percentile(ttft, 99):.1f} ms (16 samples); {engine.steps} decode steps, "
+                 f"mean {np.mean(engine.step_s) * 1e3:.3f} ms, median "
+                 f"{np.median(engine.step_s) * 1e3:.3f} ms; max_memory_allocated "
+                 f"{run['peak'] / 2**30:.3f} GiB, max_memory_reserved "
+                 f"{run['peak_reserved'] / 2**30:.3f} GiB; engine built in "
+                 f"{run['build_s']:.3f} s")
+        say(tag, f"{mode}: launches {launches} (need >= {need}, none of {list(absent)})")
+        if mode == "graphed":
+            graph = engine._graph
+            nodes = _graph_nodes(graph.graph)
+            profiled, events = _replay_device_launches(graph, model.kernel_impl)
+            want = {k: n * STEP_DEVICE_LAUNCHES[k] for k, n in graph.launches.items() if n}
+            say(tag, f"graph: built with its warm-up and capture in {run['build_s']:.3f} s, "
+                     f"{'node count not exposed' if nodes is None else f'{nodes} nodes'}; "
+                     f"captured calls {graph.launches}; one replay under torch.profiler: "
+                     f"{events} device events, the port's kernels {profiled} (want {want})")
+            if events == 0:
+                raise AssertionError(f"{tag}: the profiler recorded no device event of a replay")
+            if profiled != want:
+                raise AssertionError(f"{tag}: a replay launched {profiled} on the device, the "
+                                     f"capture counted {want}")
+        run["steps"] = engine.steps
+        del engine, run["engine"]              # free the cache and the graph's pool
+        torch.cuda.empty_cache()
+    graphed, eager = runs["graphed"]["reqs"], runs["eager"]["reqs"]
+    parted = _check_streams(model, prompts, graphed, eager, bf16_tol, tag)
+    say(tag, f"graphed and eager token streams: {n_req - parted} of {n_req} requests equal; "
+             f"{parted} part, each at a near-tie within {bf16_tol:g}")
+    launches = runs["graphed"]["launches"]
+    return {k: launches[k] for k in _launch_floor(cfg, n_req, runs["graphed"]["steps"])}
 
 
 def main() -> int:
@@ -803,7 +933,7 @@ def main() -> int:
     for arch, tag, tol in ((ARCH, "", SLICE_BF16_TOL), (SSM_ARCH, "-ssm", SLICE_SSM_BF16_TOL),
                            (HYBRID_ARCH, "-hybrid", SLICE_HYBRID_BF16_TOL)):
         model = phase_slice(arch, "slice" + tag, tol)
-        for k, n in phase_serve(model, "serve" + tag).items():
+        for k, n in phase_serve(model, "serve" + tag, tol).items():
             launches[k] += n
         del model                               # free the weights before the next family
         torch.cuda.empty_cache()

@@ -5,6 +5,13 @@ and metric names. Each admitted request is prefilled alone (B=1) and its
 cache inserted into a free slot of one stacked cache; then one batched decode
 step runs over all slots, each reading and writing its own position. The
 decode step updates the cache in place where the JAX engine donates it.
+
+The reference compiles its step once (``jax.jit(model.decode_step,
+donate_argnums=(2,))``). Its counterpart here is a CUDA graph: on the card the
+engine captures ``Model.decode_step`` and the greedy ``argmax`` once, at
+construction, over static token, position and sampled-token buffers and its
+own cache, and each step replays it. Prefill stays eager (its length varies).
+On the CPU the same step runs eagerly.
 """
 from __future__ import annotations
 
@@ -12,15 +19,83 @@ import threading
 import time
 import uuid
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
 from ..core.metrics import MetricsRegistry
+from ..kernels.flash_attention import kernel as attn_kernel
+from ..kernels.rmsnorm import kernel as rms_kernel
+from ..kernels.ssd import kernel as ssd_kernel
 from ..models.model import Model
 from . import kv_cache
+
+# every kernel wrapper's module: each keeps a LAUNCHES count of its host calls
+_KERNEL_MODULES = (attn_kernel, rms_kernel, ssd_kernel)
+# eager steps before capture: they run each kernel's one-time set-up (the
+# shared-memory grant, cuBLAS handles and workspaces) outside the capture
+WARMUP_STEPS = 2
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel wrapper's ``LAUNCHES``, by kernel name."""
+    return {name: n for mod in _KERNEL_MODULES for name, n in mod.LAUNCHES.items()}
+
+
+class DecodeGraph:
+    """One captured decode step, with the kernel calls its capture made.
+
+    A wrapper's ``LAUNCHES`` counts host calls and a replay makes none, so
+    ``replay`` adds the calls counted during capture (``launches``) to the
+    wrappers' counts. The capture also fixes the model's ``kernel_impl``: a
+    replay under another one raises rather than run the captured path."""
+
+    def __init__(self, graph, launches: Dict[str, int], kernel_impl: str):
+        self.graph = graph
+        self.launches = launches
+        self.kernel_impl = kernel_impl
+
+    @classmethod
+    def capture(cls, step: Callable[[], None], kernel_impl: str, device) -> "DecodeGraph":
+        """Run ``step`` WARMUP_STEPS times eagerly on a side stream, under
+        ``set_sync_debug_mode("error")`` so that a host sync in it raises, then
+        capture it once on that stream. A failure raises: nothing falls back."""
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_STEPS):
+                    step()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)   # keeps the graph's nodes readable
+        before = launch_counts()
+        with torch.cuda.graph(graph, stream=side):
+            step()
+        after = launch_counts()
+        graph.instantiate()
+        return cls(graph, {name: after[name] - before[name] for name in after}, kernel_impl)
+
+    def replay(self, kernel_impl: str) -> None:
+        if kernel_impl != self.kernel_impl:
+            raise RuntimeError(f"the decode graph was captured with kernel_impl="
+                               f"{self.kernel_impl!r}; the model now has {kernel_impl!r}")
+        self.graph.replay()
+        for mod in _KERNEL_MODULES:
+            for name in mod.LAUNCHES:
+                mod.LAUNCHES[name] += self.launches.get(name, 0)
+
+
+def _zero(tree: dict) -> None:
+    for leaf in tree.values():
+        if isinstance(leaf, dict):
+            _zero(leaf)
+        else:
+            leaf.zero_()
 
 
 @dataclass
@@ -40,10 +115,15 @@ class Request:
 class ServeEngine:
     """Slot-based continuous batching: `max_batch` concurrent sequences share
     one stacked cache on the model's device; new requests prefill into free
-    slots while existing ones keep decoding."""
+    slots while existing ones keep decoding.
+
+    ``cuda_graph``: None replays a captured decode step on a CUDA model and
+    steps eagerly on a CPU one; False steps eagerly on the card too (the
+    yardstick a graphed engine is compared with); True on a CPU model raises."""
 
     def __init__(self, model: Model, max_batch: int = 4, max_len: int = 256,
-                 metrics: Optional[MetricsRegistry] = None):
+                 metrics: Optional[MetricsRegistry] = None,
+                 cuda_graph: Optional[bool] = None):
         self.model = model
         self.cfg: ModelConfig = model.cfg
         self.device = model.device
@@ -59,6 +139,24 @@ class ServeEngine:
         self._lock = threading.Lock()
         self._alive = False
         self.steps = 0
+
+        # the decode step's static buffers: tokens and int32 positions (one
+        # host-to-device copy a step), and the greedy tokens it samples
+        self._inputs = torch.zeros((2, max_batch), dtype=torch.int32, device=self.device)
+        self._tokens = self._inputs[0].unsqueeze(1)              # (B, 1)
+        self._positions = self._inputs[1]                        # (B,)
+        self._sampled = torch.zeros(max_batch, dtype=torch.int64, device=self.device)
+        on_card = self.device.type == "cuda"
+        use_graph = on_card if cuda_graph is None else cuda_graph
+        if use_graph and not on_card:
+            raise ValueError(f"cuda_graph=True needs a CUDA model; this one is on {self.device}")
+        self._graph: Optional[DecodeGraph] = None
+        if use_graph:
+            # before any admission: the warm-up steps write k/v and advance
+            # every SSM state, so the cache is zeroed after them
+            with torch.inference_mode():
+                self._graph = DecodeGraph.capture(self._decode, model.kernel_impl, self.device)
+                _zero(self.cache)
 
     # -- client API -------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 16, eos_id: int = -1) -> Request:
@@ -108,21 +206,30 @@ class ServeEngine:
             req.done.set()
             self.slot_req[slot] = None
 
+    def _decode(self) -> None:
+        """The step the graph captures: decode the static tokens at the static
+        positions (the cache in place) and sample greedily into ``_sampled``."""
+        logits, _ = self.model.decode_step(self._tokens, self.cache, self._positions)
+        torch.argmax(logits, dim=-1, out=self._sampled)
+
     @torch.inference_mode()
     def _step(self) -> bool:
-        """One decode step over all active slots (vector positions: each slot
-        reads/writes its own cache position). Returns True if any active."""
+        """One decode step over all slots (vector positions: each slot
+        reads/writes its own cache position; an idle slot decodes token 0 at
+        its last position). Returns True if any slot is active."""
         active = [s for s in range(self.max_batch) if self.slot_req[s] is not None]
         if not active:
             return False
-        tok = np.zeros((self.max_batch, 1), np.int32)
+        inputs = np.zeros((2, self.max_batch), np.int32)
         for s in active:
-            tok[s, 0] = self.slot_req[s].tokens[-1]
-        pos_vec = torch.from_numpy(self.slot_pos.copy()).to(self.device)
-        logits, self.cache = self.model.decode_step(
-            torch.from_numpy(tok).to(self.device), self.cache, pos_vec
-        )
-        nt = torch.argmax(logits, dim=-1).cpu().numpy()  # greedy sampling
+            inputs[0, s] = self.slot_req[s].tokens[-1]
+        inputs[1] = self.slot_pos
+        self._inputs.copy_(torch.from_numpy(inputs))
+        if self._graph is None:
+            self._decode()
+        else:
+            self._graph.replay(self.model.kernel_impl)
+        nt = self._sampled.cpu().numpy()  # greedy sampling: one copy to the host
         for s in active:
             self.slot_req[s].tokens.append(int(nt[s]))
             self.slot_pos[s] += 1

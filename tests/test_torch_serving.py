@@ -22,7 +22,8 @@ from repro.serving.engine import ServeEngine as JaxServeEngine  # noqa: E402
 from repro_torch import params as tparams  # noqa: E402
 from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
-from repro_torch.serving.engine import ServeEngine  # noqa: E402
+from repro_torch.serving import engine as tengine  # noqa: E402
+from repro_torch.serving.engine import DecodeGraph, ServeEngine  # noqa: E402
 from repro_torch.serving.kv_cache import cache_bytes, insert_sequence, summarize  # noqa: E402
 
 
@@ -330,3 +331,138 @@ def test_hybrid_cache_bytes_counts_the_allocated_cache(hybrid_model):
     cache = model.init_cache(4, 20)
     allocated = sum(t.numel() * t.element_size() for _, t in _tree_leaves(cache))
     assert cache_bytes(model.cfg, 4, 20) == allocated
+
+
+# -- the decode step as the card's graph replays it (static buffers, on-device
+# argmax), run eagerly on the CPU ----------------------------------------------
+def test_cuda_graph_on_a_cpu_model_raises(small_model):
+    _, _, model = small_model
+    with pytest.raises(ValueError, match="cuda_graph=True"):
+        ServeEngine(model, max_batch=2, max_len=16, cuda_graph=True)
+
+
+@pytest.mark.parametrize("cuda_graph", [None, False])
+def test_cpu_engine_steps_eagerly(small_model, cuda_graph):
+    _, _, model = small_model
+    engine = ServeEngine(model, max_batch=2, max_len=16, cuda_graph=cuda_graph)
+    assert engine._graph is None
+    assert engine.generate(np.arange(4), max_new_tokens=3) == _greedy_reference(
+        model, np.arange(4), 3)
+
+
+FAMILY_MODELS = {"dense": "small_model", "ssm": "ssm_model", "hybrid": "hybrid_model"}
+
+
+def _serve_with_an_idle_slot(engine, prompts):
+    """A (slot 0, 8 tokens) and B (slot 1, 2 tokens) start together; B ends
+    after one step, slot 1 then idles for three steps (decoding token 0 at its
+    last position) and C is admitted into it. Returns the three requests."""
+    a = engine.submit(prompts[0], max_new_tokens=8)
+    b = engine.submit(prompts[1], max_new_tokens=2)
+    engine._admit()
+    for _ in range(4):
+        engine._step()
+    assert engine.slot_req[0] is a and engine.slot_req[1] is None and b.done.is_set()
+    c = engine.submit(prompts[2], max_new_tokens=5)
+    engine._admit()
+    assert engine.slot_req[1] is c
+    engine.run_until_drained(timeout=120)
+    return [a, b, c]
+
+
+def _addresses(engine):
+    return ([t.data_ptr() for _, t in _tree_leaves(engine.cache)]
+            + [engine._inputs.data_ptr(), engine._sampled.data_ptr()])
+
+
+@pytest.mark.parametrize("family", list(FAMILY_MODELS))
+def test_engine_slot_idle_then_reused(family, request):
+    """The step over static buffers, for every family: a slot that goes idle
+    and is reused gives the oracle's tokens and the reference's (the JAX
+    engine driven the same way; for the hybrid, which it cannot serve, the
+    hand-driven JAX stream); the positions are int32 and every buffer and
+    cache leaf keeps its address, as a captured graph needs."""
+    jmodel, jparams, model = request.getfixturevalue(FAMILY_MODELS[family])
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, model.cfg.vocab, n) for n in (6, 9, 4)]
+    ours = ServeEngine(model, max_batch=2, max_len=40)
+    assert ours._positions.dtype == torch.int32 and ours._tokens.shape == (2, 1)
+    addresses = _addresses(ours)
+    reqs = _serve_with_an_idle_slot(ours, prompts)
+    assert _addresses(ours) == addresses
+    for p, r in zip(prompts, reqs):
+        assert r.tokens == _greedy_reference(model, p, len(r.tokens)), len(p)
+    if family == "hybrid":
+        for p, r in zip(prompts, reqs):
+            assert r.tokens == _jax_greedy_stream(jmodel, jparams, np.asarray(p),
+                                                  len(r.tokens), 40)
+    else:
+        theirs = _serve_with_an_idle_slot(JaxServeEngine(jmodel, jparams, max_batch=2,
+                                                         max_len=40), prompts)
+        assert [r.tokens for r in reqs] == [r.tokens for r in theirs]
+
+
+class _StandInGraph:
+    """Counts replays, as a captured CUDA graph would run them."""
+
+    def __init__(self):
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+
+
+@pytest.fixture
+def fresh_launches(monkeypatch):
+    """Every kernel wrapper's LAUNCHES replaced by a copy for one test."""
+    for mod in tengine._KERNEL_MODULES:
+        monkeypatch.setattr(mod, "LAUNCHES", dict(mod.LAUNCHES))
+
+
+def test_launch_counts_merges_every_kernel_wrapper(fresh_launches):
+    from repro_torch.kernels.flash_attention import kernel as attn_kernel
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    for mod in (attn_kernel, rms_kernel, ssd_kernel):
+        mod.reset_launches()
+    attn_kernel.LAUNCHES["decode_attention"] += 3
+    rms_kernel.LAUNCHES["fused_add_rmsnorm"] += 5
+    assert tengine.launch_counts() == {"flash_attention": 0, "decode_attention": 3,
+                                       "fused_add_rmsnorm": 5, "ssd": 0}
+
+
+def test_decode_graph_replay_adds_the_captured_launches(fresh_launches):
+    """Each replay adds the calls counted during capture to LAUNCHES (a replay
+    makes no host call); a replay under another kernel_impl raises before it
+    replays or counts anything."""
+    captured = {"flash_attention": 0, "decode_attention": 24, "fused_add_rmsnorm": 24, "ssd": 0}
+    graph = DecodeGraph(_StandInGraph(), captured, "auto")
+    before = tengine.launch_counts()
+    for _ in range(3):
+        graph.replay("auto")
+    after = tengine.launch_counts()
+    assert graph.graph.replays == 3
+    assert {k: after[k] - before[k] for k in after} == {k: 3 * n for k, n in captured.items()}
+    with pytest.raises(RuntimeError, match="kernel_impl"):
+        graph.replay("ref")
+    assert graph.graph.replays == 3 and tengine.launch_counts() == after
+
+
+def test_engine_step_replays_its_graph(small_model, fresh_launches):
+    """With a graph in place, a step copies its inputs into the static
+    buffers, replays once and reads the sampled tokens back; the replay's
+    captured counts reach LAUNCHES once per step."""
+    _, _, model = small_model
+    engine = ServeEngine(model, max_batch=2, max_len=16)
+
+    class Eager(_StandInGraph):           # a replay that runs the step it stands for
+        def replay(self):
+            super().replay()
+            engine._decode()
+
+    engine._graph = DecodeGraph(Eager(), {"decode_attention": 2}, model.kernel_impl)
+    before = tengine.launch_counts()["decode_attention"]
+    tokens = engine.generate(np.arange(5), max_new_tokens=4)
+    assert tokens == _greedy_reference(model, np.arange(5), 4)
+    assert engine._graph.graph.replays == engine.steps == 3
+    assert tengine.launch_counts()["decode_attention"] == before + 2 * 3
