@@ -57,21 +57,49 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      the slice's bf16 tolerance. Each engine's throughput,
                      TTFT, step time and peak memory are printed, and the
                      graph's build time and node count.
-8. slice-ssm        - the same for full-width mamba2-2.7b (prefills pad 384 to 512).
-9. serve-ssm        - the same for full-width bf16 mamba2-2.7b; the counters
-                     must show the SSD kernel in every layer's prefill and none
-                     of the other three (its step runs no kernel of the repo).
-10. slice-hybrid    - the same for full-width zamba2-2.7b (54 Mamba2 layers in 9
+8. fabric-frontdoor - the same 16 requests as fabric tasks through the serve
+                     driver's path (``launch/serve.py``: FunctionService ->
+                     Forwarder -> Endpoint -> worker -> a pass-through
+                     ``generate`` on a graphed engine); streams held to the
+                     serve phase's graphed ones under its near-tie rule;
+                     throughput and TTFT beside the direct engine's.
+9. fabric           - ``serve_model`` over two ``torch`` endpoints and a
+                     journal: 8 concurrent sessions of 64 tokens (the serve
+                     phase's first 8 prompts) on batched hosts (a graph replay
+                     a coalesced step), then on unbatched hosts, then 4
+                     sessions of 16 tokens with the first session's endpoint
+                     killed after the third step. Each run: every session's
+                     tokens, streams held to the direct engine's under the
+                     near-tie rule, one affinity hit per decode task, no
+                     duplicate commitment in the journal, the kernels' floor;
+                     the batched run must coalesce (fewer steps than decode
+                     tasks, a step of more than one slot), the failover run
+                     must migrate a session. Prints tokens/s, TTFT, the mean
+                     decode-task wall as a client sees it, the graphed step's
+                     device time, and the wire codec's time for one decode
+                     task's payload.
+10. slice-ssm       - the same as slice for full-width mamba2-2.7b (prefills pad
+                     384 to 512).
+11. serve-ssm       - the same as serve for full-width bf16 mamba2-2.7b; the
+                     counters must show the SSD kernel in every layer's prefill
+                     and none of the other three (its step runs no kernel of
+                     the repo).
+12. slice-hybrid    - the same for full-width zamba2-2.7b (54 Mamba2 layers in 9
                      groups of 6, one shared attention + MLP block before each).
-11. serve-hybrid    - the same for full-width bf16 zamba2-2.7b; the counters
+13. serve-hybrid    - the same for full-width bf16 zamba2-2.7b; the counters
                      must show all four kernels: the shared block's attention
                      and add + norm 9 times per prefill and per step, the SSD
                      scan 54 times per prefill.
+14. fabric-hybrid   - 4 sessions of 32 tokens on one ``torch`` endpoint through
+                     the unbatched host (each session's cache holds max_len
+                     positions), held to serve-hybrid's graphed streams under
+                     the hybrid's near-tie bound; all four kernels must launch.
 
-Each serve phase resets the launch counters just before it submits its
-requests and reads them just after, for each engine; a replay adds the calls
-its capture counted. The summary's ``launches`` of a kernel is its sum over
-the three graphed runs.
+Each serve and fabric phase resets the launch counters just before it submits
+its requests and reads them just after; a replay adds the calls its capture
+counted. The summary's ``launches`` of a kernel is its sum over the three
+graphed serve runs and the fabric runs; the fabric phases together must have
+launched every kernel.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.
@@ -82,6 +110,8 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -93,6 +123,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import FunctionService, serializer  # noqa: E402
+from repro_torch.core.containers import ContainerSpec  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as attn_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as attn_ref  # noqa: E402
@@ -101,7 +133,8 @@ from repro_torch.kernels.rmsnorm import ref as rms_ref  # noqa: E402
 from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
-from repro_torch.serving import kv_cache  # noqa: E402
+from repro_torch.launch.serve import serve_through_front_door  # noqa: E402
+from repro_torch.serving import fabric, kv_cache  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
 ARCH = "qwen2-0.5b"
@@ -811,24 +844,25 @@ def _serve_run(model: Model, prompts, new_tokens: int, cuda_graph: bool) -> dict
                 peak_reserved=torch.cuda.max_memory_reserved())
 
 
-def _check_streams(model: Model, prompts, graphed, eager, tol: float, tag: str) -> int:
-    """The graphed and the eager engine's token streams, request by request:
-    where they part, both tokens must be a near-tie, each within ``tol`` of
-    the top logit of an eager B = 1 prefill of the prompt and the common
-    prefix. Returns the number of requests whose streams part."""
+def _check_streams(model: Model, prompts, got, want, tol: float, tag: str,
+                   names=("graphed", "eager")) -> int:
+    """Two runs' token streams (lists of tokens), request by request: where
+    they part, both tokens must be a near-tie, each within ``tol`` of the top
+    logit of an eager B = 1 prefill of the prompt and the common prefix.
+    Returns the number of requests whose streams part."""
     parted = 0
-    for i, (p, g, e) in enumerate(zip(prompts, graphed, eager)):
-        j = next((j for j, (a, b) in enumerate(zip(g.tokens, e.tokens)) if a != b), None)
+    for i, (p, g, e) in enumerate(zip(prompts, got, want)):
+        j = next((j for j, (a, b) in enumerate(zip(g, e)) if a != b), None)
         if j is None:
             continue
         parted += 1
-        seq = np.concatenate([np.asarray(p), np.asarray(g.tokens[:j])]).astype(np.int64)
+        seq = np.concatenate([np.asarray(p), np.asarray(g[:j])]).astype(np.int64)
         with torch.inference_mode():
             logits, _ = model.prefill({"tokens": torch.from_numpy(seq[None]).to(DEVICE)})
         top = logits[0].max().item()
-        gaps = [top - logits[0, t].item() for t in (g.tokens[j], e.tokens[j])]
-        say(tag, f"request {i} parts at token {j}: graphed {g.tokens[j]}, eager "
-                 f"{e.tokens[j]}, below the top logit by {gaps[0]:.3e} / {gaps[1]:.3e}")
+        gaps = [top - logits[0, t].item() for t in (g[j], e[j])]
+        say(tag, f"request {i} parts at token {j}: {names[0]} {g[j]}, {names[1]} "
+                 f"{e[j]}, below the top logit by {gaps[0]:.3e} / {gaps[1]:.3e}")
         if max(gaps) > tol:
             raise AssertionError(f"{tag}: request {i}'s streams part at token {j} by more "
                                  f"than a near-tie ({max(gaps):.3e} > {tol})")
@@ -855,8 +889,9 @@ def _launch_floor(cfg, n_req: int, steps: int) -> dict:
 
 def phase_serve(model: Model, tag: str, bf16_tol: float) -> dict:
     """Serve 16 requests through a graphed ServeEngine (the main path), then
-    the same 16 through an eager one; returns the launches of the kernels on
-    this family's path, counted over the graphed run alone."""
+    the same 16 through an eager one. Returns the launches of the kernels on
+    this family's path, counted over the graphed run alone, the prompts, the
+    graphed run's token streams and its summary, for the fabric phases."""
     cfg = model.cfg
     n_req, new_tokens, max_batch, max_len = 16, 64, 8, 1024
     # warm-up through the same entry points (cuBLAS handles, allocator)
@@ -889,6 +924,9 @@ def phase_serve(model: Model, tag: str, bf16_tol: float) -> dict:
                                  "path skipped a kernel or ran another family's")
         total = sum(len(r.tokens) for r in reqs)
         ttft = np.array([(r.first_token_at - r.submitted) * 1e3 for r in reqs])
+        run["summary"] = dict(tokens_s=total / run["wall"], ttft_p50=np.percentile(ttft, 50),
+                              ttft_p99=np.percentile(ttft, 99),
+                              step_median_ms=np.median(engine.step_s) * 1e3)
         say(tag, f"{mode}: {total} tokens in {run['wall']:.3f} s = {total / run['wall']:.1f} "
                  f"tokens/s; TTFT p50 {np.percentile(ttft, 50):.1f} ms, p99 "
                  f"{np.percentile(ttft, 99):.1f} ms (16 samples); {engine.steps} decode steps, "
@@ -915,12 +953,331 @@ def phase_serve(model: Model, tag: str, bf16_tol: float) -> dict:
         run["steps"] = engine.steps
         del engine, run["engine"]              # free the cache and the graph's pool
         torch.cuda.empty_cache()
-    graphed, eager = runs["graphed"]["reqs"], runs["eager"]["reqs"]
+    graphed = [r.tokens for r in runs["graphed"]["reqs"]]
+    eager = [r.tokens for r in runs["eager"]["reqs"]]
     parted = _check_streams(model, prompts, graphed, eager, bf16_tol, tag)
     say(tag, f"graphed and eager token streams: {n_req - parted} of {n_req} requests equal; "
              f"{parted} part, each at a near-tie within {bf16_tol:g}")
     launches = runs["graphed"]["launches"]
-    return {k: launches[k] for k in _launch_floor(cfg, n_req, runs["graphed"]["steps"])}
+    return dict(launches={k: launches[k]
+                          for k in _launch_floor(cfg, n_req, runs["graphed"]["steps"])},
+                prompts=prompts, streams=graphed, new_tokens=new_tokens,
+                direct=runs["graphed"]["summary"])
+
+
+# ------------------------------------------------------------------ the fabric
+def _launch_counts() -> dict:
+    return {k: v for mod in KERNEL_MODULES for k, v in mod.LAUNCHES.items()}
+
+
+def _reset_launches() -> None:
+    for mod in KERNEL_MODULES:
+        mod.reset_launches()
+
+
+def _check_launches(tag: str, launches: dict, need: dict) -> None:
+    """Every kernel of the family's path launched at least its floor in the
+    phase's run, and no other kernel of the port."""
+    absent = [k for k in launches if k not in need]
+    if any(launches[k] < n for k, n in need.items()) or any(launches[k] for k in absent):
+        raise AssertionError(f"{tag}: launch counters {launches} do not meet {need}: the "
+                             "fabric path skipped a kernel or ran another family's")
+    say(tag, f"launches {launches} (need >= {need}, none of {absent})")
+
+
+def phase_fabric_frontdoor(model: Model, served: dict, tol: float) -> dict:
+    """The serve phase's 16 prompts as fabric tasks through the serve driver's
+    path (FunctionService -> Forwarder -> Endpoint -> worker -> a pass-through
+    ``generate`` on a graphed ServeEngine), held to the serve phase's graphed
+    streams. Returns the run's launches."""
+    tag = "fabric-frontdoor"
+    cfg = model.cfg
+    prompts, new_tokens = served["prompts"], served["new_tokens"]
+    engine = _TimedEngine(model, max_batch=8, max_len=1024)
+    torch.cuda.synchronize()
+    _reset_launches()                          # the run starts here
+    outs, wall = serve_through_front_door(engine, prompts, new_tokens, timeout=900)
+    launches = _launch_counts()                 # ... and ends here
+    for i, o in enumerate(outs):
+        toks = [int(t) for t in o["tokens"]]
+        if len(toks) != new_tokens or not all(0 <= t < cfg.vocab for t in toks):
+            raise AssertionError(f"{tag}: request {i} returned {len(toks)} tokens of "
+                                 f"{new_tokens}, or one out of range")
+    streams = [[int(t) for t in o["tokens"]] for o in outs]
+    parted = _check_streams(model, prompts, streams, served["streams"], tol, tag,
+                            names=("front door", "direct"))
+    total = sum(len(s) for s in streams)
+    ttft = np.array([o["ttft_ms"] for o in outs])
+    client_ttft = np.array([o["client_ttft_ms"] for o in outs])
+    d = served["direct"]
+    say(tag, f"{cfg.name} bf16, {len(prompts)} requests through one endpoint of 2 workers: "
+             f"{total} tokens in {wall:.3f} s = {total / wall:.1f} tokens/s (direct engine "
+             f"{d['tokens_s']:.1f}); TTFT in the engine p50 {np.percentile(ttft, 50):.1f} ms, "
+             f"p99 {np.percentile(ttft, 99):.1f} ms; from service.run p50 "
+             f"{np.percentile(client_ttft, 50):.1f} ms, p99 {np.percentile(client_ttft, 99):.1f} "
+             f"ms (direct engine p50 {d['ttft_p50']:.1f} ms, p99 {d['ttft_p99']:.1f} ms); "
+             f"{engine.steps} decode steps, median {np.median(engine.step_s) * 1e3:.3f} ms "
+             f"(direct {d['step_median_ms']:.3f})")
+    say(tag, f"streams against the serve phase's graphed engine: {len(prompts) - parted} of "
+             f"{len(prompts)} equal; {parted} part, each at a near-tie within {tol:g}")
+    _check_launches(tag, launches, _launch_floor(cfg, len(prompts), engine.steps))
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _fabric_service(model: Model, name: str, n_endpoints: int, journal_dir: str,
+                    fabric_mod=fabric, **serve_kw):
+    """A service with a journal and `n_endpoints` endpoints, each one pool of
+    the ``torch`` capability, serving `model` under `name` (through
+    ``fabric_mod.serve_model``: the port's fabric unless another build of it
+    is given)."""
+    svc = FunctionService(journal_dir=journal_dir)
+    spec = ContainerSpec(name="torch", capabilities={"cpu", "torch"}, min_workers=0,
+                         max_workers=16)
+    eps = [svc.make_endpoint(f"{name}-site{i}", n_executors=1, containers=[spec])
+           for i in range(n_endpoints)]
+    client = fabric_mod.serve_model(svc, model, name=name, **serve_kw)
+    # each endpoint builds its host (for a batched host, the graph capture)
+    # with its first task: one short session per endpoint, outside the timing
+    for ep in eps:
+        with client.session(np.arange(8) % model.cfg.vocab, endpoint_id=ep.endpoint_id) as s:
+            list(s.stream(3))
+    return svc, eps, client
+
+
+def _counters(svc) -> dict:
+    return dict(svc.metrics.snapshot()["counters"])
+
+
+def _fabric_users(client, prompts, new_tokens: int, kill=None) -> list:
+    """One client thread per prompt: a session streams `new_tokens` tokens
+    (``ServingClient.generate``'s loop, each step timed as the client sees
+    it). With ``kill``, every thread waits after its third step while
+    ``kill(sessions)`` runs. Returns one dict per session."""
+    out = [None] * len(prompts)
+    errors = []
+    barrier = threading.Barrier(len(prompts) + 1) if kill else None
+    sessions = [None] * len(prompts)
+
+    def user(k):
+        try:
+            with client.session(prompts[k], timeout=300) as s:
+                sessions[k] = s
+                steps, t = [], time.perf_counter()
+                for j, _ in enumerate(s.stream(new_tokens, timeout=300)):
+                    now = time.perf_counter()
+                    if j:
+                        steps.append(now - t)
+                    if barrier is not None and j == 3:
+                        barrier.wait(timeout=300)
+                        barrier.wait(timeout=300)
+                    t = time.perf_counter()
+                out[k] = dict(tokens=list(s.tokens), ttft=s.ttft_s, steps=steps,
+                              endpoints=list(s.endpoints), migrations=s.migrations)
+        except BaseException as exc:  # noqa: BLE001 - raised below
+            errors.append(exc)
+            if barrier is not None:
+                barrier.abort()
+
+    threads = [threading.Thread(target=user, args=(k,)) for k in range(len(prompts))]
+    for t in threads:
+        t.start()
+    if kill:
+        barrier.wait(timeout=600)              # every session has made its third step
+        kill(sessions)
+        barrier.wait(timeout=600)              # ... and each goes on
+    for t in threads:
+        t.join(timeout=900)
+    if errors:
+        raise errors[0]
+    if any(o is None for o in out):
+        raise AssertionError("a client thread did not finish")
+    return out
+
+
+def _codec_us(history: list, reps: int = 200) -> float:
+    """Median host time (us) of one decode task's payload through the wire
+    codec: ``serializer.packb`` at the service, ``unpackb`` at the worker."""
+    doc = {"model": "qwen2-0.5b", "session": "s-0123456789ab", "tokens": history}
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        serializer.unpackb(serializer.packb(doc))
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e6
+
+
+def _graph_step_ms(host, reps: int = 50) -> float:
+    """Median device time of one replay of a host's decode graph (CUDA events,
+    the raw graph, so no launch is counted)."""
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000)
+        start.record()
+        host._graph.graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _fabric_run(model: Model, run: str, prompts, new_tokens: int, n_endpoints: int,
+                kill: bool = False, fabric_mod=fabric, **serve_kw) -> dict:
+    """One fabric run on a fresh journaled service, its hosts warmed first: a
+    client thread per prompt streams its session; with ``kill``, the endpoint
+    holding the first session is killed after every session's third step.
+    The launch counters are reset just before the sessions open and read
+    just after they close. Returns the run's numbers."""
+    name = f"{model.cfg.name}-{run}"
+    with tempfile.TemporaryDirectory() as journal_dir:
+        svc, eps, client = _fabric_service(model, name, n_endpoints, journal_dir, fabric_mod,
+                                           max_len=1024, max_sessions=8, **serve_kw)
+        by_id = {ep.endpoint_id: ep for ep in eps}
+        killed = []
+
+        def kill_home(sessions):
+            victim = by_id[sessions[0].endpoints[-1]]
+            victim.kill()
+            svc.forwarder.check_endpoints()
+            killed.append(victim.endpoint_id)
+
+        try:
+            before = _counters(svc)
+            torch.cuda.synchronize()
+            _reset_launches()                   # the run starts here
+            t0 = time.monotonic()
+            outs = _fabric_users(client, prompts, new_tokens, kill=kill_home if kill else None)
+            wall = time.monotonic() - t0
+            launches = _launch_counts()          # ... and ends here
+            after = _counters(svc)
+            merged = svc.metrics.histogram("serving.merged_per_step")
+            max_merged = merged.percentile(100) if merged.count else 0
+            dup = svc.journal.state().duplicate_completions
+            hosts = [ep.site.get_or_create(("serving-host", name), None) for ep in eps]
+            step_ms = _graph_step_ms(hosts[0]) if hosts[0]._graph is not None else None
+        finally:
+            svc.shutdown()
+            fabric_mod.reset_serving()
+    delta = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+    return dict(outs=outs, wall=wall, launches=launches, delta=delta, dup=dup,
+                max_merged=max_merged, step_ms=step_ms, batching=hosts[0].batching,
+                killed=killed)
+
+
+def _report_fabric_run(model: Model, tag: str, run: str, r: dict, prompts, want,
+                       new_tokens: int, tol: float) -> None:
+    """Check one run (every session's tokens, the streams against `want`
+    under the near-tie rule, one affinity hit per decode task, no duplicate
+    commitment in the journal, the kernels' floor) and print its numbers."""
+    cfg = model.cfg
+    outs, delta = r["outs"], r["delta"]
+    for i, o in enumerate(outs):
+        if len(o["tokens"]) != new_tokens or not all(0 <= t < cfg.vocab for t in o["tokens"]):
+            raise AssertionError(f"{tag} {run}: session {i} ended with {len(o['tokens'])} "
+                                 f"tokens of {new_tokens}, or one out of range")
+    parted = _check_streams(model, prompts, [o["tokens"] for o in outs],
+                            [w[:new_tokens] for w in want], tol, f"{tag} {run}",
+                            names=("fabric", "direct"))
+    migrations = sum(o["migrations"] for o in outs)
+    decode_tasks = sum(len(o["steps"]) for o in outs)
+    if delta.get("serving.affinity_hits", 0) != decode_tasks - migrations:
+        raise AssertionError(f"{tag} {run}: {delta.get('serving.affinity_hits', 0)} affinity "
+                             f"hits for {decode_tasks} decode tasks ({migrations} migrated)")
+    if r["dup"] != 0:
+        raise AssertionError(f"{tag} {run}: journal.duplicate_completions = {r['dup']}")
+    batches = delta.get("serving.decode_batches", 0)
+    steps = batches if r["batching"] else delta.get("serving.affinity_hits", 0)
+    _check_launches(f"{tag} {run}", r["launches"],
+                    _launch_floor(cfg, delta.get("serving.prefills", 0), steps))
+    total = sum(len(o["tokens"]) for o in outs)
+    ttft = np.array([o["ttft"] * 1e3 for o in outs])
+    task_ms = np.mean([t for o in outs for t in o["steps"]]) * 1e3
+    say(tag, f"{run}: {len(outs)} sessions x {new_tokens} tokens, "
+             f"{'batched' if r['batching'] else 'unbatched'} hosts: {total} tokens in "
+             f"{r['wall']:.3f} s = {total / r['wall']:.1f} tokens/s; TTFT p50 "
+             f"{np.percentile(ttft, 50):.1f} ms, p99 {np.percentile(ttft, 99):.1f} ms; "
+             f"{decode_tasks} decode tasks, mean wall as the client sees it {task_ms:.3f} ms; "
+             f"{batches} batched steps (largest merge {r['max_merged']:g}); "
+             f"{delta.get('serving.affinity_hits', 0)} affinity hits, {migrations} migrated, "
+             f"{delta.get('serving.cache_migrations', 0)} re-prefills; "
+             f"journal.duplicate_completions {r['dup']}"
+             + (f"; graphed step device time {r['step_ms']:.4f} ms (CUDA events, median of 50)"
+                if r["step_ms"] is not None else ""))
+    say(tag, f"{run}: streams against the direct graphed engine: {len(outs) - parted} of "
+             f"{len(outs)} equal; {parted} part, each at a near-tie within {tol:g}")
+    r.update(decode_tasks=decode_tasks, migrations=migrations, batches=batches,
+             tokens_s=total / r["wall"], ttft_p50=np.percentile(ttft, 50),
+             ttft_p99=np.percentile(ttft, 99), task_ms=task_ms)
+
+
+def _eager_step_ms(model: Model, reps: int = 20) -> float:
+    """Median host wall of one eager B = 1 decode step over a 1024-long cache
+    (the unbatched host's step), synchronised."""
+    cache = model.init_cache(1, 1024)
+    tok = torch.zeros((1, 1), dtype=torch.int32, device=DEVICE)
+    pos = torch.full((1,), 600, dtype=torch.int32, device=DEVICE)
+    times = []
+    with torch.inference_mode():
+        for _ in range(reps + 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.decode_step(tok, cache, pos)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    return float(np.median(times[2:])) * 1e3
+
+
+def phase_fabric(model: Model, served: dict, tol: float) -> dict:
+    """serve_model over two ``torch`` endpoints and a journal: a batched run
+    (8 concurrent sessions of 64 tokens over the serve phase's first 8
+    prompts), an unbatched run (the same, ``batching=False``) and a failover
+    run (4 sessions of 16 tokens, the first session's endpoint killed after
+    the third step). Returns the launches of the three runs together."""
+    tag = "fabric"
+    prompts, want = served["prompts"][:8], served["streams"][:8]
+    n_new = served["new_tokens"]
+    runs = {}
+    for run, kw in (("batched", {}), ("unbatched", {"batching": False})):
+        r = runs[run] = _fabric_run(model, run, prompts, n_new, 2, **kw)
+        _report_fabric_run(model, tag, run, r, prompts, want, n_new, tol)
+    b = runs["batched"]
+    if not b["batches"] < b["decode_tasks"]:
+        raise AssertionError(f"{tag}: {b['batches']} batched steps for {b['decode_tasks']} "
+                             "decode tasks: no coalescing")
+    if not b["max_merged"] > 1:
+        raise AssertionError(f"{tag}: the largest merged step served {b['max_merged']} slots")
+    if runs["unbatched"]["batches"] != 0:
+        raise AssertionError(f"{tag}: the unbatched hosts ran batched steps")
+    r = runs["failover"] = _fabric_run(model, "failover", prompts[:4], 16, 2, kill=True)
+    _report_fabric_run(model, tag, "failover", r, prompts[:4], want[:4], 16, tol)
+    if r["migrations"] < 1 or not r["killed"]:
+        raise AssertionError(f"{tag} failover: {r['migrations']} sessions migrated")
+    longest = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+    history = [int(t) for t in prompts[longest]] + [int(t) for t in want[longest]]
+    say(tag, f"failover: killed {r['killed'][0]} after the third step; every session "
+             f"ended with its 16 tokens")
+    say(tag, f"wire codec: pack + unpack of one decode task's payload (a history of "
+             f"{len(history)} ints) {_codec_us(history):.1f} us (host, median of 200); eager "
+             f"B = 1 decode step (the unbatched host's) {_eager_step_ms(model):.3f} ms wall "
+             "(median of 20)")
+    launches = dict.fromkeys(SOURCES, 0)
+    for r in runs.values():
+        for k, n in r["launches"].items():
+            launches[k] += n
+    return launches
+
+
+def phase_fabric_hybrid(model: Model, served: dict, tol: float) -> dict:
+    """4 sessions of 32 tokens on one ``torch`` endpoint: the hybrid serves
+    through the unbatched host (F2 repaired: each session's cache holds
+    max_len positions), held to the serve-hybrid phase's graphed streams."""
+    tag = "fabric-hybrid"
+    prompts, want = served["prompts"][:4], served["streams"][:4]
+    r = _fabric_run(model, "unbatched", prompts, 32, 1)
+    _report_fabric_run(model, tag, "unbatched", r, prompts, want, 32, tol)
+    return r["launches"]
 
 
 def main() -> int:
@@ -930,13 +1287,29 @@ def main() -> int:
     rows.update(phase_kernels_rmsnorm())
     rows.update(phase_kernels_ssd())
     launches = dict.fromkeys(rows, 0)
+    fabric_launches = dict.fromkeys(rows, 0)
     for arch, tag, tol in ((ARCH, "", SLICE_BF16_TOL), (SSM_ARCH, "-ssm", SLICE_SSM_BF16_TOL),
                            (HYBRID_ARCH, "-hybrid", SLICE_HYBRID_BF16_TOL)):
         model = phase_slice(arch, "slice" + tag, tol)
-        for k, n in phase_serve(model, "serve" + tag, tol).items():
-            launches[k] += n
+        served = phase_serve(model, "serve" + tag, tol)
+        phase_launches = [served["launches"]]
+        # the fabric phases reuse the served bf16 model before it is freed
+        if arch == ARCH:
+            phase_launches += [phase_fabric_frontdoor(model, served, tol),
+                               phase_fabric(model, served, tol)]
+        elif arch == HYBRID_ARCH:
+            phase_launches.append(phase_fabric_hybrid(model, served, tol))
+        for i, counts in enumerate(phase_launches):
+            for k, n in counts.items():
+                launches[k] += n
+                if i:
+                    fabric_launches[k] += n
         del model                               # free the weights before the next family
         torch.cuda.empty_cache()
+    if not all(fabric_launches.values()):
+        raise AssertionError(f"the fabric phases launched {fabric_launches}: a kernel of the "
+                             "port ran in none of them")
+    say("fabric", f"the port's kernels in the fabric phases: {fabric_launches}")
     kernels = []
     for kname, r in rows.items():
         kernels.append({

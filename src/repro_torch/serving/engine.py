@@ -15,6 +15,7 @@ On the CPU the same step runs eagerly.
 """
 from __future__ import annotations
 
+import gc
 import threading
 import time
 import uuid
@@ -61,7 +62,12 @@ class DecodeGraph:
     def capture(cls, step: Callable[[], None], kernel_impl: str, device) -> "DecodeGraph":
         """Run ``step`` WARMUP_STEPS times eagerly on a side stream, under
         ``set_sync_debug_mode("error")`` so that a host sync in it raises, then
-        capture it once on that stream. A failure raises: nothing falls back."""
+        capture it once on that stream. A failure raises: nothing falls back.
+
+        The capture runs with the garbage collector off, after one collection:
+        cyclic garbage (a fabric ``ModelHost`` is a cycle through its
+        coalescer) may hold another graph, and releasing that graph's memory
+        while this one is captured, from any thread, invalidates the capture."""
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         mode = torch.cuda.get_sync_debug_mode()
@@ -73,10 +79,17 @@ class DecodeGraph:
         finally:
             torch.cuda.set_sync_debug_mode(mode)
         graph = torch.cuda.CUDAGraph(keep_graph=True)   # keeps the graph's nodes readable
-        before = launch_counts()
-        with torch.cuda.graph(graph, stream=side):
-            step()
-        after = launch_counts()
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            before = launch_counts()
+            with torch.cuda.graph(graph, stream=side):
+                step()
+            after = launch_counts()
+        finally:
+            if collecting:
+                gc.enable()
         graph.instantiate()
         return cls(graph, {name: after[name] - before[name] for name in after}, kernel_impl)
 
@@ -90,10 +103,10 @@ class DecodeGraph:
                 mod.LAUNCHES[name] += self.launches.get(name, 0)
 
 
-def _zero(tree: dict) -> None:
+def zero_cache(tree: dict) -> None:
     for leaf in tree.values():
         if isinstance(leaf, dict):
-            _zero(leaf)
+            zero_cache(leaf)
         else:
             leaf.zero_()
 
@@ -156,7 +169,7 @@ class ServeEngine:
             # every SSM state, so the cache is zeroed after them
             with torch.inference_mode():
                 self._graph = DecodeGraph.capture(self._decode, model.kernel_impl, self.device)
-                _zero(self.cache)
+                zero_cache(self.cache)
 
     # -- client API -------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 16, eos_id: int = -1) -> Request:

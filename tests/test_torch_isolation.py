@@ -1,6 +1,7 @@
 """The port stands alone: importing every ``repro_torch`` module and
-``chip_smoke`` loads neither ``jax`` nor anything of ``repro``, and no source
-of the port names them in an import."""
+``chip_smoke`` loads neither ``jax`` nor anything of ``repro`` (nor
+``msgpack``, which the card's machine lacks: the port carries its own codec),
+and no source of the port names them in an import."""
 import os
 import re
 import subprocess
@@ -25,13 +26,14 @@ spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 mod = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(mod)  # defines main() without running it
 leaked = sorted(m for m in sys.modules
-                if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+                if m.split(".")[0] in ("jax", "repro", "msgpack"))
 print(len(names), "modules;", "leaked:", leaked)
 sys.exit(1 if leaked else 0)
 """
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s*$|\s*,|\s+as\b)|from\s+repro(\.|\s+import\b))",
+    r"^\s*(import\s+(jax|msgpack)\b|from\s+(jax|msgpack)\b"
+    r"|import\s+repro(\.|\s*$|\s*,|\s+as\b)|from\s+repro(\.|\s+import\b))",
     re.M,
 )
 
@@ -54,7 +56,8 @@ def test_port_sources_import_no_jax_and_no_repro(path):
 
 def test_forbidden_pattern_catches_what_it_should():
     bad = ["import jax", "import jax.numpy as jnp", "from jax import lax", "import repro",
-           "from repro.models import model", "from repro import configs", "import repro.core"]
+           "from repro.models import model", "from repro import configs", "import repro.core",
+           "import msgpack", "from msgpack import ExtType"]
     good = ["import repro_torch", "from repro_torch.models import model", "import jaxlib_free",
             "from .ref import NEG_INF"]
     assert all(_FORBIDDEN.search(s) for s in bad)
