@@ -15,12 +15,13 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      shapes, prefill at hd 80, 128 and 24 (the bf16 wgmma kernel's
                      two-slab and zero-padded head dims), decode at lengths around
                      the split-KV boundary, and the slices' own shapes (qwen2-0.5b
-                     GQA hd 64, zamba2-2.7b MHA hd 80); time kernel, plain version
+                     GQA hd 64, zamba2-2.7b MHA hd 80, qwen2-moe-a2.7b MHA 16/16
+                     hd 128); time kernel, plain version
                      and ``F.scaled_dot_product_attention`` (a yardstick only) there.
 4. kernels-rmsnorm  - hold the fused add + RMSNorm kernel against its plain
                      version at 1e-6 (f32) / 1e-2 (bf16) on the reference's sweep
-                     and the slices' rows (d_model 896 and 2560, 512-token prefill
-                     and 8-slot decode); time kernel and plain version there
+                     and the slices' rows (d_model 896, 2560 and 2048, 512-token
+                     prefill and 8-slot decode); time kernel and plain version there
                      (no single PyTorch call computes add + norm: no library
                      time; the two-call
                      chain ``x + d`` then ``F.rms_norm`` is printed beside it,
@@ -94,10 +95,28 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      the unbatched host (each session's cache holds max_len
                      positions), held to serve-hybrid's graphed streams under
                      the hybrid's near-tie bound; all four kernels must launch.
+15. slice-moe       - the same as slice for full-width qwen2-moe-a2.7b (60 routed
+                     experts top-4 with capacity drop, a gated shared expert);
+                     the f32 check runs 8 of its 24 layers (a depth cut: the
+                     full-width f32 model is 57 GB), bf16 all 24. Routing flips
+                     between the two paths (tokens x layers whose top-4 expert
+                     set differs) are counted and printed.
+16. serve-moe       - the same as serve for full-width bf16 qwen2-moe-a2.7b: flash
+                     attention, decode attention and the add + norm 24 times a
+                     prefill and a step.
+17. fabric-moe      - ``serve_model`` on two ``torch`` endpoints with a journal, 8
+                     sessions of 64 tokens on batched hosts: at the published
+                     capacity factor (every session's tokens, one affinity hit a
+                     decode task, no duplicate commitment, coalescing; how many
+                     streams equal the direct engine's is printed, not held:
+                     the drops depend on which slots share a step), then on the
+                     same weights at capacity factor E / k = 15, where nothing
+                     drops, held to a direct graphed engine's streams under the
+                     near-tie rule.
 
 Each serve and fabric phase resets the launch counters just before it submits
 its requests and reads them just after; a replay adds the calls its capture
-counted. The summary's ``launches`` of a kernel is its sum over the three
+counted. The summary's ``launches`` of a kernel is its sum over the four
 graphed serve runs and the fabric runs; the fabric phases together must have
 launched every kernel.
 
@@ -106,6 +125,8 @@ The last two lines are the ``{"kernels": [...]}`` summary and
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import re
 import subprocess
@@ -132,6 +153,7 @@ from repro_torch.kernels.rmsnorm import kernel as rms_kernel  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rms_ref  # noqa: E402
 from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.launch.serve import serve_through_front_door  # noqa: E402
 from repro_torch.serving import fabric, kv_cache  # noqa: E402
@@ -192,7 +214,8 @@ HYBRID_SSD_SHAPE = (1, 512, 80, 64, 1, 64, 256)
 RMS_TOL = {torch.float32: 1e-6, torch.bfloat16: 1e-2}  # tests/test_kernels_rmsnorm.py:10
 # the add + norm rows of the slices: a 512-token prefill and an 8-slot decode
 # step, at qwen2-0.5b's and zamba2-2.7b's d_model; the first is the summary's row
-RMS_SHAPES = ((1, 512, 2560), (8, 1, 2560), (1, 512, 896), (8, 1, 896))
+RMS_SHAPES = ((1, 512, 2560), (8, 1, 2560), (1, 512, 896), (8, 1, 896),
+              (1, 512, 2048), (8, 1, 2048))
 
 HYBRID_ARCH = "zamba2-2.7b"
 # bf16 slice of zamba2-2.7b, held as the mamba2 slice is: 54 Mamba2 layers each
@@ -201,6 +224,26 @@ HYBRID_ARCH = "zamba2-2.7b"
 # bf16 products (one ulp is 2^-5 at |logit| 4..8). Held: max|dlogit| within 16
 # such ulps, and every top-1 disagreement a near-tie within that same margin.
 SLICE_HYBRID_BF16_TOL = 0.5
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+# its attention: MHA, 16 heads over 16 KV heads, hd 128, at the same prefill
+# and decode sizes
+MOE_PREFILL_SHAPE = (1, 512, 16, 16, 128)
+MOE_DECODE_SHAPE = (8, 1024, 16, 16, 128)
+# the f32 check of the MoE slice runs 8 of the 24 layers (a depth cut): the
+# full-width f32 model is 57 GB and cannot sit beside the bf16 one; 8 layers
+# are about 21 GB
+MOE_F32_LAYERS = 8
+# bf16 slice of qwen2-moe-a2.7b: the kernel and plain attention paths differ by
+# bf16 rounding, and where two router probabilities are that close a token goes
+# to another expert (a routing flip, counted and printed by the phase). On an
+# H100 at seed 0, 2210 of the 38400 (token, layer) routes flip between the two
+# paths, each moving a token's output, and the later positions that attend to
+# it, by more than the dense slice's rounding alone; max|dlogit| read 0.149
+# there. Held: max|dlogit| within 16 ulps of a logit of 4..8 (0.5, the SSM
+# slices' bound, for the flips on top of qwen2-0.5b's 8) and every top-1
+# disagreement a near-tie within that same margin.
+SLICE_MOE_BF16_TOL = 0.5
 
 
 def say(phase: str, msg: str) -> None:
@@ -363,6 +406,7 @@ def phase_kernels() -> dict:
     pos_np[0], pos_np[-1] = 0, S - 1          # an empty-but-one row and a full row
     rows = _attn_slice_rows(gen, PREFILL_SHAPE, DECODE_SHAPE, pos_np, ARCH)
     _attn_slice_rows(gen, HYBRID_PREFILL_SHAPE, HYBRID_DECODE_SHAPE, pos_np, HYBRID_ARCH)
+    _attn_slice_rows(gen, MOE_PREFILL_SHAPE, MOE_DECODE_SHAPE, pos_np, MOE_ARCH)
     return rows
 
 
@@ -714,7 +758,39 @@ def _teacher_forced(model: Model, tokens: np.ndarray, n_prefill: int) -> torch.T
     return torch.stack(out)
 
 
-def phase_slice(arch: str, tag: str, bf16_tol: float) -> Model:
+class _RouteLog:
+    """While active, records the top-k expert ids of every ``moe.route``
+    call, in call order (layer by layer, prefill then each decode step)."""
+
+    def __enter__(self) -> list:
+        self._route, self.topi = moe.route, []
+
+        def recording(*args, **kw):
+            topw, topi, probs = self._route(*args, **kw)
+            self.topi.append(topi)
+            return topw, topi, probs
+
+        moe.route = recording
+        return self.topi
+
+    def __exit__(self, *exc) -> None:
+        moe.route = self._route
+
+
+def _route_flips(got: list, want: list) -> tuple:
+    """(tokens x layers whose top-k expert set differs between two runs of
+    the same calls, tokens x layers routed)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} route calls against {len(want)}")
+    flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for a, b in zip(got, want))
+    return flips, sum(a.shape[0] for a in got)
+
+
+def phase_slice(arch: str, tag: str, bf16_tol: float, f32_layers: int = 0) -> Model:
+    """Kernel path against plain path on the same weights, f32 (at
+    ``f32_layers`` layers when given: a depth cut) then bf16 at full depth;
+    the MoE's routing flips between the two paths are counted and printed."""
     cfg = get_config(arch)
     B, n_prefill, steps = 4, 384, 16
     tokens = np.random.default_rng(1).integers(0, cfg.vocab, (B, n_prefill + steps))
@@ -723,12 +799,15 @@ def phase_slice(arch: str, tag: str, bf16_tol: float) -> Model:
     for dtype in ("float32", "bfloat16"):
         del model
         torch.cuda.empty_cache()
-        model = Model(cfg.with_(dtype=dtype), device=DEVICE).init(
+        n_layers = f32_layers if dtype == "float32" and f32_layers else cfg.n_layers
+        model = Model(cfg.with_(dtype=dtype, n_layers=n_layers), device=DEVICE).init(
             torch.Generator(device=DEVICE).manual_seed(0))
         model.kernel_impl = "auto"
-        got = _teacher_forced(model, tokens, n_prefill)
+        with _RouteLog() as got_routes:
+            got = _teacher_forced(model, tokens, n_prefill)
         model.kernel_impl = "ref"
-        want = _teacher_forced(model, tokens, n_prefill)
+        with _RouteLog() as want_routes:
+            want = _teacher_forced(model, tokens, n_prefill)
         model.kernel_impl = "auto"
         if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
             raise AssertionError(f"{tag} {dtype}: non-finite logits")
@@ -738,10 +817,15 @@ def phase_slice(arch: str, tag: str, bf16_tol: float) -> Model:
         # how far below its own top logit the plain path ranks the kernel's pick
         gap = (want.amax(-1) - want.gather(-1, got_top[..., None])[..., 0]).max().item()
         positions = got.shape[0] * got.shape[1]
-        say(tag, f"{arch} {dtype}: {B}x{n_prefill} prefill + {steps} decode steps, "
-                     f"{positions} positions: max|dlogit| {diff:.3e}, top-1 agreement "
-                     f"{top1:.4f}, largest near-tie gap {gap:.3e} (logit range "
-                     f"{want.min().item():.2f}..{want.max().item():.2f})")
+        routing = ""
+        if cfg.family == "moe":
+            flips, routed = _route_flips(got_routes, want_routes)
+            routing = (f"; routing flips (tokens x layers whose top-{cfg.moe.top_k} expert set "
+                       f"differs between the paths) {flips} of {routed}")
+        say(tag, f"{arch} {dtype}, {n_layers} layers: {B}x{n_prefill} prefill + {steps} decode "
+                 f"steps, {positions} positions: max|dlogit| {diff:.3e}, top-1 agreement "
+                 f"{top1:.4f}, largest near-tie gap {gap:.3e} (logit range "
+                 f"{want.min().item():.2f}..{want.max().item():.2f}){routing}")
         if dtype == "float32" and (diff > SLICE_F32_TOL or top1 < 1.0):
             raise AssertionError(f"{tag} f32: max|dlogit| {diff:.3e} > {SLICE_F32_TOL} "
                                  f"or top-1 agreement {top1} < 1")
@@ -1167,19 +1251,25 @@ def _fabric_run(model: Model, run: str, prompts, new_tokens: int, n_endpoints: i
 
 
 def _report_fabric_run(model: Model, tag: str, run: str, r: dict, prompts, want,
-                       new_tokens: int, tol: float) -> None:
+                       new_tokens: int, tol: float, hold_streams: bool = True) -> None:
     """Check one run (every session's tokens, the streams against `want`
-    under the near-tie rule, one affinity hit per decode task, no duplicate
-    commitment in the journal, the kernels' floor) and print its numbers."""
+    under the near-tie rule unless ``hold_streams`` is False, one affinity
+    hit per decode task, no duplicate commitment in the journal, the kernels'
+    floor) and print its numbers."""
     cfg = model.cfg
     outs, delta = r["outs"], r["delta"]
     for i, o in enumerate(outs):
         if len(o["tokens"]) != new_tokens or not all(0 <= t < cfg.vocab for t in o["tokens"]):
             raise AssertionError(f"{tag} {run}: session {i} ended with {len(o['tokens'])} "
                                  f"tokens of {new_tokens}, or one out of range")
-    parted = _check_streams(model, prompts, [o["tokens"] for o in outs],
-                            [w[:new_tokens] for w in want], tol, f"{tag} {run}",
-                            names=("fabric", "direct"))
+    streams, direct = [o["tokens"] for o in outs], [w[:new_tokens] for w in want]
+    if hold_streams:
+        parted = _check_streams(model, prompts, streams, direct, tol, f"{tag} {run}",
+                                names=("fabric", "direct"))
+        held = f"each at a near-tie within {tol:g}"
+    else:
+        parted = sum(g != d for g, d in zip(streams, direct))
+        held = "not held (the capacity drops depend on which slots share a step)"
     migrations = sum(o["migrations"] for o in outs)
     decode_tasks = sum(len(o["steps"]) for o in outs)
     if delta.get("serving.affinity_hits", 0) != decode_tasks - migrations:
@@ -1206,7 +1296,7 @@ def _report_fabric_run(model: Model, tag: str, run: str, r: dict, prompts, want,
              + (f"; graphed step device time {r['step_ms']:.4f} ms (CUDA events, median of 50)"
                 if r["step_ms"] is not None else ""))
     say(tag, f"{run}: streams against the direct graphed engine: {len(outs) - parted} of "
-             f"{len(outs)} equal; {parted} part, each at a near-tie within {tol:g}")
+             f"{len(outs)} equal; {parted} part, {held}")
     r.update(decode_tasks=decode_tasks, migrations=migrations, batches=batches,
              tokens_s=total / r["wall"], ttft_p50=np.percentile(ttft, 50),
              ttft_p99=np.percentile(ttft, 99), task_ms=task_ms)
@@ -1280,6 +1370,52 @@ def phase_fabric_hybrid(model: Model, served: dict, tol: float) -> dict:
     return r["launches"]
 
 
+@contextlib.contextmanager
+def _capacity_factor(model: Model, factor: float):
+    """The model's MoE capacity factor set to `factor` while the block runs.
+    A captured step keeps the capacity of its capture: build the engines and
+    hosts inside the block and free them before it ends."""
+    cfg = model.cfg
+    model.cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, capacity_factor=factor))
+    try:
+        yield
+    finally:
+        model.cfg = cfg
+
+
+def phase_fabric_moe(model: Model, served: dict, tol: float) -> dict:
+    """``serve_model`` over two ``torch`` endpoints and a journal, 8 sessions
+    of 64 tokens (the serve phase's first 8 prompts) on batched hosts: at the
+    published capacity, where which assignments drop depends on which slots
+    share a step (so the streams are counted against the direct engine's,
+    not held), then on the same weights at capacity factor E / k, where C >= T
+    and nothing drops, held to a direct graphed engine's streams on the same
+    8 prompts under the near-tie rule. Returns the launches of both runs."""
+    tag = "fabric-moe"
+    m = model.cfg.moe
+    prompts, n_new = served["prompts"][:8], served["new_tokens"]
+    r = _fabric_run(model, "batched", prompts, n_new, 2)
+    _report_fabric_run(model, tag, "batched", r, prompts, served["streams"][:8], n_new, tol,
+                       hold_streams=False)
+    if not r["batches"] < r["decode_tasks"]:
+        raise AssertionError(f"{tag}: {r['batches']} batched steps for {r['decode_tasks']} "
+                             "decode tasks: no coalescing")
+    no_drop = m.n_experts / m.top_k
+    with _capacity_factor(model, no_drop):
+        direct = _serve_run(model, prompts, n_new, cuda_graph=True)
+        want = [req.tokens for req in direct["reqs"]]
+        del direct
+        torch.cuda.empty_cache()
+        r2 = _fabric_run(model, "batched-nodrop", prompts, n_new, 2)
+        _report_fabric_run(model, tag, f"batched at capacity factor {no_drop:g}", r2, prompts,
+                           want, n_new, tol)
+    launches = dict.fromkeys(SOURCES, 0)
+    for run in (r, r2):
+        for k, n in run["launches"].items():
+            launches[k] += n
+    return launches
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -1289,8 +1425,10 @@ def main() -> int:
     launches = dict.fromkeys(rows, 0)
     fabric_launches = dict.fromkeys(rows, 0)
     for arch, tag, tol in ((ARCH, "", SLICE_BF16_TOL), (SSM_ARCH, "-ssm", SLICE_SSM_BF16_TOL),
-                           (HYBRID_ARCH, "-hybrid", SLICE_HYBRID_BF16_TOL)):
-        model = phase_slice(arch, "slice" + tag, tol)
+                           (HYBRID_ARCH, "-hybrid", SLICE_HYBRID_BF16_TOL),
+                           (MOE_ARCH, "-moe", SLICE_MOE_BF16_TOL)):
+        model = phase_slice(arch, "slice" + tag, tol,
+                            f32_layers=MOE_F32_LAYERS if arch == MOE_ARCH else 0)
         served = phase_serve(model, "serve" + tag, tol)
         phase_launches = [served["launches"]]
         # the fabric phases reuse the served bf16 model before it is freed
@@ -1299,6 +1437,8 @@ def main() -> int:
                                phase_fabric(model, served, tol)]
         elif arch == HYBRID_ARCH:
             phase_launches.append(phase_fabric_hybrid(model, served, tol))
+        elif arch == MOE_ARCH:
+            phase_launches.append(phase_fabric_moe(model, served, tol))
         for i, counts in enumerate(phase_launches):
             for k, n in counts.items():
                 launches[k] += n

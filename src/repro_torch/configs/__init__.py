@@ -7,7 +7,10 @@ reached raise a ``KeyError`` that says so.
 from .base import ARCHS, ModelConfig  # noqa: F401
 
 # importing each module populates ARCHS
-from . import deepseek_67b, mamba2_2_7b, qwen1_5_0_5b, qwen2_0_5b, zamba2_2_7b  # noqa: F401,E402
+from . import (  # noqa: F401,E402
+    deepseek_67b, mamba2_2_7b, qwen1_5_0_5b, qwen2_0_5b, qwen2_moe_a2_7b, qwen3_moe_235b,
+    zamba2_2_7b,
+)
 
 ARCH_IDS = tuple(sorted(ARCHS))
 

@@ -1,7 +1,8 @@
-"""Blocks of the dense and SSM families: init / train-apply / decode-apply / cache.
+"""Blocks of the dense, MoE and SSM families: init / train-apply / decode-apply / cache.
 
-Port of the dense and SSM parts of ``repro.models.blocks``: GQA attention +
-SwiGLU MLP, and RMSNorm + Mamba2 mixer. A "layer" is the unit the model stack
+Port of the dense, MoE and SSM parts of ``repro.models.blocks``: GQA attention
++ SwiGLU MLP (the moe family: + the routed-expert FFN, ``moe.moe_ffn``), and
+RMSNorm + Mamba2 mixer. A "layer" is the unit the model stack
 loops over (the hybrid family runs both). The JAX ``partition.shard_act``
 calls are dropped: the port runs on one device.
 
@@ -20,16 +21,28 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.rmsnorm import ops as rmsnorm_ops
-from . import attention, layers, mamba2
+from . import attention, layers, mamba2, moe
 
 
 def init_decoder_layer(gen, cfg: ModelConfig, device, lead: Tuple[int, ...] = ()):
+    attn = attention.init_attention(gen, cfg, device, lead)
+    if cfg.family == "moe":
+        ffn = moe.init_moe(gen, cfg, device, lead)
+    else:
+        ffn = layers.init_swiglu(gen, cfg.d_model, cfg.d_ff, layers.dtype_of(cfg), device, lead)
     return {
-        "attn": attention.init_attention(gen, cfg, device, lead),
-        "ffn": layers.init_swiglu(gen, cfg.d_model, cfg.d_ff, layers.dtype_of(cfg), device, lead),
+        "attn": attn,
+        "ffn": ffn,
         "ln1": layers.init_rmsnorm(cfg.d_model, device, lead),
         "ln2": layers.init_rmsnorm(cfg.d_model, device, lead),
     }
+
+
+def _ffn(p, hn: torch.Tensor, cfg: ModelConfig):
+    """(ffn output, aux loss): the routed experts for the moe family, else SwiGLU and 0.0."""
+    if cfg.family == "moe":
+        return moe.moe_ffn(hn, p, cfg)
+    return layers.swiglu(hn, p), 0.0
 
 
 def decoder_layer(p, h: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
@@ -40,8 +53,8 @@ def decoder_layer(p, h: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
         p["attn"], hn, cfg, positions=positions, causal=True, return_kv=True, impl=impl
     )
     h, hn = rmsnorm_ops.fused_add_rmsnorm(h, a, p["ln2"]["scale"], cfg.norm_eps, impl)
-    f = layers.swiglu(hn, p["ffn"])
-    return h + f, 0.0, kv
+    f, aux = _ffn(p["ffn"], hn, cfg)
+    return h + f, aux, kv
 
 
 def decoder_layer_decode(p, h: torch.Tensor, cache: dict, pos: torch.Tensor,
@@ -52,7 +65,8 @@ def decoder_layer_decode(p, h: torch.Tensor, cache: dict, pos: torch.Tensor,
         p["attn"], hn, cache["k"], cache["v"], pos, cfg, impl=impl
     )
     h, hn = rmsnorm_ops.fused_add_rmsnorm(h, a, p["ln2"]["scale"], cfg.norm_eps, impl)
-    return h + layers.swiglu(hn, p["ffn"]), {"k": k, "v": v}
+    f, _ = _ffn(p["ffn"], hn, cfg)
+    return h + f, {"k": k, "v": v}
 
 
 def init_decoder_cache(cfg: ModelConfig, batch: int, cache_len: int, device,

@@ -24,7 +24,7 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 def dense_init(gen: torch.Generator, shape, fan_in: int, dtype, device) -> torch.Tensor:
     w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32, device=device)
-    return (w * fan_in ** -0.5).to(dtype)
+    return w.mul_(fan_in ** -0.5).to(dtype)
 
 
 # -- norms ---------------------------------------------------------------
@@ -78,7 +78,7 @@ def swiglu(x: torch.Tensor, p: Params) -> torch.Tensor:
 # -- embeddings ---------------------------------------------------------------
 def init_embedding(gen, vocab: int, d: int, dtype, device) -> Params:
     tok = torch.randn((vocab, d), generator=gen, dtype=torch.float32, device=device)
-    return {"tok": (tok * d ** -0.5).to(dtype)}
+    return {"tok": tok.mul_(d ** -0.5).to(dtype)}
 
 
 def embed(tokens: torch.Tensor, p: Params) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Model assembly for the dense, SSM and hybrid families: embedding + layer stack + head.
+"""Model assembly for the dense, MoE, SSM and hybrid families: embedding + layer stack + head.
 
 Port of ``repro.models.model.Model``. The model is an ``nn.Module`` whose
 ``state_dict`` keys are the JAX parameter pytree paths joined by ``.``, with
@@ -23,7 +23,8 @@ API (the JAX one without the ``params`` argument, which the module holds):
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import itertools
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -31,7 +32,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from . import blocks, layers, mamba2
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _as_module(tree: dict, module: nn.Module) -> nn.Module:
@@ -75,7 +76,8 @@ class Model(nn.Module):
         self.cfg = cfg
         self.device = torch.device(device)
         self.kernel_impl = kernel_impl
-        shapes = self._draw(None, torch.device("meta"))
+        shapes = {path[0]: part for path, part in self._parts(None, torch.device("meta"),
+                                                              per_layer=False)}
         empty = _map(shapes, lambda t: torch.empty_like(t, device=self.device))
         _as_module(empty, self)
         # per-layer views of the stacked weights, taken once: init() and
@@ -99,27 +101,44 @@ class Model(nn.Module):
         return cfg.n_layers // PG, PG
 
     # ================================================================ init
-    def _draw(self, gen, device) -> Dict:
+    def _parts(self, gen, device, per_layer: bool) -> Iterator[Tuple[tuple, Dict]]:
+        """Yield the weight tree's parts in draw order, each drawn when it is
+        asked for: (("embed",), tree), the unembedding, the final norm, then
+        the layers: one part stacked on ``lead`` (``per_layer`` False), or one
+        (("layers", index), tree) per layer; the hybrid's shared block last."""
         cfg = self.cfg
         dt = layers.dtype_of(cfg)
-        tree: Dict = {"embed": layers.init_embedding(gen, cfg.vocab, cfg.d_model, dt, device)}
+        yield ("embed",), layers.init_embedding(gen, cfg.vocab, cfg.d_model, dt, device)
         if not cfg.tie_embeddings:
-            tree["unembed"] = layers.init_unembed(gen, cfg.vocab, cfg.d_model, dt, device)
-        tree["final_norm"] = layers.init_rmsnorm(cfg.d_model, device)
+            yield ("unembed",), layers.init_unembed(gen, cfg.vocab, cfg.d_model, dt, device)
+        yield ("final_norm",), layers.init_rmsnorm(cfg.d_model, device)
         if cfg.family == "hybrid":
-            tree["layers"] = blocks.init_ssm_layer(gen, cfg, device, lead=self._hybrid_groups())
-            tree["shared"] = blocks.init_decoder_layer(gen, cfg, device)
-            return tree
-        init_layer = blocks.init_ssm_layer if cfg.family == "ssm" else blocks.init_decoder_layer
-        tree["layers"] = init_layer(gen, cfg, device, lead=(cfg.n_layers,))
-        return tree
+            init_layer, lead = blocks.init_ssm_layer, self._hybrid_groups()
+        else:
+            init_layer = blocks.init_ssm_layer if cfg.family == "ssm" else blocks.init_decoder_layer
+            lead = (cfg.n_layers,)
+        if per_layer:
+            for index in itertools.product(*map(range, lead)):
+                yield ("layers", index), init_layer(gen, cfg, device)
+        else:
+            yield ("layers",), init_layer(gen, cfg, device, lead=lead)
+        if cfg.family == "hybrid":
+            yield ("shared",), blocks.init_decoder_layer(gen, cfg, device)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
-        """Draw random weights from `generator` (on the model's device)."""
-        drawn = self._draw(generator, self.device)
+        """Draw random weights from `generator` (on the model's device) into
+        the parameters in place, one part at a time: each part (the embedding,
+        the unembedding, one layer) is drawn, its float32 draws scaled in
+        place, copied into its slices of the parameters and freed before the
+        next, so the peak is the weights plus one layer's draw."""
         params = self.params
-        _map2(params, drawn, lambda p, t: p.copy_(t))
+        for path, part in self._parts(generator, self.device, per_layer=True):
+            dst = params[path[0]]
+            if len(path) == 2:
+                dst = _index(dst, path[1])
+            _map2(dst, part, lambda p, t: p.copy_(t))
+            del part
         return self
 
     @property
@@ -133,12 +152,15 @@ class Model(nn.Module):
         return layers.embed(tokens, self.params["embed"])
 
     # ============================================================== forward
-    def _layers(self, h: torch.Tensor, return_state: bool) -> Tuple[torch.Tensor, Optional[dict]]:
-        """The layer stack over a full sequence; with ``return_state`` also
-        the prefill cache, stacked as ``init_cache`` stacks it (batch and
-        sequence from ``h``)."""
+    def _layers(self, h: torch.Tensor, return_state: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
+        """The layer stack over a full sequence. Returns (h, the sum of the
+        layers' aux losses (an fp32 tensor for the moe family, else 0.0), and with
+        ``return_state`` the prefill cache, stacked as ``init_cache`` stacks
+        it (batch and sequence from ``h``), else None)."""
         cfg, impl = self.cfg, self.kernel_impl
         positions = torch.arange(h.shape[1], device=self.device)
+        aux = 0.0
         per_layer = []  # kept only with return_state
         if cfg.family == "hybrid":
             for group in self._layer_params:
@@ -154,17 +176,20 @@ class Model(nn.Module):
                 if cfg.family == "ssm":
                     h, state = blocks.ssm_layer(lp, h, cfg, return_state=return_state, impl=impl)
                 else:
-                    h, _, (k, v) = blocks.decoder_layer(lp, h, cfg, positions, impl)
+                    h, a, (k, v) = blocks.decoder_layer(lp, h, cfg, positions, impl)
+                    if cfg.family == "moe":
+                        aux = aux + a
                     state = {"k": k, "v": v}
                 if return_state:
                     per_layer.append(state)
-        return h, (_stack(per_layer) if return_state else None)
+        return h, aux, (_stack(per_layer) if return_state else None)
 
     def forward(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence forward. Returns (hidden_states, aux_loss)."""
-        h, _ = self._layers(self._embed_inputs(batch), return_state=False)
+        """Full-sequence forward. Returns (hidden_states, aux_loss): the sum
+        of the layers' load-balance losses for the moe family, else zero."""
+        h, aux, _ = self._layers(self._embed_inputs(batch), return_state=False)
         h = layers.rmsnorm(h, self.params["final_norm"], self.cfg.norm_eps)
-        return h, torch.zeros((), dtype=torch.float32, device=self.device)
+        return h, torch.as_tensor(aux, dtype=torch.float32, device=self.device)
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         p = self.params
@@ -174,7 +199,7 @@ class Model(nn.Module):
     def prefill(self, batch) -> Tuple[torch.Tensor, dict]:
         """Run the full prompt, return (last-position logits (B, V), cache
         stacked as ``init_cache`` stacks it, at the prompt's length)."""
-        h, cache = self._layers(self._embed_inputs(batch), return_state=True)
+        h, _, cache = self._layers(self._embed_inputs(batch), return_state=True)
         h = layers.rmsnorm(h, self.params["final_norm"], self.cfg.norm_eps)
         logits = self._logits(h[:, -1:])[:, 0]
         return logits, cache

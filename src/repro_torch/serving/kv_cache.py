@@ -1,6 +1,6 @@
 """KV-cache utilities: sizing, slot insertion for continuous batching.
 
-Port of ``repro.serving.kv_cache`` for the dense, SSM and hybrid families.
+Port of ``repro.serving.kv_cache`` for the dense, MoE, SSM and hybrid families.
 """
 from __future__ import annotations
 
@@ -15,7 +15,9 @@ def cache_bytes(cfg: ModelConfig, batch: int, seq_len: int) -> int:
     """Analytical decode-state footprint (bytes): the serving-capacity
     planner for admission control and the roofline memory term."""
     itemsize = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
+        if cfg.mla is not None:
+            raise NotImplementedError("cache_bytes: the MLA cache is not ported yet")
         per_tok = 2 * cfg.n_kv_heads * cfg.hd
         return cfg.n_layers * batch * seq_len * per_tok * itemsize
     if cfg.family not in ("ssm", "hybrid"):

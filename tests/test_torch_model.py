@@ -1,10 +1,15 @@
-"""The port's dense, SSM and hybrid models against the JAX package's, on weights carried across.
+"""The port's dense, MoE, SSM and hybrid models against the JAX package's, on carried weights.
 
 JAX ``Model.init`` parameters go through ``repro_torch.params`` into the
 port; both packages then run the same numpy batch (reduced configs, f32).
 Tolerances are those of tests/test_decode_equivalence.py: 2e-4 for the
-forward/prefill logits, 3e-4 for each decode step.
+forward/prefill logits, 3e-4 for each decode step. The MoE archs run at
+capacity factor 8.0, as that test does: the decode steps are held to the
+full forward, and a forward over B*S tokens drops assignments where a
+decode step over B does not (tests/test_torch_moe.py holds the published
+capacity).
 """
+import dataclasses
 import functools
 
 import jax
@@ -22,17 +27,25 @@ from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving.kv_cache import insert_sequence  # noqa: E402
 
-ARCHS = ("qwen2-0.5b", "qwen1.5-0.5b", "deepseek-67b", "mamba2-2.7b", "zamba2-2.7b")
+ARCHS = ("qwen2-0.5b", "qwen1.5-0.5b", "deepseek-67b", "mamba2-2.7b", "zamba2-2.7b",
+         "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b")
+
+
+def _no_drop(cfg):
+    """The MoE capacity factor of tests/test_decode_equivalence.py (8.0)."""
+    if cfg.moe is None:
+        return cfg
+    return cfg.with_(moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
 B, S, PREFILL = 2, 24, 16
 
 
 @functools.lru_cache(maxsize=None)
 def _pair(arch: str, dtype: str = "float32"):
     """(JAX model, JAX params, port model with the same weights)."""
-    jcfg = jax_reduced(arch).with_(dtype=dtype)
+    jcfg = _no_drop(jax_reduced(arch).with_(dtype=dtype))
     jmodel = JaxModel(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
-    model = Model(get_reduced(arch).with_(dtype=dtype), device="cpu")
+    model = Model(_no_drop(get_reduced(arch).with_(dtype=dtype)), device="cpu")
     model.load_state_dict(tparams.to_state_dict(jax.tree.map(np.asarray, jparams), "cpu"))
     return jmodel, jparams, model
 
@@ -41,18 +54,22 @@ def _pair(arch: str, dtype: str = "float32"):
 def _reference_logits(arch: str):
     jmodel, jparams, _ = _pair(arch)
     batch = make_batch(jmodel.cfg, B, S)
-    h, _ = jmodel.forward(jparams, batch)
-    return batch, np.asarray(jmodel._logits(jparams, h))
+    h, aux = jmodel.forward(jparams, batch)
+    return batch, np.asarray(jmodel._logits(jparams, h)), float(aux)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_logits_match_jax(arch):
     _, _, model = _pair(arch)
-    batch, ref = _reference_logits(arch)
+    batch, ref, ref_aux = _reference_logits(arch)
     with torch.inference_mode():
         h, aux = model({"tokens": torch.from_numpy(batch["tokens"])})
         logits = model._logits(h)
-    assert float(aux) == 0.0
+    if model.cfg.family == "moe":  # the sum of the layers' load-balance losses
+        assert ref_aux > 0.0
+        np.testing.assert_allclose(float(aux), ref_aux, rtol=2e-4, atol=2e-4)
+    else:
+        assert float(aux) == 0.0
     np.testing.assert_allclose(logits.numpy(), ref, rtol=2e-4, atol=2e-4)
 
 
@@ -71,7 +88,7 @@ def _blit(cache: dict, seq_cache: dict) -> None:
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_then_scalar_pos_decode_match_jax(arch):
     _, _, model = _pair(arch)
-    batch, ref = _reference_logits(arch)
+    batch, ref, _ = _reference_logits(arch)
     tokens = torch.from_numpy(batch["tokens"])
     with torch.inference_mode():
         logits, seq_cache = model.prefill({"tokens": tokens[:, :PREFILL]})
@@ -90,7 +107,7 @@ def test_vector_pos_decode_matches_jax(arch):
     """Rows at different positions (continuous batching): each row prefilled
     alone, inserted into its slot, then decoded together with vector pos."""
     _, _, model = _pair(arch)
-    batch, ref = _reference_logits(arch)
+    batch, ref, _ = _reference_logits(arch)
     tokens = torch.from_numpy(batch["tokens"])
     starts = [PREFILL, PREFILL - 5]
     with torch.inference_mode():
@@ -145,6 +162,12 @@ def test_state_dict_keys_and_shapes_are_the_jax_pytree(arch):
         assert ours["shared.ln2.scale"] == (cfg.d_model,)
     else:
         assert ours["layers.attn.wq"] == (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.hd)
+    if cfg.family == "moe":
+        L, D, m = cfg.n_layers, cfg.d_model, cfg.moe
+        assert ours["layers.ffn.router"] == (L, D, m.n_experts)
+        assert ours["layers.ffn.wi"] == (L, m.n_experts, D, m.d_ff_expert)
+        assert ours["layers.ffn.wo"] == (L, m.n_experts, m.d_ff_expert, D)
+        assert ("layers.ffn.shared_gate" in ours) == bool(m.n_shared_experts)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -193,6 +216,21 @@ def test_to_state_dict_keeps_the_hybrid_fp32_leaves_fp32():
         assert sd[name].dtype == torch.float32, name
 
 
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-235b-a22b"])
+def test_to_state_dict_keeps_the_router_fp32(arch):
+    """The router stays float32 through a cast to bf16 (the JAX init keeps
+    it so); the experts, the shared expert and its gate take the cast."""
+    _, jparams, _ = _pair(arch)
+    sd = tparams.to_state_dict(jax.tree.map(np.asarray, jparams), "cpu", dtype=torch.bfloat16)
+    assert sd["layers.ffn.router"].dtype == torch.float32
+    names = ["layers.ffn.wi", "layers.ffn.wg", "layers.ffn.wo", "layers.attn.wq"]
+    if "layers.ffn.shared_gate" in sd:
+        names += ["layers.ffn.shared_gate", "layers.ffn.shared.wi", "layers.ffn.shared.wo"]
+    for name in names:
+        assert sd[name].dtype == torch.bfloat16, name
+    assert sd["layers.ln2.scale"].dtype == torch.float32
+
+
 def _leaves(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -206,7 +244,7 @@ def test_hybrid_prefill_cache_matches_jax_leaf_by_leaf(S):
     """The hybrid's nested prefill cache: the shared block's k/v per group
     and every mamba layer's conv tail and final state, (G, PG, 1, ...)."""
     jmodel, jparams, model = _pair("zamba2-2.7b")
-    batch, _ = _reference_logits("zamba2-2.7b")
+    batch, _, _ = _reference_logits("zamba2-2.7b")
     tokens = batch["tokens"][:1, :S]
     _, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(tokens)})
     with torch.inference_mode():
@@ -219,7 +257,7 @@ def test_hybrid_prefill_cache_matches_jax_leaf_by_leaf(S):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b", "qwen2-0.5b"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b", "qwen2-0.5b", "qwen2-moe-a2.7b"])
 def test_init_cache_tree_and_batch_axes_are_the_jax_ones(arch):
     jmodel, _, model = _pair(arch)
     jcache, _ = jmodel.init_cache(3, 10)
@@ -239,7 +277,7 @@ def test_ssm_prefill_states_match_jax(S):
     """The conv tail and the final SSD state of every layer (S >= K-1 = 3,
     where the reference's tail is right; S = 19 pads to two chunks of 16)."""
     jmodel, jparams, model = _pair("mamba2-2.7b")
-    batch, _ = _reference_logits("mamba2-2.7b")
+    batch, _, _ = _reference_logits("mamba2-2.7b")
     tokens = batch["tokens"][:, :S]
     _, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(tokens)})
     with torch.inference_mode():
@@ -282,7 +320,32 @@ def test_init_draws_like_the_reference_recipe():
                                                  again.state_dict().values()))
 
 
+def test_moe_init_draws_like_the_reference_recipe():
+    """Reduced qwen2-moe in bf16: the router f32 at scale D^-1/2, the experts,
+    the shared expert and its gate at 1/sqrt(fan_in); the same seed draws the
+    same weights (the model draws one layer at a time)."""
+    cfg = get_reduced("qwen2-moe-a2.7b").with_(
+        moe=dataclasses.replace(get_reduced("qwen2-moe-a2.7b").moe, n_experts=16))
+    model = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    ffn = model.params["layers"]["ffn"]
+    D, Fe, Fs = cfg.d_model, cfg.moe.d_ff_expert, cfg.moe.d_ff_shared
+    assert ffn["router"].dtype == torch.float32 and ffn["wi"].dtype == torch.bfloat16
+    for w, fan_in in ((ffn["router"], D), (ffn["wi"], D), (ffn["wg"], D), (ffn["wo"], Fe),
+                      (ffn["shared"]["wi"], D), (ffn["shared"]["wo"], Fs),
+                      (model.params["embed"]["tok"], D), (model.params["unembed"]["w"], D)):
+        assert abs(w.float().std().item() * fan_in ** 0.5 - 1.0) < 0.05
+    gate = ffn["shared_gate"].float()
+    assert gate.shape == (cfg.n_layers, D, 1)
+    assert abs(gate.std().item() * D ** 0.5 - 1.0) < 0.2
+    assert not torch.equal(ffn["wi"][0], ffn["wi"][1])   # each layer its own draw
+    again = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    assert all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                 again.state_dict().values()))
+    other = Model(cfg, device="cpu").init(torch.Generator().manual_seed(1))
+    assert not torch.equal(other.params["layers"]["ffn"]["wi"], ffn["wi"])
+
+
 def test_unported_family_raises():
-    cfg = get_reduced("qwen2-0.5b").with_(family="moe")
+    cfg = get_reduced("qwen2-0.5b").with_(family="encdec")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         Model(cfg, device="cpu")

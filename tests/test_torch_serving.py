@@ -302,7 +302,7 @@ def test_cache_bytes_analytical():
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen1.5-0.5b", "deepseek-67b", "mamba2-2.7b",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cache_bytes_equals_reference(arch, dtype):
     from repro_torch.configs import get_config

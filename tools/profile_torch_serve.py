@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where the time of the port's serve path goes on the card (torch.profiler).
 
-    python tools/profile_torch_serve.py [--arch mamba2-2.7b] [--eager] [--steps 20] [--trace out.json]
+    python tools/profile_torch_serve.py [--arch qwen2-moe-a2.7b] [--eager] [--steps 20] \
+        [--trace out.json]
 
 Builds a full-width bf16 model (``--arch``: qwen2-0.5b by default,
-mamba2-2.7b or zamba2-2.7b; random weights, seed 0) and a ServeEngine
+mamba2-2.7b, zamba2-2.7b or qwen2-moe-a2.7b; random weights, seed 0) and a ServeEngine
 (max_batch 8, max_len 1024; its decode step a CUDA graph replay, or eager with
 ``--eager``), fills its 8 slots with prompts of 64..512 tokens, then profiles
 two windows through the engine's own entry points: one admission (a prefill of
@@ -14,7 +15,10 @@ time, the device busy time (the device activities' own time, summed), the
 device's idle share, the sum of the gaps between consecutive device activities
 (the idle time inside their span), and the twelve kernels with the most device
 time, each with its rank, plus every kernel of the port wherever it ranks.
-Needs one CUDA card.
+For the MoE it also times the decode step's expert products alone (CUDA
+events, L2 flushed): every layer's three batched products over its 60
+experts at the step's capacity, as the step runs them, against the least
+time the card needs to read those weights. Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -33,8 +37,12 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
+
+
+HBM_BYTES_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 
 
 def _gaps_us(spans) -> float:
@@ -79,9 +87,48 @@ def _window(name: str, fn, n: int, trace: str = "") -> None:
             print(f"[{name}] {rank + 1:3d} {ms / n:9.4f} ms {count / n:6.1f}x  {kname[:110]}")
 
 
+def _expert_products(model: Model, n_tokens: int, reps: int = 20) -> None:
+    """Median device time of the expert products of one decode step over
+    `n_tokens` tokens (per layer: xe @ wi, xe @ wg, h @ wo over (E, C) rows,
+    C the step's capacity), CUDA events around the whole chain after a 256 MB
+    write that flushes the L2; and the least time to read their weights."""
+    cfg, m = model.cfg, model.cfg.moe
+    C = moe._capacity(n_tokens, m)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xe = torch.randn((m.n_experts, C, cfg.d_model), generator=gen, device="cuda").bfloat16()
+    h = torch.randn((m.n_experts, C, m.d_ff_expert), generator=gen, device="cuda").bfloat16()
+    experts = [lp["ffn"] for lp in model._layer_params]
+
+    def chain():
+        for p in experts:
+            torch.bmm(xe, p["wi"])
+            torch.bmm(xe, p["wg"])
+            torch.bmm(h, p["wo"])
+
+    flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
+    chain()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(20_000_000)               # the host enqueues the chain meanwhile
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        chain()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    weight_bytes = sum(p[k].numel() * p[k].element_size()
+                       for p in experts for k in ("wi", "wg", "wo"))
+    print(f"[experts] a decode step's expert products ({len(experts)} layers x 3 batched products "
+          f"over {m.n_experts} experts x C = {C} rows): {np.median(times):.4f} ms (median of "
+          f"{reps}, L2 flushed); their weights {weight_bytes / 1e9:.3f} GB, read once in "
+          f"{weight_bytes / HBM_BYTES_S * 1e3:.4f} ms at 3.35 TB/s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", choices=["qwen2-0.5b", "mamba2-2.7b", "zamba2-2.7b"],
+    ap.add_argument("--arch", choices=["qwen2-0.5b", "mamba2-2.7b", "zamba2-2.7b",
+                                       "qwen2-moe-a2.7b"],
                     default="qwen2-0.5b")
     ap.add_argument("--eager", action="store_true",
                     help="profile the eager decode step (ServeEngine(cuda_graph=False))")
@@ -112,6 +159,8 @@ def main() -> int:
     _window("prefill", admit_one, 3)
     _window("decode, eager" if args.eager else "decode, graphed", engine._step, args.steps,
             args.trace)
+    if cfg.family == "moe":
+        _expert_products(model, engine.max_batch)
     return 0
 
 
