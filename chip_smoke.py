@@ -16,8 +16,11 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      two-slab and zero-padded head dims), decode at lengths around
                      the split-KV boundary, and the slices' own shapes (qwen2-0.5b
                      GQA hd 64, zamba2-2.7b MHA hd 80, qwen2-moe-a2.7b MHA 16/16
-                     hd 128); time kernel, plain version
-                     and ``F.scaled_dot_product_attention`` (a yardstick only) there.
+                     hd 128, minicpm3-4b's MLA: prefill 40 heads of dqk 96 and
+                     dv 64, decode 40 heads over one KV head of dqk 288 and
+                     dv 256, with a row of length 0); time kernel, plain version
+                     and ``F.scaled_dot_product_attention`` (a yardstick only) there,
+                     and each SDPA backend that takes the shape.
 4. kernels-rmsnorm  - hold the fused add + RMSNorm kernel against its plain
                      version at 1e-6 (f32) / 1e-2 (bf16) on the reference's sweep
                      and the slices' rows (d_model 896, 2560 and 2048, 512-token
@@ -113,10 +116,21 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      same weights at capacity factor E / k = 15, where nothing
                      drops, held to a direct graphed engine's streams under the
                      near-tie rule.
+18. slice-mla       - the same as slice for full-width minicpm3-4b (62 layers of
+                     Multi-head Latent Attention, 40 heads, d_model 2560, vocab
+                     73448), f32 (17 GB) and bf16, no cut.
+19. serve-mla       - the same as serve for full-width bf16 minicpm3-4b: flash
+                     attention (dv 64 != dqk 96), decode attention (dqk 288, dv
+                     256) and the add + norm 62 times a prefill and a step.
+20. fabric-mla      - ``serve_model`` on one ``torch`` endpoint, a batched host
+                     whose slots a ``cache_bytes`` budget of 4 sessions sets: 4
+                     sessions of 32 tokens held to serve-mla's graphed streams
+                     under the near-tie rule; then a fifth session refused by a
+                     full host and admitted once a slot is released.
 
 Each serve and fabric phase resets the launch counters just before it submits
 its requests and reads them just after; a replay adds the calls its capture
-counted. The summary's ``launches`` of a kernel is its sum over the four
+counted. The summary's ``launches`` of a kernel is its sum over the five
 graphed serve runs and the fabric runs; the fabric phases together must have
 launched every kernel.
 
@@ -144,7 +158,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import FunctionService, serializer  # noqa: E402
+from repro_torch.core import FunctionService, MetricsRegistry, serializer  # noqa: E402
 from repro_torch.core.containers import ContainerSpec  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as attn_kernel  # noqa: E402
@@ -181,12 +195,12 @@ REPLACES = {
 KERNEL_MODULES = (attn_kernel, rms_kernel, ssd_kernel)
 # slice shapes: prefill of one 512-token prompt; decode over B=8 slots of a
 # 1024-long cache (qwen2-0.5b: H=14 query heads over KV=2, hd=64)
-PREFILL_SHAPE = (1, 512, 14, 2, 64)          # B, S, H, KV, hd
-DECODE_SHAPE = (8, 1024, 14, 2, 64)          # B, S, H, KV, hd
+PREFILL_SHAPE = (1, 512, 14, 2, 64, 64)      # B, S, H, KV, dqk, dv
+DECODE_SHAPE = (8, 1024, 14, 2, 64, 64)      # B, S, H, KV, dqk, dv
 # zamba2-2.7b's shared block: MHA, 32 heads over 32 KV heads (G = 1), hd 80
 # (a multiple of 8, not of 16), at the same prefill and decode sizes
-HYBRID_PREFILL_SHAPE = (1, 512, 32, 32, 80)
-HYBRID_DECODE_SHAPE = (8, 1024, 32, 32, 80)
+HYBRID_PREFILL_SHAPE = (1, 512, 32, 32, 80, 80)
+HYBRID_DECODE_SHAPE = (8, 1024, 32, 32, 80, 80)
 # 2 prefill + teacher-forced decode in fp32: the kernel sums in another order
 # than cuBLAS; 24 layers amplify ~1e-6 differences to ~1e-4 at most
 SLICE_F32_TOL = 1e-3
@@ -228,8 +242,8 @@ SLICE_HYBRID_BF16_TOL = 0.5
 MOE_ARCH = "qwen2-moe-a2.7b"
 # its attention: MHA, 16 heads over 16 KV heads, hd 128, at the same prefill
 # and decode sizes
-MOE_PREFILL_SHAPE = (1, 512, 16, 16, 128)
-MOE_DECODE_SHAPE = (8, 1024, 16, 16, 128)
+MOE_PREFILL_SHAPE = (1, 512, 16, 16, 128, 128)
+MOE_DECODE_SHAPE = (8, 1024, 16, 16, 128, 128)
 # the f32 check of the MoE slice runs 8 of the 24 layers (a depth cut): the
 # full-width f32 model is 57 GB and cannot sit beside the bf16 one; 8 layers
 # are about 21 GB
@@ -244,6 +258,20 @@ MOE_F32_LAYERS = 8
 # slices' bound, for the flips on top of qwen2-0.5b's 8) and every top-1
 # disagreement a near-tie within that same margin.
 SLICE_MOE_BF16_TOL = 0.5
+
+MLA_ARCH = "minicpm3-4b"
+# its attention (models/mla.py): the expanded prefill, 40 heads of dqk
+# 64 + 32 and dv 64; the absorbed decode, 40 query heads over one KV head of
+# dqk 256 + 32 and dv 256; both at the scale (64 + 32)^-0.5
+MLA_PREFILL_SHAPE = (1, 512, 40, 40, 96, 64)
+MLA_DECODE_SHAPE = (8, 1024, 40, 1, 288, 256)
+MLA_SCALE = 96 ** -0.5
+# bf16 slice of minicpm3-4b, held as the mamba2 slice is: both paths round
+# attention outputs to bf16 twice a layer (prefill and decode) in 62 layers,
+# against mamba2's 64 rounding points, and the logits are bf16 products (one
+# ulp is 2^-5 at |logit| 4..8). Held: max|dlogit| within 16 such ulps, and
+# every top-1 disagreement a near-tie within that same margin.
+SLICE_MLA_BF16_TOL = 0.5
 
 
 def say(phase: str, msg: str) -> None:
@@ -339,25 +367,26 @@ def phase_build() -> None:
                  "(one nvcc per source, in parallel)")
 
 
-def _prefill_case(gen, B, Sq, Skv, H, KV, hd, dtype, causal, **kw):
+def _prefill_case(gen, B, Sq, Skv, H, KV, hd, dtype, causal, dv=None, **kw):
+    """hd is q's and k's head dim, dv v's (hd when None)."""
     q = randn(gen, (B, Sq, H, hd), dtype)
     k = randn(gen, (B, Skv, KV, hd), dtype)
-    v = randn(gen, (B, Skv, KV, hd), dtype)
+    v = randn(gen, (B, Skv, KV, dv or hd), dtype)
     out = attn_kernel.flash_attention(q, k, v, causal=causal, **kw)
     torch.cuda.synchronize()
     exp = attn_ref.mha_reference(q, k, v, causal=causal, **kw)
-    what = f"flash {tuple(q.shape)} kv {Skv}x{KV} causal={causal} {kw} {dtype}"
+    what = f"flash {tuple(q.shape)} kv {Skv}x{KV} dv {dv or hd} causal={causal} {kw} {dtype}"
     return max_err(out, exp, TOL[dtype], what), (q, k, v)
 
 
-def _decode_case(gen, B, S, H, KV, hd, dtype, pos):
+def _decode_case(gen, B, S, H, KV, hd, dtype, pos, dv=None, scale=None):
     q = randn(gen, (B, 1, H, hd), dtype)
     kc = randn(gen, (B, S, KV, hd), dtype)
-    vc = randn(gen, (B, S, KV, hd), dtype)
-    out = attn_kernel.decode_attention(q, kc, vc, pos)
+    vc = randn(gen, (B, S, KV, dv or hd), dtype)
+    out = attn_kernel.decode_attention(q, kc, vc, pos, scale=scale)
     torch.cuda.synchronize()
-    exp = attn_ref.decode_attention_reference(q, kc, vc, pos)
-    what = f"decode B={B} S={S} H={H} KV={KV} hd={hd} {dtype}"
+    exp = attn_ref.decode_attention_reference(q, kc, vc, pos, scale=scale)
+    what = f"decode B={B} S={S} H={H} KV={KV} dqk={hd} dv={dv or hd} {dtype}"
     return max_err(out, exp, TOL[dtype], what), (q, kc, vc)
 
 
@@ -407,54 +436,90 @@ def phase_kernels() -> dict:
     rows = _attn_slice_rows(gen, PREFILL_SHAPE, DECODE_SHAPE, pos_np, ARCH)
     _attn_slice_rows(gen, HYBRID_PREFILL_SHAPE, HYBRID_DECODE_SHAPE, pos_np, HYBRID_ARCH)
     _attn_slice_rows(gen, MOE_PREFILL_SHAPE, MOE_DECODE_SHAPE, pos_np, MOE_ARCH)
+    pos_mla = pos_np.copy()
+    pos_mla[1] = -1                           # and a row of length 0
+    _attn_slice_rows(gen, MLA_PREFILL_SHAPE, MLA_DECODE_SHAPE, pos_mla, MLA_ARCH, scale=MLA_SCALE)
     return rows
 
 
-def _attn_slice_rows(gen, prefill_shape, decode_shape, pos_np, arch) -> dict:
-    """Both attention kernels at one slice's shapes, f32 and bf16 against the
-    plain version; timed in bf16 (the serve dtype)."""
+def _sdpa_backends(call) -> str:
+    """Which of PyTorch's SDPA backends take ``call()``'s inputs, each with
+    its time (ms), for the record beside ``library_ms`` (the default
+    dispatch)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = []
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+              SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(b):
+                call()
+                torch.cuda.synchronize()
+                out.append(f"{b.name} {cuda_ms(call):.4f}")
+        except RuntimeError:
+            out.append(f"{b.name} refuses")
+    return ", ".join(out)
+
+
+def _attn_slice_rows(gen, prefill_shape, decode_shape, pos_np, arch, scale=None) -> dict:
+    """Both attention kernels at one slice's shapes ((B, S, H, KV, dqk, dv)
+    each), f32 and bf16 against the plain version; timed in bf16 (the serve
+    dtype)."""
     rows = {}
-    B, S, H, KV, hd = decode_shape
+    B, S, H, KV, dqk, dv = decode_shape
     pos = torch.from_numpy(pos_np).to(DEVICE)
+    Bp, Sp, Hp, KVp, dqkp, dvp = prefill_shape
     for dtype in (torch.float32, torch.bfloat16):
-        Bp, Sp, Hp, KVp, hdp = prefill_shape
-        err_p, (q, k, v) = _prefill_case(gen, Bp, Sp, Sp, Hp, KVp, hdp, dtype, True)
-        err_d, (qd, kc, vc) = _decode_case(gen, B, S, H, KV, hd, dtype, pos)
+        err_p, (q, k, v) = _prefill_case(gen, Bp, Sp, Sp, Hp, KVp, dqkp, dtype, True, dv=dvp,
+                                         scale=scale)
+        err_d, (qd, kc, vc) = _decode_case(gen, B, S, H, KV, dqk, dtype, pos, dv=dv,
+                                           scale=scale)
         say("kernels", f"{arch} shapes {dtype}: prefill {prefill_shape} max_abs_err "
                        f"{err_p:.3e}, decode {decode_shape} (pos {pos_np.tolist()}) "
                        f"max_abs_err {err_d:.3e}")
     # timing in bf16 (q, k, v ... from the bf16 pass above)
     pairs = Sp * (Sp + 1) // 2                       # causal: keys each query row needs
-    p_bytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size()
-    p_flops = 4 * Bp * pairs * Hp * hdp
+    p_bytes = (q.numel() + k.numel() + v.numel() + Bp * Sp * Hp * dvp) * q.element_size()
+    p_flops = 2 * Bp * pairs * Hp * (dqkp + dvp)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def sdpa_prefill():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True,
+                                              scale=scale)
+
     rows["flash_attention"] = dict(
         max_abs_err=err_p,
-        ms=cuda_ms(lambda: attn_kernel.flash_attention(q, k, v, causal=True)),
-        plain_ms=cuda_ms(lambda: attn_ref.mha_reference(q, k, v, causal=True)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        ms=cuda_ms(lambda: attn_kernel.flash_attention(q, k, v, causal=True, scale=scale)),
+        plain_ms=cuda_ms(lambda: attn_ref.mha_reference(q, k, v, causal=True, scale=scale)),
+        library_ms=cuda_ms(sdpa_prefill),
+        backends=_sdpa_backends(sdpa_prefill),
         bound=bound(p_bytes, p_flops, torch.bfloat16),
         work=f"{p_flops/1e9:.3f} GFLOP, {p_bytes/1e6:.3f} MB",
     )
-    lens = pos_np.astype(np.int64) + 1
-    d_bytes = (2 * int(lens.sum()) * KV * hd + 2 * B * H * hd) * qd.element_size() + 4 * B
-    d_flops = 4 * int(lens.sum()) * H * hd
+    lens = np.maximum(pos_np.astype(np.int64) + 1, 0)
+    d_bytes = ((int(lens.sum()) * KV + B * H) * (dqk + dv)) * qd.element_size() + 4 * B
+    d_flops = 2 * int(lens.sum()) * H * (dqk + dv)
     qdt = qd.transpose(1, 2).contiguous()
     kct, vct = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
     mask = (torch.arange(S, device=DEVICE)[None, :] < pos[:, None] + 1)[:, None, None, :]
+
+    def sdpa_decode():
+        return F.scaled_dot_product_attention(qdt, kct, vct, attn_mask=mask, enable_gqa=True,
+                                              scale=scale)
+
     rows["decode_attention"] = dict(
         max_abs_err=err_d,
-        ms=cuda_ms(lambda: attn_kernel.decode_attention(qd, kc, vc, pos)),
-        plain_ms=cuda_ms(lambda: attn_ref.decode_attention_reference(qd, kc, vc, pos)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qdt, kct, vct, attn_mask=mask, enable_gqa=True)),
+        ms=cuda_ms(lambda: attn_kernel.decode_attention(qd, kc, vc, pos, scale=scale)),
+        plain_ms=cuda_ms(lambda: attn_ref.decode_attention_reference(qd, kc, vc, pos,
+                                                                     scale=scale)),
+        library_ms=cuda_ms(sdpa_decode),
+        backends=_sdpa_backends(sdpa_decode),
         bound=bound(d_bytes, d_flops, torch.bfloat16),
         work=f"{d_flops/1e9:.4f} GFLOP, {d_bytes/1e6:.3f} MB",
     )
     for name, r in rows.items():
         say("kernels", f"{arch} {name} bf16: kernel {r['ms']:.4f} ms, plain "
-                       f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
+                       f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms (default "
+                       f"dispatch; by backend: {r['backends']}), bound "
                        f"{r['bound'][0]:.5f} ms by {r['bound'][1]} ({r['work']})")
     split = attn_kernel.DECODE_SPLIT
     n_split, live = -(-S // split), int(np.sum(-(-lens // split)))
@@ -1416,6 +1481,51 @@ def phase_fabric_moe(model: Model, served: dict, tol: float) -> dict:
     return launches
 
 
+def phase_fabric_mla(model: Model, served: dict, tol: float) -> dict:
+    """``serve_model`` on one ``torch`` endpoint with a journal, its batched
+    host's slots set by a ``cache_bytes`` budget of 4 sessions: 4 concurrent
+    sessions of 32 tokens (the serve-mla phase's first 4 prompts), held to
+    its graphed streams. Then admission on a host of the same budget: 4
+    sessions fill it, a fifth is refused (``CacheAdmissionError``), and a
+    released slot admits it. Returns the run's launches."""
+    tag = "fabric-mla"
+    cfg = model.cfg
+    prompts, want = served["prompts"][:4], served["streams"][:4]
+    per_seq = kv_cache.cache_bytes(cfg, 1, 1024)
+    budget = 4 * per_seq
+    r = _fabric_run(model, "batched", prompts, 32, 1, cache_bytes_budget=budget)
+    _report_fabric_run(model, tag, "batched", r, prompts, want, 32, tol)
+    if not r["batches"] < r["decode_tasks"]:
+        raise AssertionError(f"{tag}: {r['batches']} batched steps for {r['decode_tasks']} "
+                             "decode tasks: no coalescing")
+    metrics = MetricsRegistry()
+    host = fabric.ModelHost(model, max_len=1024, max_sessions=8, cache_bytes_budget=budget,
+                            metrics=metrics)
+    try:
+        for i in range(4):
+            host.prefill(f"s{i}", prompts[i][:64])
+        try:
+            host.prefill("s4", prompts[0][:64])
+            raise AssertionError(f"{tag}: a fifth session was admitted past the budget")
+        except fabric.CacheAdmissionError:
+            pass
+        host.release("s0")
+        host.prefill("s4", prompts[0][:64])
+        gauge = metrics.gauge("serving.cache_bytes").value
+        rejects = metrics.counter("serving.admission_rejects").value
+        if host.n_slots != 4 or gauge != kv_cache.cache_bytes(cfg, 4, 1024) or rejects != 1:
+            raise AssertionError(f"{tag}: {host.n_slots} slots, cache_bytes gauge {gauge}, "
+                                 f"{rejects} rejects under a budget of 4 sessions")
+    finally:
+        del host
+        torch.cuda.empty_cache()
+    say(tag, f"admission: a budget of 4 x {per_seq} bytes (the latent cache of one "
+             f"1024-position session, (256 + 32) x 2 B x 62 layers a position) gives 4 "
+             f"slots ({int(gauge)} bytes); a fifth session refused, admitted once a slot was "
+             "released")
+    return r["launches"]
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -1426,7 +1536,8 @@ def main() -> int:
     fabric_launches = dict.fromkeys(rows, 0)
     for arch, tag, tol in ((ARCH, "", SLICE_BF16_TOL), (SSM_ARCH, "-ssm", SLICE_SSM_BF16_TOL),
                            (HYBRID_ARCH, "-hybrid", SLICE_HYBRID_BF16_TOL),
-                           (MOE_ARCH, "-moe", SLICE_MOE_BF16_TOL)):
+                           (MOE_ARCH, "-moe", SLICE_MOE_BF16_TOL),
+                           (MLA_ARCH, "-mla", SLICE_MLA_BF16_TOL)):
         model = phase_slice(arch, "slice" + tag, tol,
                             f32_layers=MOE_F32_LAYERS if arch == MOE_ARCH else 0)
         served = phase_serve(model, "serve" + tag, tol)
@@ -1439,6 +1550,8 @@ def main() -> int:
             phase_launches.append(phase_fabric_hybrid(model, served, tol))
         elif arch == MOE_ARCH:
             phase_launches.append(phase_fabric_moe(model, served, tol))
+        elif arch == MLA_ARCH:
+            phase_launches.append(phase_fabric_mla(model, served, tol))
         for i, counts in enumerate(phase_launches):
             for k, n in counts.items():
                 launches[k] += n

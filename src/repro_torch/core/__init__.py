@@ -1,17 +1,17 @@
 """The fabric of the port: a copy of ``repro.core`` (funcX as a runtime).
 
-It exports what the reference's ``repro.core`` exports, less its workflow
-engine (``automation``) and its lithops-style client helpers (``client``),
-which are not ported yet. Two modules differ from the reference: the
-serializer packs with the port's own msgpack codec (``wire``) and carries
-torch tensors, and the worker builds no JAX executable.
+It exports what the reference's ``repro.core`` exports, its workflow engine
+(``automation``) and its lithops-style client helpers (``client``) included.
+Two modules differ from the reference: the serializer packs with the port's
+own msgpack codec (``wire``) and carries torch tensors, and the worker builds
+no JAX executable.
 
 Public API:
-    FunctionService, Forwarder, Endpoint, TaskFuture, TokenAuthority,
+    FunctionService, Forwarder, Endpoint, TaskFuture, TokenAuthority, Flow,
     TaskBatch, ResultBatch, BatchCoalescer, MetricsRegistry, Autoscaler,
-    Journal, ResultStore, DataRef, FileSystemStore, InMemoryStore,
-    TaskPredictor, ShardedForwarder, FairnessPolicy, AdmissionError,
-    TenantLedger, SessionRouter
+    Journal, ResultStore, wait, get_result, DataRef, FileSystemStore,
+    InMemoryStore, TaskPredictor, ShardedForwarder, FairnessPolicy,
+    AdmissionError, TenantLedger, SessionRouter
 """
 from .auth import (  # noqa: F401
     SCOPE_ADMIN,
@@ -23,6 +23,20 @@ from .auth import (  # noqa: F401
     Token,
     TokenAuthority,
 )
+from .automation import (  # noqa: F401
+    ActionStep,
+    DataArrivalEvent,
+    Event,
+    EventBus,
+    Flow,
+    FlowRun,
+    TimerEvent,
+    TimerSource,
+    Trigger,
+    Workflow,
+    WorkflowNode,
+    WorkflowRun,
+)
 from .autoscaler import (  # noqa: F401
     Autoscaler,
     LatencySLOPolicy,
@@ -33,6 +47,13 @@ from .autoscaler import (  # noqa: F401
     make_policy,
 )
 from .batching import MicroBatcher, stack_payloads, unstack_results  # noqa: F401
+from .client import (  # noqa: F401
+    ALL_COMPLETED,
+    ALWAYS,
+    ANY_COMPLETED,
+    get_result,
+    wait,
+)
 from .containers import (  # noqa: F401
     CapabilityError,
     ContainerPool,

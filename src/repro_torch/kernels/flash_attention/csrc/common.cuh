@@ -27,7 +27,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 // Eight consecutive elements of a row (16 bytes of bf16, 32 of f32), read with
-// vector loads. The wrappers guarantee the alignment: hd % 8 == 0, strides
+// vector loads. The wrappers guarantee the alignment: head dims % 8 == 0, strides
 // multiples of 8 elements, base pointers 16-byte aligned.
 template <typename T> struct Vec8;
 
@@ -61,47 +61,49 @@ template <> struct Vec8<float> {
   }
 };
 
-// A tile of `rows` K and V rows (hd wide) in flight in registers: the loads of
-// one tile are all issued before any is used, so a block waits for device
-// memory once per tile rather than once per element. kChunks = the most 8-wide
-// chunks one thread holds (rows * kMaxHd / 8 / threads).
+// A tile of `rows` K rows (dk wide) and V rows (dv wide) in flight in
+// registers: the loads of one tile are all issued before any is used, so a
+// block waits for device memory once per tile rather than once per element.
+// kChunks = the most 8-wide chunks of K, or of V, one thread holds
+// (rows * kMaxHd / 8 / threads).
 template <typename T, int kChunks> struct KVTile {
   Vec8<T> k[kChunks], v[kChunks];
 
   // Rows k0 .. k0 + rows - 1 of K and V; rows at or past `valid` load zeros.
   __device__ __forceinline__ void load(const T* kb, const T* vb, int64_t k_ss, int64_t v_ss,
-                                       int k0, int valid, int rows, int hd, int tid,
+                                       int k0, int valid, int rows, int dk, int dv, int tid,
                                        int threads) {
-    const int cpr = hd / 8;  // chunks per row
+    const int cpk = dk / 8, cpv = dv / 8;  // chunks per row
 #pragma unroll
     for (int u = 0; u < kChunks; ++u) {
       const int i = tid + u * threads;
-      if (i < rows * cpr) {
-        const int c = i / cpr, d = (i - c * cpr) * 8;
-        if (k0 + c < valid) {
-          k[u].load(kb + (k0 + c) * k_ss + d);
-          v[u].load(vb + (k0 + c) * v_ss + d);
-        } else {
-          k[u].zero();
-          v[u].zero();
-        }
+      if (i < rows * cpk) {
+        const int c = i / cpk, d = (i - c * cpk) * 8;
+        if (k0 + c < valid) k[u].load(kb + (k0 + c) * k_ss + d); else k[u].zero();
+      }
+      if (i < rows * cpv) {
+        const int c = i / cpv, d = (i - c * cpv) * 8;
+        if (k0 + c < valid) v[u].load(vb + (k0 + c) * v_ss + d); else v[u].zero();
       }
     }
   }
 
   // Converts to f32 into Ks (row stride ldk) and Vs (row stride ldv).
   __device__ __forceinline__ void store(float* Ks, int ldk, float* Vs, int ldv, int rows,
-                                        int hd, int tid, int threads) const {
-    const int cpr = hd / 8;
+                                        int dk, int dv, int tid, int threads) const {
+    const int cpk = dk / 8, cpv = dv / 8;
 #pragma unroll
     for (int u = 0; u < kChunks; ++u) {
       const int i = tid + u * threads;
-      if (i < rows * cpr) {
-        const int c = i / cpr, d = (i - c * cpr) * 8;
-        float f[8];
+      float f[8];
+      if (i < rows * cpk) {
+        const int c = i / cpk, d = (i - c * cpk) * 8;
         k[u].store_f32(f);
 #pragma unroll
         for (int e = 0; e < 8; ++e) Ks[c * ldk + d + e] = f[e];
+      }
+      if (i < rows * cpv) {
+        const int c = i / cpv, d = (i - c * cpv) * 8;
         v[u].store_f32(f);
 #pragma unroll
         for (int e = 0; e < 8; ++e) Vs[c * ldv + d + e] = f[e];

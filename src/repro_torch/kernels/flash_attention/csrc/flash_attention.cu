@@ -21,12 +21,16 @@
 //   each a 128-byte-swizzled box of 64 rows; TMA's out-of-bounds fill gives
 //   zeros past hd (hd 80: the second slab holds 16 real columns), past Sq and
 //   past Skv, so any hd that is a multiple of 8 runs as hd rounded up to 16.
+//   Q and K have dqk columns, V and O dv (MLA's prefill: dqk 96 in two slabs,
+//   the second zero-filled past column 96, and dv 64 in one): the QK^T slabs
+//   and the PV/output slabs are two template counts, ceil(dqk / 64) and
+//   ceil(dv / 64).
 // - K and V use a two-stage ring, each stage completed on an mbarrier; thread
 //   0 issues tile t + 2 into the stage that tile t freed, so one tile is always
 //   in flight while the warpgroup computes. No producer warp of its own: the
 //   block is the one consumer warpgroup.
 // - S = Q K^T: wgmma m64n64k16, both operands from shared memory (K-major),
-//   ceil(hd / 16) k-steps, fp32 accumulators in registers.
+//   ceil(dqk / 16) k-steps, fp32 accumulators in registers.
 // - The online softmax runs on the accumulator fragment: each thread holds two
 //   rows' 16 scores, a row's max reduces over the 4 lanes that share it. Masks
 //   are applied per element only on tiles that cross the causal diagonal or
@@ -34,7 +38,7 @@
 // - O += P V: P is packed to bf16 pairs in registers, the accumulator layout of
 //   m64n64 being the A-fragment layout of the next wgmma (as FlashAttention-3
 //   does), and V is read from shared memory MN-major (the transpose-B bit), one
-//   m64n64k16 per 64-column slab of hd. P is rounded to bf16 before PV where
+//   m64n64k16 per 64-column slab of dv. P is rounded to bf16 before PV where
 //   ref.py keeps it in fp32; tests/test_torch_flash_attention.py shows that
 //   this stays inside the 2e-2 bf16 tolerance.
 // - O is divided by the row sum and stored as bf16 pairs (4-byte stores).
@@ -44,8 +48,10 @@
 // tolerance, and no served model runs f32. The dtype dispatch in
 // flash_attention_launch picks the kernel; nothing falls back.
 //
-// Layout: q (B, Sq, H, hd), k/v (B, Skv, KV, hd), any strides for the first
-// three axes, unit stride along hd; o is (B, Sq, H, hd) contiguous. Query head
+// Layout: q (B, Sq, H, dqk), k (B, Skv, KV, dqk), v (B, Skv, KV, dv), any
+// strides for the first three axes, unit stride along the head dim; o is
+// (B, Sq, H, dv) contiguous. dqk and dv are multiples of 8 up to kMaxHd = 128
+// (the f32 kernel's registers, the bf16 kernel's two slabs). Query head
 // h reads KV head h / G (G = H / KV, any integer); K/V are never repeated.
 // Masking uses the finite NEG_INF of ref.py; a row that sees no valid key
 // gives zeros.
@@ -67,12 +73,12 @@ constexpr int kThreads = 256; // 16 row groups x 16 column lanes
 constexpr int kRows = kBlockQ / 16;  // query rows per thread
 constexpr int kCols = kBlockK / 16;  // keys per thread in the score tile
 constexpr int kDims = kMaxHd / 16;   // output columns per thread
-constexpr int kChunks = kBlockK * kMaxHd / 8 / kThreads;  // 8-wide K/V chunks per thread
+constexpr int kChunks = kBlockK * kMaxHd / 8 / kThreads;  // 8-wide K (or V) chunks per thread
 
-size_t smem_bytes_f32(int hd) {
-  const int ld = hd + 1;  // odd row stride: lanes reading a column hit distinct banks
+size_t smem_bytes_f32(int dqk, int dv) {
+  const int ld = dqk + 1;  // odd row stride: lanes reading a column hit distinct banks
   return sizeof(float) *
-         (size_t(kBlockQ) * ld + size_t(kBlockK) * ld + size_t(kBlockK) * hd +
+         (size_t(kBlockQ) * ld + size_t(kBlockK) * ld + size_t(kBlockK) * dv +
           size_t(kBlockQ) * (kBlockK + 1));
 }
 
@@ -80,17 +86,17 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
                            const int* __restrict__ kv_len,  // (B,) or null: Skv
-                           int Sq, int Skv, int H, int KV, int hd,
+                           int Sq, int Skv, int H, int KV, int dqk, int dv,
                            int64_t q_sb, int64_t q_ss, int64_t q_sh,
                            int64_t k_sb, int64_t k_ss, int64_t k_sh,
                            int64_t v_sb, int64_t v_ss, int64_t v_sh,
                            float scale, int causal, int q_offset) {
   extern __shared__ float smem[];
-  const int ld = hd + 1;
+  const int ld = dqk + 1;
   float* Qs = smem;                 // kBlockQ x ld
   float* Ks = Qs + kBlockQ * ld;    // kBlockK x ld
-  float* Vs = Ks + kBlockK * ld;    // kBlockK x hd
-  float* Ps = Vs + kBlockK * hd;    // kBlockQ x (kBlockK + 1)
+  float* Vs = Ks + kBlockK * ld;    // kBlockK x dv
+  float* Ps = Vs + kBlockK * dv;    // kBlockQ x (kBlockK + 1)
   const int ldp = kBlockK + 1;
 
   const int tid = threadIdx.x;
@@ -105,7 +111,7 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
   const float* kb = k + b * k_sb + kvh * k_sh;
   const float* vb = v + b * v_sb + kvh * v_sh;
 
-  const int cpr = hd / 8;  // 8-wide chunks per row
+  const int cpr = dqk / 8;  // 8-wide chunks per row
   for (int i = tid; i < kBlockQ * cpr; i += kThreads) {
     const int r = i / cpr, d = (i - r * cpr) * 8;
     Vec8<float> x;
@@ -133,21 +139,21 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
 
   // K/V tile t + 1 is loaded into registers while tile t is computed on
   KVTile<float, kChunks> tile;
-  if (n_tiles > 0) tile.load(kb, vb, k_ss, v_ss, 0, L, kBlockK, hd, tid, kThreads);
+  if (n_tiles > 0) tile.load(kb, vb, k_ss, v_ss, 0, L, kBlockK, dqk, dv, tid, kThreads);
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBlockK;
     __syncthreads();  // the previous tile's Ks/Vs/Ps are no longer read
-    tile.store(Ks, ld, Vs, hd, kBlockK, hd, tid, kThreads);
+    tile.store(Ks, ld, Vs, dv, kBlockK, dqk, dv, tid, kThreads);
     __syncthreads();
     if (t + 1 < n_tiles)
-      tile.load(kb, vb, k_ss, v_ss, k0 + kBlockK, L, kBlockK, hd, tid, kThreads);
+      tile.load(kb, vb, k_ss, v_ss, k0 + kBlockK, L, kBlockK, dqk, dv, tid, kThreads);
 
     float s[kRows][kCols];
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
       for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < hd; ++d) {
+    for (int d = 0; d < dqk; ++d) {
       float qv[kRows], kv[kCols];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) qv[i] = Qs[(ty + 16 * i) * ld + d];
@@ -201,8 +207,8 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
 #pragma unroll
       for (int j = 0; j < kDims; ++j) {
         const int d = tx + 16 * j;
-        if (d < hd) {
-          const float vv = Vs[c * hd + d];
+        if (d < dv) {
+          const float vv = Vs[c * dv + d];
 #pragma unroll
           for (int i = 0; i < kRows; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
         }
@@ -215,27 +221,27 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
     const int qi = q0 + ty + 16 * i;
     if (qi >= Sq) continue;
     const float den = l[i] == 0.f ? 1.f : l[i];  // no key visited: zeros, not NaN
-    float* orow = o + ((int64_t(b) * Sq + qi) * H + h) * hd;
+    float* orow = o + ((int64_t(b) * Sq + qi) * H + h) * dv;
 #pragma unroll
     for (int j = 0; j < kDims; ++j) {
       const int d = tx + 16 * j;
-      if (d < hd) orow[d] = acc[i][j] / den;
+      if (d < dv) orow[d] = acc[i][j] / den;
     }
   }
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, const int* kv_len,
-                       int B, int Sq, int Skv, int H, int KV, int hd,
+                       int B, int Sq, int Skv, int H, int KV, int dqk, int dv,
                        const int64_t* qs, const int64_t* ks, const int64_t* vs,
                        float scale, int causal, int q_offset, cudaStream_t stream) {
   static size_t granted = 48 * 1024;
-  const size_t smem = smem_bytes_f32(hd);
+  const size_t smem = smem_bytes_f32(dqk, dv);
   cudaError_t err = allow_smem(flash_attention_f32_kernel, smem, &granted);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
   flash_attention_f32_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), kv_len, Sq, Skv, H, KV, hd,
+      static_cast<const float*>(v), static_cast<float*>(o), kv_len, Sq, Skv, H, KV, dqk, dv,
       qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale, causal, q_offset);
   return cudaGetLastError();
 }
@@ -358,30 +364,32 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-size_t smem_bytes_bf16(int slabs) {
-  // Q, two K stages and two V stages of `slabs` boxes each; 5 mbarriers; slack
-  // to align the base to a swizzle atom
-  return size_t(5) * slabs * kSlabBytes + 64 + kSwizzleAtom;
+size_t smem_bytes_bf16(int qk_slabs, int v_slabs) {
+  // Q and two K stages of `qk_slabs` boxes each, two V stages of `v_slabs`;
+  // 5 mbarriers; slack to align the base to a swizzle atom
+  return size_t(3 * qk_slabs + 2 * v_slabs) * kSlabBytes + 64 + kSwizzleAtom;
 }
 
-// kSlabs = ceil(hd / 64): 64-column slabs of the head dimension
-template <int kSlabs>
+// kQkSlabs = ceil(dqk / 64), kVSlabs = ceil(dv / 64): 64-column slabs of the
+// query/key and of the value/output head dims
+template <int kQkSlabs, int kVSlabs>
 __global__ void __launch_bounds__(kWgThreads)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
                              __nv_bfloat16* __restrict__ o,
                              const int* __restrict__ kv_len,  // (B,) or null: Skv
-                             int Sq, int Skv, int H, int KV, int hd, float scale_log2,
-                             int causal, int q_offset) {
-  constexpr int kTileBytes = kSlabs * kSlabBytes;  // one Q, K or V tile
+                             int Sq, int Skv, int H, int KV, int dqk, int dv,
+                             float scale_log2, int causal, int q_offset) {
+  constexpr int kQkBytes = kQkSlabs * kSlabBytes;  // one Q or K tile
+  constexpr int kVBytes = kVSlabs * kSlabBytes;    // one V tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + kSwizzleAtom - 1) & ~uintptr_t(kSwizzleAtom - 1));
   const uint32_t sQ = smem_addr(base);
-  const uint32_t sK = sQ + kTileBytes;       // stage s at sK + s * kTileBytes
-  const uint32_t sV = sK + 2 * kTileBytes;   // stage s at sV + s * kTileBytes
-  const uint32_t bar_q = sV + 2 * kTileBytes;
+  const uint32_t sK = sQ + kQkBytes;         // stage s at sK + s * kQkBytes
+  const uint32_t sV = sK + 2 * kQkBytes;     // stage s at sV + s * kVBytes
+  const uint32_t bar_q = sV + 2 * kVBytes;
   const uint32_t bar_k = bar_q + 8;          // stage s at bar_k + 8 s
   const uint32_t bar_v = bar_q + 24;         // stage s at bar_v + 8 s
 
@@ -408,55 +416,55 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int r0 = warp * 16 + (lane >> 2);
   const int c = 2 * (lane & 3);
   const int row0 = q0 + r0, row1 = row0 + 8;
-  __nv_bfloat16* o0 = o + ((int64_t(b) * Sq + row0) * H + h) * hd;
-  __nv_bfloat16* o1 = o0 + int64_t(8) * H * hd;
+  __nv_bfloat16* o0 = o + ((int64_t(b) * Sq + row0) * H + h) * dv;
+  __nv_bfloat16* o1 = o0 + int64_t(8) * H * dv;
 
   if (n_tiles == 0) {  // no valid key for any row of the tile: zeros
 #pragma unroll
-    for (int s = 0; s < kSlabs; ++s)
+    for (int s = 0; s < kVSlabs; ++s)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = s * kSlabCols + 8 * j + c;
-        if (col < hd && row0 < Sq) *reinterpret_cast<uint32_t*>(o0 + col) = 0u;
-        if (col < hd && row1 < Sq) *reinterpret_cast<uint32_t*>(o1 + col) = 0u;
+        if (col < dv && row0 < Sq) *reinterpret_cast<uint32_t*>(o0 + col) = 0u;
+        if (col < dv && row1 < Sq) *reinterpret_cast<uint32_t*>(o1 + col) = 0u;
       }
     return;
   }
 
   auto issue_kv = [&](int t) {  // thread 0: K and V tile t into stage t % 2
     const int st = t & 1;
-    mbar_expect_tx(bar_k + 8 * st, kTileBytes);
+    mbar_expect_tx(bar_k + 8 * st, kQkBytes);
 #pragma unroll
-    for (int s = 0; s < kSlabs; ++s)
-      tma_load(sK + st * kTileBytes + s * kSlabBytes, &tk, bar_k + 8 * st, s * kSlabCols,
+    for (int s = 0; s < kQkSlabs; ++s)
+      tma_load(sK + st * kQkBytes + s * kSlabBytes, &tk, bar_k + 8 * st, s * kSlabCols,
                t * kBlockK, kvh, b);
-    mbar_expect_tx(bar_v + 8 * st, kTileBytes);
+    mbar_expect_tx(bar_v + 8 * st, kVBytes);
 #pragma unroll
-    for (int s = 0; s < kSlabs; ++s)
-      tma_load(sV + st * kTileBytes + s * kSlabBytes, &tv, bar_v + 8 * st, s * kSlabCols,
+    for (int s = 0; s < kVSlabs; ++s)
+      tma_load(sV + st * kVBytes + s * kSlabBytes, &tv, bar_v + 8 * st, s * kSlabCols,
                t * kBlockK, kvh, b);
   };
 
   if (tid == 0) {
     for (int i = 0; i < 5; ++i) mbar_init(bar_q + 8 * i);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect_tx(bar_q, kTileBytes);
+    mbar_expect_tx(bar_q, kQkBytes);
 #pragma unroll
-    for (int s = 0; s < kSlabs; ++s)
+    for (int s = 0; s < kQkSlabs; ++s)
       tma_load(sQ + s * kSlabBytes, &tq, bar_q, s * kSlabCols, q0, h, b);
     issue_kv(0);
     if (n_tiles > 1) issue_kv(1);
   }
   __syncthreads();  // the barriers are initialised before anyone waits on them
 
-  float acc[kSlabs][32];
+  float acc[kVSlabs][32];
 #pragma unroll
-  for (int s = 0; s < kSlabs; ++s)
+  for (int s = 0; s < kVSlabs; ++s)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[s][i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf;  // running max of rows r0, r0 + 8 (log2 units)
   float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
-  const int ksteps = (hd + 15) / 16;
+  const int ksteps = (dqk + 15) / 16;
   const int qpos0 = row0 + q_offset, qpos1 = row1 + q_offset;
 
   mbar_wait(bar_q, 0);
@@ -472,11 +480,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(bar_k + 8 * st, parity);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4 * kSlabs; ++kk) {
-      if (kk < ksteps) {  // 16 columns of hd: slab kk / 4, bytes 32 (kk % 4) of its rows
+    for (int kk = 0; kk < 4 * kQkSlabs; ++kk) {
+      if (kk < ksteps) {  // 16 columns of dqk: slab kk / 4, bytes 32 (kk % 4) of its rows
         const uint32_t off = (kk >> 2) * kSlabBytes + (kk & 3) * 32;
         wgmma_ss(sc, sw128_desc(sQ + off, 16, kSwizzleAtom),
-                 sw128_desc(sK + st * kTileBytes + off, 16, kSwizzleAtom));
+                 sw128_desc(sK + st * kQkBytes + off, 16, kSwizzleAtom));
       }
     }
     wgmma_commit();
@@ -525,7 +533,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     l0 = l0 * corr0 + rs0;
     l1 = l1 * corr1 + rs1;
 #pragma unroll
-    for (int s = 0; s < kSlabs; ++s)
+    for (int s = 0; s < kVSlabs; ++s)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         acc[s][4 * j] *= corr0;
@@ -544,24 +552,24 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
     }
 
-    // O += P V, one m64n64k16 per slab of hd and 16 keys; V MN-major: a slab's
+    // O += P V, one m64n64k16 per slab of dv and 16 keys; V MN-major: a slab's
     // 8-key groups are 1024 bytes apart (SBO), slabs kSlabBytes apart (LBO)
     mbar_wait(bar_v + 8 * st, parity);
     fence_regs(pa);
 #pragma unroll
-    for (int s = 0; s < kSlabs; ++s) fence_regs(acc[s]);
+    for (int s = 0; s < kVSlabs; ++s) fence_regs(acc[s]);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int s = 0; s < kSlabs; ++s)
+      for (int s = 0; s < kVSlabs; ++s)
         wgmma_rs_tb(acc[s], pa[kk],
-                    sw128_desc(sV + st * kTileBytes + s * kSlabBytes + kk * 2 * kSwizzleAtom,
+                    sw128_desc(sV + st * kVBytes + s * kSlabBytes + kk * 2 * kSwizzleAtom,
                                kSlabBytes, kSwizzleAtom));
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
-    for (int s = 0; s < kSlabs; ++s) fence_regs(acc[s]);
+    for (int s = 0; s < kVSlabs; ++s) fence_regs(acc[s]);
 
     __syncthreads();  // every warp is done with stage st
     if (tid == 0 && t + 2 < n_tiles) issue_kv(t + 2);
@@ -575,14 +583,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;  // a row with no valid key: zeros
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
 #pragma unroll
-  for (int s = 0; s < kSlabs; ++s)
+  for (int s = 0; s < kVSlabs; ++s)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = s * kSlabCols + 8 * j + c;
-      if (col < hd && row0 < Sq)
+      if (col < dv && row0 < Sq)
         *reinterpret_cast<uint32_t*>(o0 + col) =
             pack_bf16(acc[s][4 * j] * inv0, acc[s][4 * j + 1] * inv0);
-      if (col < hd && row1 < Sq)
+      if (col < dv && row1 < Sq)
         *reinterpret_cast<uint32_t*>(o1 + col) =
             pack_bf16(acc[s][4 * j + 2] * inv1, acc[s][4 * j + 3] * inv1);
     }
@@ -645,57 +653,69 @@ bool make_map(CUtensorMap* map, const void* ptr, int hd, int S, int heads, int B
   return true;
 }
 
-template <int kSlabs>
+template <int kQkSlabs, int kVSlabs>
 cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                          void* o, const int* kv_len, int B, int Sq, int Skv, int H, int KV,
-                         int hd, float scale, int causal, int q_offset, cudaStream_t stream) {
+                         int dqk, int dv, float scale, int causal, int q_offset,
+                         cudaStream_t stream) {
   static size_t granted = 48 * 1024;
-  const size_t smem = smem_bytes_bf16(kSlabs);
-  cudaError_t err = allow_smem(flash_attention_wgmma_kernel<kSlabs>, smem, &granted);
+  const size_t smem = smem_bytes_bf16(kQkSlabs, kVSlabs);
+  cudaError_t err =
+      allow_smem(flash_attention_wgmma_kernel<kQkSlabs, kVSlabs>, smem, &granted);
   if (err != cudaSuccess) return err;
   const dim3 grid(H * ((Sq + kBlockQ - 1) / kBlockQ), B);
   const float log2e = 1.4426950408889634f;
-  flash_attention_wgmma_kernel<kSlabs><<<grid, kWgThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), kv_len, Sq, Skv, H, KV, hd, scale * log2e,
-      causal, q_offset);
+  flash_attention_wgmma_kernel<kQkSlabs, kVSlabs><<<grid, kWgThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), kv_len, Sq, Skv, H, KV, dqk, dv,
+      scale * log2e, causal, q_offset);
   return cudaGetLastError();
 }
 
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, const int* kv_len,
-                        int B, int Sq, int Skv, int H, int KV, int hd,
+                        int B, int Sq, int Skv, int H, int KV, int dqk, int dv,
                         const int64_t* qs, const int64_t* ks, const int64_t* vs,
                         float scale, int causal, int q_offset, cudaStream_t stream) {
   if (Skv == 0)  // no key for any row: zeros (a tensor map needs a nonzero extent)
-    return cudaMemsetAsync(o, 0, size_t(B) * Sq * H * hd * 2, stream);
+    return cudaMemsetAsync(o, 0, size_t(B) * Sq * H * dv * 2, stream);
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, hd, Sq, H, B, qs) || !make_map(&tk, k, hd, Skv, KV, B, ks) ||
-      !make_map(&tv, v, hd, Skv, KV, B, vs))
+  if (!make_map(&tq, q, dqk, Sq, H, B, qs) || !make_map(&tk, k, dqk, Skv, KV, B, ks) ||
+      !make_map(&tv, v, dv, Skv, KV, B, vs))
     return cudaErrorInvalidValue;
-  if (hd <= kSlabCols)
-    return launch_wgmma<1>(tq, tk, tv, o, kv_len, B, Sq, Skv, H, KV, hd, scale, causal,
-                           q_offset, stream);
-  return launch_wgmma<2>(tq, tk, tv, o, kv_len, B, Sq, Skv, H, KV, hd, scale, causal,
-                         q_offset, stream);
+  const bool wide_qk = dqk > kSlabCols, wide_v = dv > kSlabCols;
+  if (wide_qk && wide_v)
+    return launch_wgmma<2, 2>(tq, tk, tv, o, kv_len, B, Sq, Skv, H, KV, dqk, dv, scale,
+                              causal, q_offset, stream);
+  if (wide_qk)
+    return launch_wgmma<2, 1>(tq, tk, tv, o, kv_len, B, Sq, Skv, H, KV, dqk, dv, scale,
+                              causal, q_offset, stream);
+  if (wide_v)
+    return launch_wgmma<1, 2>(tq, tk, tv, o, kv_len, B, Sq, Skv, H, KV, dqk, dv, scale,
+                              causal, q_offset, stream);
+  return launch_wgmma<1, 1>(tq, tk, tv, o, kv_len, B, Sq, Skv, H, KV, dqk, dv, scale, causal,
+                            q_offset, stream);
 }
 
 }  // namespace
 }  // namespace repro_torch
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). Strides
-// are in elements: {batch, sequence, head} for each of q, k, v.
+// are in elements: {batch, sequence, head} for each of q, k, v. dqk is the
+// head dim of q and k, dv that of v and o.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       const int* kv_len, int dtype, int B, int Sq, int Skv,
-                                      int H, int KV, int hd, const int64_t* q_strides,
+                                      int H, int KV, int dqk, int dv, const int64_t* q_strides,
                                       const int64_t* k_strides, const int64_t* v_strides,
                                       float scale, int causal, int q_offset, void* stream) {
   using namespace repro_torch;
-  if (hd <= 0 || hd > kMaxHd || KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
+  if (dqk <= 0 || dqk > kMaxHd || dqk % 8 != 0 || dv <= 0 || dv > kMaxHd || dv % 8 != 0 ||
+      KV <= 0 || H % KV != 0)
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return launch_f32(q, k, v, o, kv_len, B, Sq, Skv, H, KV, hd, q_strides, k_strides,
+    return launch_f32(q, k, v, o, kv_len, B, Sq, Skv, H, KV, dqk, dv, q_strides, k_strides,
                       v_strides, scale, causal, q_offset, s);
   if (dtype == kBFloat16)
-    return launch_bf16(q, k, v, o, kv_len, B, Sq, Skv, H, KV, hd, q_strides, k_strides,
+    return launch_bf16(q, k, v, o, kv_len, B, Sq, Skv, H, KV, dqk, dv, q_strides, k_strides,
                        v_strides, scale, causal, q_offset, s);
   return cudaErrorInvalidValue;
 }

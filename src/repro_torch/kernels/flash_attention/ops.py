@@ -15,7 +15,7 @@ from . import kernel, ref
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset=None, kv_len=None,
                     scale: Optional[float] = None, impl: str = "auto"):
-    """GQA attention. q (B,Sq,H,hd); k,v (B,Skv,KV,hd) -> (B,Sq,H,hd)."""
+    """GQA attention. q (B,Sq,H,dqk); k (B,Skv,KV,dqk), v (B,Skv,KV,dv) -> (B,Sq,H,dv)."""
     fn = ref.mha_reference if use_ref(q, impl) else kernel.flash_attention
     return fn(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len, scale=scale)
 

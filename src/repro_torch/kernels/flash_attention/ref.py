@@ -14,9 +14,9 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
 def mha_reference(
-    q: torch.Tensor,            # (B, Sq, H, hd)
-    k: torch.Tensor,            # (B, Skv, KV, hd)
-    v: torch.Tensor,            # (B, Skv, KV, hd)
+    q: torch.Tensor,            # (B, Sq, H, dqk)
+    k: torch.Tensor,            # (B, Skv, KV, dqk)
+    v: torch.Tensor,            # (B, Skv, KV, dv)
     *,
     causal: bool = True,
     q_offset=None,              # scalar: absolute pos of q[0]
@@ -67,9 +67,9 @@ def mha_reference(
 
 
 def decode_attention_reference(
-    q: torch.Tensor,            # (B, 1, H, hd) — single new token
-    k_cache: torch.Tensor,      # (B, S, KV, hd)
-    v_cache: torch.Tensor,      # (B, S, KV, hd)
+    q: torch.Tensor,            # (B, 1, H, dqk) — single new token
+    k_cache: torch.Tensor,      # (B, S, KV, dqk)
+    v_cache: torch.Tensor,      # (B, S, KV, dv)
     pos,                        # scalar or (B,) int: write/attend position
     *,
     scale: Optional[float] = None,

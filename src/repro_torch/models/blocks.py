@@ -1,6 +1,7 @@
 """Blocks of the dense, MoE and SSM families: init / train-apply / decode-apply / cache.
 
 Port of the dense, MoE and SSM parts of ``repro.models.blocks``: GQA attention
+(or, where the config has ``mla``, Multi-head Latent Attention, ``mla.py``)
 + SwiGLU MLP (the moe family: + the routed-expert FFN, ``moe.moe_ffn``), and
 RMSNorm + Mamba2 mixer. A "layer" is the unit the model stack
 loops over (the hybrid family runs both). The JAX ``partition.shard_act``
@@ -21,11 +22,14 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.rmsnorm import ops as rmsnorm_ops
-from . import attention, layers, mamba2, moe
+from . import attention, layers, mamba2, mla, moe
 
 
 def init_decoder_layer(gen, cfg: ModelConfig, device, lead: Tuple[int, ...] = ()):
-    attn = attention.init_attention(gen, cfg, device, lead)
+    if cfg.mla is not None:
+        attn = mla.init_mla(gen, cfg, device, lead)
+    else:
+        attn = attention.init_attention(gen, cfg, device, lead)
     if cfg.family == "moe":
         ffn = moe.init_moe(gen, cfg, device, lead)
     else:
@@ -47,11 +51,15 @@ def _ffn(p, hn: torch.Tensor, cfg: ModelConfig):
 
 def decoder_layer(p, h: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
                   impl: str = "auto"):
-    """Train/prefill. Returns (h, aux_loss, kv_for_cache)."""
+    """Train/prefill. Returns (h, aux_loss, kv_for_cache): (k, v), or for MLA
+    (c_kv, k_rope)."""
     hn = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
-    a, kv = attention.self_attention(
-        p["attn"], hn, cfg, positions=positions, causal=True, return_kv=True, impl=impl
-    )
+    if cfg.mla is not None:
+        a, kv = mla.mla_attention(p["attn"], hn, cfg, positions=positions, impl=impl)
+    else:
+        a, kv = attention.self_attention(
+            p["attn"], hn, cfg, positions=positions, causal=True, return_kv=True, impl=impl
+        )
     h, hn = rmsnorm_ops.fused_add_rmsnorm(h, a, p["ln2"]["scale"], cfg.norm_eps, impl)
     f, aux = _ffn(p["ffn"], hn, cfg)
     return h + f, aux, kv
@@ -59,21 +67,36 @@ def decoder_layer(p, h: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
 
 def decoder_layer_decode(p, h: torch.Tensor, cache: dict, pos: torch.Tensor,
                          cfg: ModelConfig, impl: str = "auto"):
-    """One token. ``cache`` ({"k", "v"}, (B, S, KV, hd) each) is updated in place."""
+    """One token. ``cache`` ({"k", "v"}, (B, S, KV, hd) each; for MLA {"ckv",
+    "krope"}, (B, S, kv_lora) and (B, S, rope)) is updated in place."""
     hn = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
-    a, (k, v) = attention.self_attention_decode(
-        p["attn"], hn, cache["k"], cache["v"], pos, cfg, impl=impl
-    )
+    if cfg.mla is not None:
+        a, (ckv, krope) = mla.mla_attention_decode(
+            p["attn"], hn, cache["ckv"], cache["krope"], pos, cfg, impl=impl
+        )
+        new_cache = {"ckv": ckv, "krope": krope}
+    else:
+        a, (k, v) = attention.self_attention_decode(
+            p["attn"], hn, cache["k"], cache["v"], pos, cfg, impl=impl
+        )
+        new_cache = {"k": k, "v": v}
     h, hn = rmsnorm_ops.fused_add_rmsnorm(h, a, p["ln2"]["scale"], cfg.norm_eps, impl)
     f, _ = _ffn(p["ffn"], hn, cfg)
-    return h + f, {"k": k, "v": v}
+    return h + f, new_cache
 
 
 def init_decoder_cache(cfg: ModelConfig, batch: int, cache_len: int, device,
                        lead: Tuple[int, ...] = ()):
     """Zero cache; ``lead`` stacks it (the model passes ``(n_layers,)``)."""
-    shape = (*lead, batch, cache_len, cfg.n_kv_heads, cfg.hd)
     dt = layers.dtype_of(cfg)
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {
+            "ckv": torch.zeros((*lead, batch, cache_len, m.kv_lora_rank), dtype=dt, device=device),
+            "krope": torch.zeros((*lead, batch, cache_len, m.qk_rope_dim), dtype=dt,
+                                 device=device),
+        }
+    shape = (*lead, batch, cache_len, cfg.n_kv_heads, cfg.hd)
     return {
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),

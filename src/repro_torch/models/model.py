@@ -1,4 +1,4 @@
-"""Model assembly for the dense, MoE, SSM and hybrid families: embedding + layer stack + head.
+"""Model assembly for the dense (GQA or MLA), MoE, SSM and hybrid families: embedding + layer stack + head.
 
 Port of ``repro.models.model.Model``. The model is an ``nn.Module`` whose
 ``state_dict`` keys are the JAX parameter pytree paths joined by ``.``, with
@@ -15,7 +15,8 @@ API (the JAX one without the ``params`` argument, which the module holds):
     prefill(batch)                       -> (last_logits (B, V), cache)
     decode_step(token, cache, pos)       -> (logits (B, V), cache updated in place)
     init_cache(batch, cache_len)         -> zero cache, stacked over layers:
-        dense  {"k", "v"}: (L, B, S, KV, hd) in the model dtype;
+        dense  {"k", "v"}: (L, B, S, KV, hd) in the model dtype; with MLA
+               {"ckv": (L, B, S, kv_lora), "krope": (L, B, S, rope)};
         ssm    {"conv": (L, B, K-1, Cd) in the model dtype, "ssm": (L, B, H, P, N) f32};
         hybrid {"attn": {"k", "v"}: (G, B, S, KV, hd),
                 "mamba": {"conv": (G, PG, B, K-1, Cd), "ssm": (G, PG, B, H, P, N)}}
@@ -176,13 +177,18 @@ class Model(nn.Module):
                 if cfg.family == "ssm":
                     h, state = blocks.ssm_layer(lp, h, cfg, return_state=return_state, impl=impl)
                 else:
-                    h, a, (k, v) = blocks.decoder_layer(lp, h, cfg, positions, impl)
+                    h, a, kv = blocks.decoder_layer(lp, h, cfg, positions, impl)
                     if cfg.family == "moe":
                         aux = aux + a
-                    state = {"k": k, "v": v}
+                    state = self._pack_kv(kv)
                 if return_state:
                     per_layer.append(state)
         return h, aux, (_stack(per_layer) if return_state else None)
+
+    def _pack_kv(self, kv: tuple) -> dict:
+        """A dense layer's prefill cache as its decode-cache leaves."""
+        names = ("ckv", "krope") if self.cfg.mla is not None else ("k", "v")
+        return dict(zip(names, kv))
 
     def forward(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward. Returns (hidden_states, aux_loss): the sum
@@ -249,11 +255,14 @@ class Model(nn.Module):
     def cache_batch_axes(self) -> dict:
         """The batch axis of each leaf of ``init_cache``'s tree, for
         ``kv_cache.insert_sequence``: it follows the stacked layer axes, so it
-        is 1 for every dense and ssm leaf and for the hybrid's ``attn`` leaves,
-        and 2 for the hybrid's ``(G, PG, B, ...)`` ``mamba`` leaves."""
+        is 1 for every dense (MLA too) and ssm leaf and for the hybrid's
+        ``attn`` leaves, and 2 for the hybrid's ``(G, PG, B, ...)`` ``mamba``
+        leaves."""
         if self.cfg.family == "hybrid":
             return {"attn": {"k": 1, "v": 1}, "mamba": {"conv": 2, "ssm": 2}}
-        return {name: 1 for name in (("conv", "ssm") if self.cfg.family == "ssm" else ("k", "v"))}
+        if self.cfg.family == "ssm":
+            return {"conv": 1, "ssm": 1}
+        return {name: 1 for name in (("ckv", "krope") if self.cfg.mla is not None else ("k", "v"))}
 
 
 def _map(tree: dict, fn) -> dict:

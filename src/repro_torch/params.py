@@ -15,9 +15,11 @@ import numpy as np
 import torch
 
 # leaves the JAX init keeps in float32 whatever the model dtype: the norm
-# scales, the SSM's decay, skip, step-bias and gated-norm scale
-# (repro/models/mamba2.py:44-47), and the MoE router (repro/models/moe.py:32)
-FP32_LEAVES = ("scale", "q_norm", "k_norm", "A_log", "D", "dt_bias", "norm", "router")
+# scales (MLA's q_norm and kv_norm too, repro/models/mla.py:30, 34), the SSM's
+# decay, skip, step-bias and gated-norm scale (repro/models/mamba2.py:44-47),
+# and the MoE router (repro/models/moe.py:32)
+FP32_LEAVES = ("scale", "q_norm", "k_norm", "kv_norm", "A_log", "D", "dt_bias", "norm",
+               "router")
 
 
 def to_tensor(a, device="cuda") -> torch.Tensor:

@@ -1,6 +1,7 @@
 """KV-cache utilities: sizing, slot insertion for continuous batching.
 
-Port of ``repro.serving.kv_cache`` for the dense, MoE, SSM and hybrid families.
+Port of ``repro.serving.kv_cache`` for the dense (GQA or MLA), MoE, SSM and
+hybrid families.
 """
 from __future__ import annotations
 
@@ -17,8 +18,9 @@ def cache_bytes(cfg: ModelConfig, batch: int, seq_len: int) -> int:
     itemsize = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
     if cfg.family in ("dense", "moe"):
         if cfg.mla is not None:
-            raise NotImplementedError("cache_bytes: the MLA cache is not ported yet")
-        per_tok = 2 * cfg.n_kv_heads * cfg.hd
+            per_tok = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim
+        else:
+            per_tok = 2 * cfg.n_kv_heads * cfg.hd
         return cfg.n_layers * batch * seq_len * per_tok * itemsize
     if cfg.family not in ("ssm", "hybrid"):
         raise NotImplementedError(f"cache_bytes: family {cfg.family!r} is not ported yet")

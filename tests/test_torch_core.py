@@ -1,9 +1,12 @@
 """The port's fabric core (``repro_torch.core``): its msgpack codec against
 ``msgpack``, its serializer against the reference's (F1 repaired: torch
 tensors travel), the worker without JAX, the copied modules against the
-reference's text, and a twin of the quickstart over two endpoints with an
-endpoint kill."""
+reference's text, its exports against the reference's, flows of the workflow
+engine and the client helpers on both packages, and a twin of the quickstart
+over two endpoints with an endpoint kill."""
+import importlib
 import re
+import threading
 import time
 from pathlib import Path
 
@@ -193,7 +196,7 @@ def test_jax_jit_function_raises_at_build():
 COPIED = ["futures", "heartbeat", "memoization", "scheduler", "provider", "predictor",
           "fairness", "interchange", "batching", "auth", "warming", "datastore", "journal",
           "containers", "registry", "executor", "autoscaler", "endpoint", "forwarder",
-          "service"]
+          "service", "automation", "client"]
 _IMPORT = re.compile(r"^\s*(import\s|from\s+\S+\s+import\s)")
 
 
@@ -263,5 +266,150 @@ def test_quickstart_twin_endpoint_kill_fails_over():
         assert sorted(r["i"] for r in results) == list(range(10))
         assert svc.forwarder.failovers > 0
         assert svc.forwarder.stats()["endpoints"][ep_a.endpoint_id]["dead"]
+    finally:
+        svc.shutdown()
+
+
+# ------------------------------------------- automation and client (A2b)
+PACKAGES = ["repro.core", "repro_torch.core"]
+
+
+def test_core_exports_what_the_reference_exports():
+    ours, theirs = importlib.import_module("repro_torch.core"), importlib.import_module("repro.core")
+    public = {name for name in dir(theirs) if not name.startswith("_")}
+    assert public <= set(dir(ours))
+    for name in ("Flow", "Workflow", "WorkflowNode", "EventBus", "Trigger", "wait",
+                 "get_result"):
+        assert getattr(ours, name).__module__.startswith("repro_torch.core."), name
+    for name in ("ALL_COMPLETED", "ANY_COMPLETED", "ALWAYS"):
+        assert getattr(ours, name) == getattr(theirs, name), name
+
+
+def _flow_diamond(core, svc):
+    """A diamond DAG: the two siblings ride one TaskBatch frame."""
+    wf = core.Workflow([
+        core.WorkflowNode("src", svc.register_function(lambda d: {"v": d["v"]})),
+        core.WorkflowNode("left", svc.register_function(lambda x: {"v": x["v"] * 2}),
+                          deps=["src"]),
+        core.WorkflowNode("right", svc.register_function(lambda x: {"v": x["v"] + 1}),
+                          deps=["src"]),
+        core.WorkflowNode("join", svc.register_function(
+            lambda up: {"sum": up["left"]["v"] + up["right"]["v"]}), deps=["left", "right"]),
+    ], name="diamond")
+    run = wf.start(svc, {"v": 10})
+    out = run.wait(30)
+    stats = svc.forwarder.stats()
+    return {"out": out, "states": sorted(run.node_states.values()),
+            "batches": stats["batches_delivered"], "tasks": stats["tasks_delivered"]}
+
+
+def _flow_fanout_retry_skip(core, svc):
+    """Per-branch sinks, a node that fails once and is run again (by the
+    fabric's task retry or the node's max_attempts), and a failing node
+    skipped with its fallback."""
+    calls = {"n": 0}
+    lock = threading.Lock()
+
+    def flaky(x):
+        with lock:
+            calls["n"] += 1
+            if calls["n"] == 1:
+                raise RuntimeError("transient")
+        return x * 3
+
+    def broken(x):
+        raise ValueError("always")
+
+    wf = core.Workflow([
+        core.WorkflowNode("src", svc.register_function(lambda d: d["base"])),
+        core.WorkflowNode("x2", svc.register_function(lambda x: x * 2), deps=["src"]),
+        core.WorkflowNode("x3", svc.register_function(flaky), deps=["src"], max_attempts=2),
+        core.WorkflowNode("bad", svc.register_function(broken), deps=["src"],
+                          on_error="skip", fallback=-1),
+    ])
+    run = wf.start(svc, {"base": 7})
+    return {"out": run.wait(30), "state": run.state, "flaky_calls": calls["n"]}
+
+
+def _flow_linear_shim(core, svc):
+    """The linear Flow surface, a merge, then a failing flow."""
+    f1 = svc.register_function(lambda d: {"values": [v * 1.0 for v in d["raw"]]})
+    f2 = svc.register_function(lambda d: {"mean": sum(d["values"]) / len(d["values"])})
+    flow = core.Flow([core.ActionStep(f1, name="extract"),
+                      core.ActionStep(f2, name="reduce",
+                                      merge=lambda doc, result: dict(doc, **result))])
+    run = flow.start(svc, {"raw": list(range(10))})
+    result = core.Flow.wait(run, timeout=30)
+
+    def boom(doc):
+        raise ValueError("bad document")
+
+    bad = core.Flow([core.ActionStep(svc.register_function(boom), name="boom")])
+    bad_run = bad.start(svc, {"v": 1})
+    try:
+        core.Flow.wait(bad_run, timeout=30)
+        failed = None
+    except RuntimeError as exc:
+        failed = "flow failed" in str(exc)
+    return {"mean": result["mean"], "steps": [h["step"] for h in run.history],
+            "status": core.Flow.status(run)["state"], "failed": failed,
+            "bad_state": bad_run.state}
+
+
+def _flow_trigger(core, svc):
+    """An EventBus trigger starts one run per matching data-arrival event."""
+    fid = svc.register_function(lambda d: {"source": d["source"], "n": len(d["item"])})
+    bus = core.EventBus()
+    trig = bus.attach(core.Trigger(core.Workflow([core.WorkflowNode("analyze", fid)]), svc,
+                                   name="on-data", predicate=lambda e: e.source == "detector"))
+    bus.publish(core.DataArrivalEvent("other-site", item=[1]))
+    bus.publish(core.DataArrivalEvent("detector", item=[1, 2, 3]))
+    bus.publish(core.DataArrivalEvent("detector", item=[4, 5]))
+    outs = [r.wait(30) for r in trig.runs]
+    return {"outs": outs,
+            "fired": svc.metrics.snapshot()["counters"]["trigger.fired{trigger=on-data}"]}
+
+
+def _flow_client_wait(core, svc):
+    """wait / get_result over fabric futures from batch_run."""
+    fid = svc.register_function(lambda x: x + 1)
+    futs = svc.batch_run(fid, list(range(8)))
+    done, not_done = core.wait(futs, return_when=core.ALL_COMPLETED, timeout=30)
+    slow = svc.register_function(lambda d: (time.sleep(d["t"]), d["i"])[1])
+    racing = [svc.run(slow, {"t": 0.3, "i": 0}), svc.run(slow, {"t": 0.0, "i": 1})]
+    first, rest = core.wait(racing, return_when=core.ANY_COMPLETED, timeout=30)
+    return {"values": core.get_result(futs), "done": len(done), "not_done": len(not_done),
+            "any_completed": len(first) >= 1 and all(f.done() for f in first)
+            and len(first) + len(rest) == 2, "all": core.get_result(racing)}
+
+
+FLOWS = {
+    "diamond": (_flow_diamond, {"out": {"sum": 31}, "states": ["SUCCEEDED"] * 4,
+                                "batches": 3, "tasks": 4}),
+    "fanout-retry-skip": (_flow_fanout_retry_skip,
+                          {"out": {"x2": 14, "x3": 21, "bad": -1}, "state": "SUCCEEDED",
+                           "flaky_calls": 2}),
+    "linear-shim": (_flow_linear_shim, {"mean": 4.5, "steps": ["extract", "reduce"],
+                                        "status": "SUCCEEDED", "failed": True,
+                                        "bad_state": "FAILED"}),
+    "trigger": (_flow_trigger, {"outs": [{"source": "detector", "n": 3},
+                                         {"source": "detector", "n": 2}], "fired": 2}),
+    "client-wait": (_flow_client_wait, {"values": list(range(1, 9)), "done": 8, "not_done": 0,
+                                        "any_completed": True, "all": [0, 1]}),
+}
+
+
+@pytest.mark.parametrize("package", PACKAGES)
+@pytest.mark.parametrize("flow", list(FLOWS))
+def test_shared_flow_gives_the_same_result_on_both_packages(flow, package):
+    """Flows of tests/test_workflows.py and tests/test_client_api.py on the
+    reference's core and on the port's: each package's run gives the same
+    result."""
+    core = importlib.import_module(package)
+    svc = core.FunctionService()
+    svc.make_endpoint("wf-ep", n_executors=1, workers_per_executor=4)
+    try:
+        fn, want = FLOWS[flow]
+        assert fn(core, svc) == want
     finally:
         svc.shutdown()

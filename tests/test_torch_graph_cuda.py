@@ -23,7 +23,7 @@ from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
-ARCHS = ["qwen2-0.5b", "mamba2-2.7b", "zamba2-2.7b"]
+ARCHS = ["qwen2-0.5b", "mamba2-2.7b", "zamba2-2.7b", "minicpm3-4b"]
 
 
 @pytest.fixture

@@ -281,10 +281,71 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
         tkernel.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="multiple of 8"):
         tkernel.flash_attention(q[..., :12], k[..., :12], v[..., :12])
-    with pytest.raises(ValueError, match="dv == dqk"):
-        tkernel.flash_attention(q, k, v[..., :8].contiguous())
+    with pytest.raises(ValueError, match="the same \\(B, S, KV\\)"):
+        tkernel.flash_attention(q, k, v[:, :4].contiguous())
+    with pytest.raises(ValueError, match="the same head dim"):
+        tkernel.flash_attention(q, k[..., :8].contiguous(), v)
     with pytest.raises(ValueError, match="one query token"):
         tkernel.decode_attention(q, k, v, 3)
+    wide = _inputs(cuda_device, torch.float32, 3, (1, 8, 4, 136), (1, 8, 2, 136),
+                   (1, 8, 2, 264), (1, 1, 4, 296), (1, 8, 2, 296))
+    with pytest.raises(ValueError, match="dqk at most 128"):
+        tkernel.flash_attention(wide[0], wide[1], v)
+    with pytest.raises(ValueError, match="dv at most 256"):
+        tkernel.decode_attention(wide[3][..., :8].contiguous(), k[..., :8].contiguous(),
+                                 wide[2], 3)
+    with pytest.raises(ValueError, match="dqk at most 288"):
+        tkernel.decode_attention(wide[3], wide[4], v, 3)
+
+
+# ------------------------------------------------------------- MLA (dv != dqk)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [(1, 512, 40, 96, 64), (2, 100, 4, 24, 16), (1, 70, 4, 64, 128),
+                                   (1, 130, 6, 128, 64)],
+                         ids=["minicpm3-prefill", "reduced", "dv-wider", "two-slabs-to-one"])
+def test_flash_kernel_dv_differs_from_dqk(shape, dtype, cuda_device):
+    """MLA's expanded prefill: q and k of dqk, v and o of dv (minicpm3-4b:
+    40 heads, 64 + 32 against 64), causal and not, against the plain version;
+    every (QK slabs, PV slabs) pair of the bf16 kernel."""
+    B, S, H, dqk, dv = shape
+    tdt, tol = DTYPES[dtype]
+    q, k, v = _inputs(cuda_device, tdt, 30, (B, S, H, dqk), (B, S, H, dqk), (B, S, H, dv))
+    for causal in (True, False):
+        before = tkernel.LAUNCHES["flash_attention"]
+        out = tkernel.flash_attention(q, k, v, causal=causal, scale=dqk ** -0.5)
+        torch.cuda.synchronize()
+        assert tkernel.LAUNCHES["flash_attention"] == before + 1
+        assert out.shape == (B, S, H, dv)
+        torch.testing.assert_close(
+            out.float(), tref.mha_reference(q, k, v, causal=causal, scale=dqk ** -0.5).float(),
+            rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_decode_kernel_at_the_mla_shape(dtype, cuda_device):
+    """minicpm3-4b's absorbed decode: 8 slots of a 1024-long cache, 40 query
+    heads over one KV head, dqk 256 + 32 and dv 256 (v the latent part of the
+    same cache rows, as models/mla.py hands it over), mixed lengths with a row
+    of length 0 and a full row."""
+    B, S, H, dqk, dv = 8, 1024, 40, 288, 256
+    tdt, tol = DTYPES[dtype]
+    q, k_full = _inputs(cuda_device, tdt, 31, (B, 1, H, dqk), (B, S, 1, dqk))
+    v = k_full[..., :dv]                 # a view: row stride dqk
+    pos = torch.tensor([-1, 675, 555, 127, 128, 104, 137, S - 1], device=cuda_device)
+    before = tkernel.LAUNCHES["decode_attention"]
+    out = tkernel.decode_attention(q, k_full, v, pos, scale=96 ** -0.5)
+    torch.cuda.synchronize()
+    assert tkernel.LAUNCHES["decode_attention"] == before + 1
+    assert out.shape == (B, 1, H, dv)
+    want = tref.decode_attention_reference(q, k_full, v, pos, scale=96 ** -0.5)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    for p in (0, S - 1):                 # scalar positions
+        out = tkernel.decode_attention(q, k_full, v, p, scale=96 ** -0.5)
+        torch.testing.assert_close(
+            out.float(),
+            tref.decode_attention_reference(q, k_full, v, p, scale=96 ** -0.5).float(),
+            rtol=tol, atol=tol)
 
 
 SSD_DTYPES = {"float32": (torch.float32, 1e-4), "bfloat16": (torch.bfloat16, 5e-2)}

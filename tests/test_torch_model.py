@@ -1,4 +1,4 @@
-"""The port's dense, MoE, SSM and hybrid models against the JAX package's, on carried weights.
+"""The port's dense (GQA and MLA), MoE, SSM and hybrid models against the JAX package's, on carried weights.
 
 JAX ``Model.init`` parameters go through ``repro_torch.params`` into the
 port; both packages then run the same numpy batch (reduced configs, f32).
@@ -28,7 +28,7 @@ from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving.kv_cache import insert_sequence  # noqa: E402
 
 ARCHS = ("qwen2-0.5b", "qwen1.5-0.5b", "deepseek-67b", "mamba2-2.7b", "zamba2-2.7b",
-         "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b")
+         "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b", "minicpm3-4b")
 
 
 def _no_drop(cfg):
@@ -160,6 +160,12 @@ def test_state_dict_keys_and_shapes_are_the_jax_pytree(arch):
         assert ours["layers.ln.scale"] == (G, PG, cfg.d_model)
         assert ours["shared.attn.wq"] == (cfg.d_model, cfg.n_heads, cfg.hd)
         assert ours["shared.ln2.scale"] == (cfg.d_model,)
+    elif cfg.mla is not None:
+        m, L = cfg.mla, cfg.n_layers
+        assert ours["layers.attn.wuq"] == (L, m.q_lora_rank, cfg.n_heads,
+                                           m.qk_nope_dim + m.qk_rope_dim)
+        assert ours["layers.attn.wuv"] == (L, m.kv_lora_rank, cfg.n_heads, m.v_head_dim)
+        assert ours["layers.attn.kv_norm"] == (L, m.kv_lora_rank)
     else:
         assert ours["layers.attn.wq"] == (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.hd)
     if cfg.family == "moe":
@@ -257,7 +263,8 @@ def test_hybrid_prefill_cache_matches_jax_leaf_by_leaf(S):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b", "qwen2-0.5b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b", "qwen2-0.5b", "qwen2-moe-a2.7b",
+                                  "minicpm3-4b"])
 def test_init_cache_tree_and_batch_axes_are_the_jax_ones(arch):
     jmodel, _, model = _pair(arch)
     jcache, _ = jmodel.init_cache(3, 10)

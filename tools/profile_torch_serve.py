@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of the port's serve path goes on the card (torch.profiler).
 
-    python tools/profile_torch_serve.py [--arch qwen2-moe-a2.7b] [--eager] [--steps 20] \
+    python tools/profile_torch_serve.py [--arch minicpm3-4b] [--eager] [--steps 20] \
         [--trace out.json]
 
 Builds a full-width bf16 model (``--arch``: qwen2-0.5b by default,
-mamba2-2.7b, zamba2-2.7b or qwen2-moe-a2.7b; random weights, seed 0) and a ServeEngine
+mamba2-2.7b, zamba2-2.7b, qwen2-moe-a2.7b or minicpm3-4b; random weights,
+seed 0) and a ServeEngine
 (max_batch 8, max_len 1024; its decode step a CUDA graph replay, or eager with
 ``--eager``), fills its 8 slots with prompts of 64..512 tokens, then profiles
 two windows through the engine's own entry points: one admission (a prefill of
@@ -18,7 +19,10 @@ time, each with its rank, plus every kernel of the port wherever it ranks.
 For the MoE it also times the decode step's expert products alone (CUDA
 events, L2 flushed): every layer's three batched products over its 60
 experts at the step's capacity, as the step runs them, against the least
-time the card needs to read those weights. Needs one CUDA card.
+time the card needs to read those weights. For MLA (minicpm3-4b) it times
+the decode step's per-layer concatenation of the latent cache and its rope
+keys into the absorbed attention's keys (``k_full``, models/mla.py) alone,
+against the least time to read and write them. Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -125,10 +129,39 @@ def _expert_products(model: Model, n_tokens: int, reps: int = 20) -> None:
           f"{weight_bytes / HBM_BYTES_S * 1e3:.4f} ms at 3.35 TB/s")
 
 
+def _latent_concat(engine: ServeEngine, reps: int = 20) -> None:
+    """Median device time of a decode step's ``k_full`` copies alone: every
+    layer's ``torch.cat([ckv, krope], -1)`` over the engine's whole cache, as
+    models/mla.py runs it (CUDA events, L2 flushed)."""
+    ckv, krope = engine.cache["ckv"], engine.cache["krope"]
+
+    def chain():
+        for i in range(ckv.shape[0]):
+            torch.cat([ckv[i], krope[i]], dim=-1)
+
+    flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
+    chain()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(5_000_000)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        chain()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    moved = 2 * (ckv.numel() + krope.numel()) * ckv.element_size()
+    print(f"[k_full] a decode step's latent concatenations ({ckv.shape[0]} layers, cache "
+          f"{tuple(ckv.shape[1:])} + {tuple(krope.shape[1:])}): {np.median(times):.4f} ms "
+          f"(median of {reps}, L2 flushed); {moved / 1e6:.1f} MB read and written, "
+          f"{moved / HBM_BYTES_S * 1e3:.4f} ms at 3.35 TB/s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", choices=["qwen2-0.5b", "mamba2-2.7b", "zamba2-2.7b",
-                                       "qwen2-moe-a2.7b"],
+                                       "qwen2-moe-a2.7b", "minicpm3-4b"],
                     default="qwen2-0.5b")
     ap.add_argument("--eager", action="store_true",
                     help="profile the eager decode step (ServeEngine(cuda_graph=False))")
@@ -161,6 +194,8 @@ def main() -> int:
             args.trace)
     if cfg.family == "moe":
         _expert_products(model, engine.max_batch)
+    if cfg.mla is not None:
+        _latent_concat(engine)
     return 0
 
 
