@@ -18,9 +18,16 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      GQA hd 64, zamba2-2.7b MHA hd 80, qwen2-moe-a2.7b MHA 16/16
                      hd 128, minicpm3-4b's MLA: prefill 40 heads of dqk 96 and
                      dv 64, decode 40 heads over one KV head of dqk 288 and
-                     dv 256, with a row of length 0); time kernel, plain version
-                     and ``F.scaled_dot_product_attention`` (a yardstick only) there,
-                     and each SDPA backend that takes the shape.
+                     dv 256, with a row of length 0; whisper-small's non-causal
+                     flash calls: the encoder at Sq = Skv = 1500, cross-attention
+                     at prefill, 64 queries against 1500 keys, and at decode,
+                     Sq = 1 against 1500 keys at B = 8 with an all-zero (idle)
+                     slot, and its self decode at B = 8 over 448 positions);
+                     time kernel, plain version and
+                     ``F.scaled_dot_product_attention`` (a yardstick only) there,
+                     and each SDPA backend that takes the shape; beside the Sq = 1
+                     cross row, ``decode_attention`` at pos 1499 on the same
+                     tensors (the same function by the other kernel, timed only).
 4. kernels-rmsnorm  - hold the fused add + RMSNorm kernel against its plain
                      version at 1e-6 (f32) / 1e-2 (bf16) on the reference's sweep
                      and the slices' rows (d_model 896, 2560 and 2048, 512-token
@@ -127,10 +134,29 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      sessions of 32 tokens held to serve-mla's graphed streams
                      under the near-tie rule; then a fifth session refused by a
                      full host and admitted once a slot is released.
+21. slice-encdec    - the same as slice for full-width whisper-small (12 encoder
+                     and 12 decoder layers, d_model 768, MHA 12/12 hd 64, vocab
+                     51865), each prompt with its own random frames (1500 x 768,
+                     numpy seed 3), f32 and bf16, no cut.
+22. serve-encdec    - a graphed ServeEngine(max_batch=8, max_len=448: whisper's
+                     published text context) answers 16 requests of 4..64
+                     tokens, each with its own random frames, then an eager one
+                     answers the same 16, held as serve is; the counters must
+                     show flash attention exactly 36 times a prefill (12 encoder,
+                     12 causal self, 12 cross) and 12 a step (cross-attention,
+                     Sq = 1, captured in the graph), decode attention 12 a step,
+                     and no add + norm (LayerNorms) and no scan.
+23. fabric-encdec   - ``serve_model`` on one ``torch`` endpoint with a journal: 4
+                     sessions of 32 tokens, each with its frames (put once into
+                     an object store; each task carries their key), through the
+                     unbatched host, held to serve-encdec's graphed streams for
+                     the same prompts and frames under the near-tie rule.
+
+Each family's slice, serve and fabric phases print their wall time.
 
 Each serve and fabric phase resets the launch counters just before it submits
 its requests and reads them just after; a replay adds the calls its capture
-counted. The summary's ``launches`` of a kernel is its sum over the five
+counted. The summary's ``launches`` of a kernel is its sum over the six
 graphed serve runs and the fabric runs; the fabric phases together must have
 launched every kernel.
 
@@ -272,6 +298,25 @@ MLA_SCALE = 96 ** -0.5
 # ulp is 2^-5 at |logit| 4..8). Held: max|dlogit| within 16 such ulps, and
 # every top-1 disagreement a near-tie within that same margin.
 SLICE_MLA_BF16_TOL = 0.5
+
+ENCDEC_ARCH = "whisper-small"
+# its attention: MHA 12/12, hd 64, every flash call non-causal but the decoder's
+# own: the encoder over 1500 frames, cross-attention of a 64-token prompt and
+# of one decode token (8 slots) against the 1500 encoder keys; and the self
+# decode over 8 slots of a 448-position cache. (B, Sq, Skv, H, KV, hd)
+WHISPER_FLASH_SHAPES = {"encoder": (1, 1500, 1500, 12, 12, 64),
+                        "cross prefill": (1, 64, 1500, 12, 12, 64),
+                        "cross decode": (8, 1, 1500, 12, 12, 64)}
+WHISPER_DECODE_SHAPE = (8, 448, 12, 12, 64, 64)     # B, S, H, KV, dqk, dv
+WHISPER_MAX_LEN = 448                                # the published text context
+# bf16 slice of whisper-small: both paths round attention outputs to bf16 in
+# 12 encoder layers and twice in each of 12 decoder layers at prefill (36
+# rounding points, against qwen2's 24 and mamba2's 64), and the logits are
+# bf16 products (one ulp is 2^-5 at |logit| 4..8). Held as the mamba2 slice
+# is: max|dlogit| within 16 such ulps, and every top-1 disagreement a near-tie
+# within that same margin.
+SLICE_ENCDEC_BF16_TOL = 0.5
+FRAMES_SEED = 3
 
 
 def say(phase: str, msg: str) -> None:
@@ -439,6 +484,7 @@ def phase_kernels() -> dict:
     pos_mla = pos_np.copy()
     pos_mla[1] = -1                           # and a row of length 0
     _attn_slice_rows(gen, MLA_PREFILL_SHAPE, MLA_DECODE_SHAPE, pos_mla, MLA_ARCH, scale=MLA_SCALE)
+    _whisper_attn_rows(gen)
     return rows
 
 
@@ -531,6 +577,101 @@ def _attn_slice_rows(gen, prefill_shape, decode_shape, pos_np, arch, scale=None)
                    f"one per (head, row) = {H * B}; on "
                    f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     return rows
+
+
+def _idle_slot(*tensors) -> None:
+    """Row 0 of each (B, S, ...) tensor set to zeros: an engine slot no
+    request holds, whose cache admission never wrote."""
+    for t in tensors:
+        t[0].zero_()
+
+
+def _whisper_attn_rows(gen) -> None:
+    """whisper-small's attention calls against their plain versions, f32 and
+    bf16, each with a row of all-zero keys and values where the call reads a
+    slot of the engine's cache; timed in bf16 beside SDPA by backend. Beside
+    the Sq = 1 cross row, ``decode_attention`` at pos Skv - 1 on the same
+    tensors: the same function by the other kernel (a number for the roadmap,
+    not a switch)."""
+    arch = ENCDEC_ARCH
+    for what, (B, Sq, Skv, H, KV, hd) in WHISPER_FLASH_SHAPES.items():
+        idle = what == "cross decode"
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn(gen, (B, Sq, H, hd), dtype)
+            k, v = randn(gen, (B, Skv, KV, hd), dtype), randn(gen, (B, Skv, KV, hd), dtype)
+            if idle:
+                _idle_slot(k, v)
+            out = attn_kernel.flash_attention(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            exp = attn_ref.mha_reference(q, k, v, causal=False)
+            errs[dtype] = max_err(out, exp, TOL[dtype], f"{arch} flash {what} {dtype}")
+            if idle and not torch.equal(out[0], torch.zeros_like(out[0])):
+                raise AssertionError(f"{arch} flash {what} {dtype}: the idle slot's rows are "
+                                     "not zeros")
+        if idle:   # the same function by the decode kernel, on the same tensors
+            pos = torch.full((B,), Skv - 1, dtype=torch.int32, device=DEVICE)
+            dec = attn_kernel.decode_attention(q, k, v, pos)
+            torch.cuda.synchronize()
+            dec_err = max_err(dec, attn_ref.mha_reference(q, k, v, causal=False),
+                              TOL[torch.bfloat16], f"{arch} decode_attention as {what}")
+        io_bytes = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size()
+        flops = 2 * B * Sq * Skv * H * 2 * hd
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt)
+
+        t = dict(ms=cuda_ms(lambda: attn_kernel.flash_attention(q, k, v, causal=False)),
+                 plain=cuda_ms(lambda: attn_ref.mha_reference(q, k, v, causal=False)),
+                 sdpa=cuda_ms(sdpa), backends=_sdpa_backends(sdpa),
+                 bound=bound(io_bytes, flops, torch.bfloat16))
+        say("kernels", f"{arch} flash {what} q {(B, Sq, H, hd)} kv {(B, Skv, KV, hd)} "
+                       f"non-causal{' (row 0 an idle slot: zeros)' if idle else ''}: "
+                       f"max_abs_err {errs[torch.float32]:.3e} (f32), "
+                       f"{errs[torch.bfloat16]:.3e} (bf16); bf16 kernel {t['ms']:.4f} ms, plain "
+                       f"{t['plain']:.4f} ms, sdpa {t['sdpa']:.4f} ms (default dispatch; by "
+                       f"backend: {t['backends']}), bound {t['bound'][0]:.5f} ms by "
+                       f"{t['bound'][1]} ({flops / 1e9:.3f} GFLOP, {io_bytes / 1e6:.3f} MB)")
+        if idle:
+            dec_ms = cuda_ms(lambda: attn_kernel.decode_attention(q, k, v, pos))
+            say("kernels", f"{arch} the same {what} function by decode_attention (pos "
+                           f"{Skv - 1}, every key valid; timed only, the path calls flash as "
+                           f"the reference does): max_abs_err {dec_err:.3e} (bf16), kernel "
+                           f"{dec_ms:.4f} ms against flash's {t['ms']:.4f} ms")
+    # the decoder's self-attention decode over the 448-position cache
+    B, S, H, KV, dqk, dv = WHISPER_DECODE_SHAPE
+    pos_np = np.random.default_rng(5).integers(4, S - 1, B).astype(np.int32)
+    pos_np[0], pos_np[-1] = 0, S - 1      # an idle slot (zero cache, pos 0) and a full row
+    pos = torch.from_numpy(pos_np).to(DEVICE)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = randn(gen, (B, 1, H, dqk), dtype)
+        kc, vc = randn(gen, (B, S, KV, dqk), dtype), randn(gen, (B, S, KV, dv), dtype)
+        _idle_slot(kc, vc)
+        out = attn_kernel.decode_attention(q, kc, vc, pos)
+        torch.cuda.synchronize()
+        exp = attn_ref.decode_attention_reference(q, kc, vc, pos)
+        errs[dtype] = max_err(out, exp, TOL[dtype], f"{arch} self decode {dtype}")
+    lens = pos_np.astype(np.int64) + 1
+    d_bytes = (int(lens.sum()) * KV + B * H) * (dqk + dv) * q.element_size() + 4 * B
+    d_flops = 2 * int(lens.sum()) * H * (dqk + dv)
+    qt, kct, vct = (x.transpose(1, 2).contiguous() for x in (q, kc, vc))
+    mask = (torch.arange(S, device=DEVICE)[None, :] < pos[:, None] + 1)[:, None, None, :]
+
+    def sdpa_decode():
+        return F.scaled_dot_product_attention(qt, kct, vct, attn_mask=mask)
+
+    t = dict(ms=cuda_ms(lambda: attn_kernel.decode_attention(q, kc, vc, pos)),
+             plain=cuda_ms(lambda: attn_ref.decode_attention_reference(q, kc, vc, pos)),
+             sdpa=cuda_ms(sdpa_decode), backends=_sdpa_backends(sdpa_decode),
+             bound=bound(d_bytes, d_flops, torch.bfloat16))
+    say("kernels", f"{arch} self decode {WHISPER_DECODE_SHAPE} (pos {pos_np.tolist()}, row 0 "
+                   f"an idle slot): max_abs_err {errs[torch.float32]:.3e} (f32), "
+                   f"{errs[torch.bfloat16]:.3e} (bf16); bf16 kernel {t['ms']:.4f} ms, plain "
+                   f"{t['plain']:.4f} ms, sdpa {t['sdpa']:.4f} ms (default dispatch; by "
+                   f"backend: {t['backends']}), bound {t['bound'][0]:.5f} ms by "
+                   f"{t['bound'][1]} ({d_flops / 1e9:.4f} GFLOP, {d_bytes / 1e6:.3f} MB)")
 
 
 def _rms_case(gen, shape, dtype, eps=1e-6):
@@ -807,12 +948,17 @@ def _blit(cache: dict, seq_cache: dict) -> None:
             dst[tuple(slice(0, n) for n in src.shape)].copy_(src)
 
 
-def _teacher_forced(model: Model, tokens: np.ndarray, n_prefill: int) -> torch.Tensor:
+def _teacher_forced(model: Model, tokens: np.ndarray, n_prefill: int,
+                    frames=None) -> torch.Tensor:
     """Logits at the last prefill position and after each teacher-forced decode
-    step: (steps + 1, B, V)."""
+    step: (steps + 1, B, V). ``frames`` (B, enc_seq, d_model): the
+    encoder-decoder's input."""
     B, total = tokens.shape
     tok = torch.from_numpy(tokens).to(DEVICE)
-    logits, seq_cache = model.prefill({"tokens": tok[:, :n_prefill]})
+    batch = {"tokens": tok[:, :n_prefill]}
+    if frames is not None:
+        batch["frames"] = torch.from_numpy(frames).to(DEVICE)
+    logits, seq_cache = model.prefill(batch)
     cache = model.init_cache(B, total)
     _blit(cache, seq_cache)
     out = [logits]
@@ -821,6 +967,12 @@ def _teacher_forced(model: Model, tokens: np.ndarray, n_prefill: int) -> torch.T
         logits, cache = model.decode_step(tok[:, n_prefill + i:n_prefill + i + 1], cache, pos)
         out.append(logits)
     return torch.stack(out)
+
+
+def _random_frames(cfg, n: int, seed: int) -> np.ndarray:
+    """(n, enc_seq, d_model) f32 frames, standard normal from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((n, cfg.enc_seq, cfg.d_model)).astype(np.float32)
 
 
 class _RouteLog:
@@ -860,6 +1012,7 @@ def phase_slice(arch: str, tag: str, bf16_tol: float, f32_layers: int = 0) -> Mo
     B, n_prefill, steps = 4, 384, 16
     tokens = np.random.default_rng(1).integers(0, cfg.vocab, (B, n_prefill + steps))
     tokens = tokens.astype(np.int32)
+    frames = (_random_frames(cfg, B, FRAMES_SEED) if cfg.family == "encdec" else None)
     model = None
     for dtype in ("float32", "bfloat16"):
         del model
@@ -869,10 +1022,10 @@ def phase_slice(arch: str, tag: str, bf16_tol: float, f32_layers: int = 0) -> Mo
             torch.Generator(device=DEVICE).manual_seed(0))
         model.kernel_impl = "auto"
         with _RouteLog() as got_routes:
-            got = _teacher_forced(model, tokens, n_prefill)
+            got = _teacher_forced(model, tokens, n_prefill, frames)
         model.kernel_impl = "ref"
         with _RouteLog() as want_routes:
-            want = _teacher_forced(model, tokens, n_prefill)
+            want = _teacher_forced(model, tokens, n_prefill, frames)
         model.kernel_impl = "auto"
         if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
             raise AssertionError(f"{tag} {dtype}: non-finite logits")
@@ -920,9 +1073,9 @@ class _TimedEngine(ServeEngine):
 
 
 # device launches per wrapper call of the kernels a decode step runs
-# (decode_attention: the split-KV pass, then the combine); ssd and
-# flash_attention run only in prefill
-STEP_DEVICE_LAUNCHES = {"decode_attention": 2, "fused_add_rmsnorm": 1}
+# (decode_attention: the split-KV pass, then the combine; flash_attention,
+# the encoder-decoder's cross-attention, one); ssd runs only in prefill
+STEP_DEVICE_LAUNCHES = {"decode_attention": 2, "fused_add_rmsnorm": 1, "flash_attention": 1}
 
 
 def _port_kernel(name: str):
@@ -971,20 +1124,23 @@ def _graph_nodes(graph):
     return int(n.value) if err == 0 else None
 
 
-def _serve_run(model: Model, prompts, new_tokens: int, cuda_graph: bool) -> dict:
-    """One engine (max_batch 8, max_len 1024) serves `prompts`; the launch
-    counters are reset just before the requests are submitted and read just
-    after they are drained."""
+def _serve_run(model: Model, prompts, new_tokens: int, cuda_graph: bool, max_len: int = 1024,
+               frames=None) -> dict:
+    """One engine (max_batch 8, `max_len`) serves `prompts` (each with its
+    `frames` row, for the encoder-decoder); the launch counters are reset just
+    before the requests are submitted and read just after they are drained."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    engine = _TimedEngine(model, max_batch=8, max_len=1024, cuda_graph=cuda_graph)
+    engine = _TimedEngine(model, max_batch=8, max_len=max_len, cuda_graph=cuda_graph)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()     # the graph's pool stays reserved, not allocated
     for mod in KERNEL_MODULES:                 # the run starts here
         mod.reset_launches()
     t0 = time.monotonic()
-    reqs = [engine.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    reqs = [engine.submit(p, max_new_tokens=new_tokens,
+                          frames=None if frames is None else frames[i])
+            for i, p in enumerate(prompts)]
     engine.run_until_drained(timeout=900)
     wall = time.monotonic() - t0
     launches = {k: v for mod in KERNEL_MODULES for k, v in mod.LAUNCHES.items()}  # ... and here
@@ -994,11 +1150,12 @@ def _serve_run(model: Model, prompts, new_tokens: int, cuda_graph: bool) -> dict
 
 
 def _check_streams(model: Model, prompts, got, want, tol: float, tag: str,
-                   names=("graphed", "eager")) -> int:
+                   names=("graphed", "eager"), frames=None) -> int:
     """Two runs' token streams (lists of tokens), request by request: where
     they part, both tokens must be a near-tie, each within ``tol`` of the top
-    logit of an eager B = 1 prefill of the prompt and the common prefix.
-    Returns the number of requests whose streams part."""
+    logit of an eager B = 1 prefill of the prompt and the common prefix (over
+    the request's `frames` row, for the encoder-decoder). Returns the number
+    of requests whose streams part."""
     parted = 0
     for i, (p, g, e) in enumerate(zip(prompts, got, want)):
         j = next((j for j, (a, b) in enumerate(zip(g, e)) if a != b), None)
@@ -1006,8 +1163,11 @@ def _check_streams(model: Model, prompts, got, want, tol: float, tag: str,
             continue
         parted += 1
         seq = np.concatenate([np.asarray(p), np.asarray(g[:j])]).astype(np.int64)
+        batch = {"tokens": torch.from_numpy(seq[None]).to(DEVICE)}
+        if frames is not None:
+            batch["frames"] = torch.from_numpy(frames[i][None]).to(DEVICE)
         with torch.inference_mode():
-            logits, _ = model.prefill({"tokens": torch.from_numpy(seq[None]).to(DEVICE)})
+            logits, _ = model.prefill(batch)
         top = logits[0].max().item()
         gaps = [top - logits[0, t].item() for t in (g[j], e[j])]
         say(tag, f"request {i} parts at token {j}: {names[0]} {g[j]}, {names[1]} "
@@ -1022,6 +1182,12 @@ def _launch_floor(cfg, n_req: int, steps: int) -> dict:
     """The least calls of each kernel a serve run of `n_req` prefills and
     `steps` decode steps makes on this family's path."""
     L = cfg.n_layers
+    if cfg.family == "encdec":
+        # a prefill: the encoder's, the causal self and the cross flash calls
+        # in every layer; a step: cross-attention by flash (Sq = 1) and self
+        # decode attention in every decoder layer; LayerNorms, no add + norm
+        return {"flash_attention": n_req * (cfg.n_enc_layers + 2 * L) + steps * L,
+                "decode_attention": steps * L}
     if cfg.family == "ssm":
         # one scan per layer per prefill; decode is the plain one-token
         # recurrence (as in JAX) and launches no kernel of the repo
@@ -1042,7 +1208,10 @@ def phase_serve(model: Model, tag: str, bf16_tol: float) -> dict:
     this family's path, counted over the graphed run alone, the prompts, the
     graphed run's token streams and its summary, for the fabric phases."""
     cfg = model.cfg
-    n_req, new_tokens, max_batch, max_len = 16, 64, 8, 1024
+    encdec = cfg.family == "encdec"
+    n_req, new_tokens, max_batch = 16, 64, 8
+    # the encoder-decoder at whisper's published text context, short prompts
+    max_len, lo, hi = (WHISPER_MAX_LEN, 4, 64) if encdec else (1024, 64, 512)
     # warm-up through the same entry points (cuBLAS handles, allocator)
     warm = ServeEngine(model, max_batch=2, max_len=128)
     warm.submit(np.arange(16) % cfg.vocab, max_new_tokens=4)
@@ -1050,15 +1219,17 @@ def phase_serve(model: Model, tag: str, bf16_tol: float) -> dict:
     del warm
 
     rng = np.random.default_rng(2)
-    lens = rng.integers(64, 513, n_req)
+    lens = rng.integers(lo, hi + 1, n_req)
     prompts = [rng.integers(0, cfg.vocab, int(n)) for n in lens]
+    frames = _random_frames(cfg, n_req, FRAMES_SEED) if encdec else None
     say(tag, f"{cfg.name} bf16, {n_req} requests (prompts {lens.min()}..{lens.max()} "
-             f"tokens, {new_tokens} new each), max_batch {max_batch}, max_len {max_len}; "
+             f"tokens, {new_tokens} new each{', each with its own random frames' if encdec else ''}"
+             f"), max_batch {max_batch}, max_len {max_len}; "
              f"cache {kv_cache.summarize(cfg, max_batch, max_len)}")
 
     runs = {}
     for mode, cuda_graph in (("graphed", True), ("eager", False)):
-        run = runs[mode] = _serve_run(model, prompts, new_tokens, cuda_graph)
+        run = runs[mode] = _serve_run(model, prompts, new_tokens, cuda_graph, max_len, frames)
         engine, reqs, launches = run["engine"], run["reqs"], run["launches"]
         for r in reqs:
             if not r.done.is_set() or len(r.tokens) != new_tokens:
@@ -1071,6 +1242,8 @@ def phase_serve(model: Model, tag: str, bf16_tol: float) -> dict:
         if any(launches[k] < n for k, n in need.items()) or any(launches[k] != 0 for k in absent):
             raise AssertionError(f"{mode} launch counters {launches} do not meet {need}: the "
                                  "path skipped a kernel or ran another family's")
+        if encdec and any(launches[k] != n for k, n in need.items()):
+            raise AssertionError(f"{mode} launch counters {launches} are not exactly {need}")
         total = sum(len(r.tokens) for r in reqs)
         ttft = np.array([(r.first_token_at - r.submitted) * 1e3 for r in reqs])
         run["summary"] = dict(tokens_s=total / run["wall"], ttft_p50=np.percentile(ttft, 50),
@@ -1104,14 +1277,14 @@ def phase_serve(model: Model, tag: str, bf16_tol: float) -> dict:
         torch.cuda.empty_cache()
     graphed = [r.tokens for r in runs["graphed"]["reqs"]]
     eager = [r.tokens for r in runs["eager"]["reqs"]]
-    parted = _check_streams(model, prompts, graphed, eager, bf16_tol, tag)
+    parted = _check_streams(model, prompts, graphed, eager, bf16_tol, tag, frames=frames)
     say(tag, f"graphed and eager token streams: {n_req - parted} of {n_req} requests equal; "
              f"{parted} part, each at a near-tie within {bf16_tol:g}")
     launches = runs["graphed"]["launches"]
     return dict(launches={k: launches[k]
                           for k in _launch_floor(cfg, n_req, runs["graphed"]["steps"])},
                 prompts=prompts, streams=graphed, new_tokens=new_tokens,
-                direct=runs["graphed"]["summary"])
+                direct=runs["graphed"]["summary"], frames=frames, max_len=max_len)
 
 
 # ------------------------------------------------------------------ the fabric
@@ -1199,11 +1372,12 @@ def _counters(svc) -> dict:
     return dict(svc.metrics.snapshot()["counters"])
 
 
-def _fabric_users(client, prompts, new_tokens: int, kill=None) -> list:
-    """One client thread per prompt: a session streams `new_tokens` tokens
-    (``ServingClient.generate``'s loop, each step timed as the client sees
-    it). With ``kill``, every thread waits after its third step while
-    ``kill(sessions)`` runs. Returns one dict per session."""
+def _fabric_users(client, prompts, new_tokens: int, kill=None, frames=None) -> list:
+    """One client thread per prompt: a session (with its `frames` row, for
+    the encoder-decoder) streams `new_tokens` tokens (``ServingClient.
+    generate``'s loop, each step timed as the client sees it). With ``kill``,
+    every thread waits after its third step while ``kill(sessions)`` runs.
+    Returns one dict per session."""
     out = [None] * len(prompts)
     errors = []
     barrier = threading.Barrier(len(prompts) + 1) if kill else None
@@ -1211,7 +1385,8 @@ def _fabric_users(client, prompts, new_tokens: int, kill=None) -> list:
 
     def user(k):
         try:
-            with client.session(prompts[k], timeout=300) as s:
+            with client.session(prompts[k], timeout=300,
+                                frames=None if frames is None else frames[k]) as s:
                 sessions[k] = s
                 steps, t = [], time.perf_counter()
                 for j, _ in enumerate(s.stream(new_tokens, timeout=300)):
@@ -1273,16 +1448,17 @@ def _graph_step_ms(host, reps: int = 50) -> float:
 
 
 def _fabric_run(model: Model, run: str, prompts, new_tokens: int, n_endpoints: int,
-                kill: bool = False, fabric_mod=fabric, **serve_kw) -> dict:
+                kill: bool = False, fabric_mod=fabric, max_len: int = 1024, frames=None,
+                **serve_kw) -> dict:
     """One fabric run on a fresh journaled service, its hosts warmed first: a
-    client thread per prompt streams its session; with ``kill``, the endpoint
-    holding the first session is killed after every session's third step.
-    The launch counters are reset just before the sessions open and read
-    just after they close. Returns the run's numbers."""
+    client thread per prompt streams its session (with its `frames` row);
+    with ``kill``, the endpoint holding the first session is killed after
+    every session's third step. The launch counters are reset just before the
+    sessions open and read just after they close. Returns the run's numbers."""
     name = f"{model.cfg.name}-{run}"
     with tempfile.TemporaryDirectory() as journal_dir:
         svc, eps, client = _fabric_service(model, name, n_endpoints, journal_dir, fabric_mod,
-                                           max_len=1024, max_sessions=8, **serve_kw)
+                                           max_len=max_len, max_sessions=8, **serve_kw)
         by_id = {ep.endpoint_id: ep for ep in eps}
         killed = []
 
@@ -1297,7 +1473,8 @@ def _fabric_run(model: Model, run: str, prompts, new_tokens: int, n_endpoints: i
             torch.cuda.synchronize()
             _reset_launches()                   # the run starts here
             t0 = time.monotonic()
-            outs = _fabric_users(client, prompts, new_tokens, kill=kill_home if kill else None)
+            outs = _fabric_users(client, prompts, new_tokens, kill=kill_home if kill else None,
+                                 frames=frames)
             wall = time.monotonic() - t0
             launches = _launch_counts()          # ... and ends here
             after = _counters(svc)
@@ -1316,7 +1493,8 @@ def _fabric_run(model: Model, run: str, prompts, new_tokens: int, n_endpoints: i
 
 
 def _report_fabric_run(model: Model, tag: str, run: str, r: dict, prompts, want,
-                       new_tokens: int, tol: float, hold_streams: bool = True) -> None:
+                       new_tokens: int, tol: float, hold_streams: bool = True,
+                       frames=None) -> None:
     """Check one run (every session's tokens, the streams against `want`
     under the near-tie rule unless ``hold_streams`` is False, one affinity
     hit per decode task, no duplicate commitment in the journal, the kernels'
@@ -1330,7 +1508,7 @@ def _report_fabric_run(model: Model, tag: str, run: str, r: dict, prompts, want,
     streams, direct = [o["tokens"] for o in outs], [w[:new_tokens] for w in want]
     if hold_streams:
         parted = _check_streams(model, prompts, streams, direct, tol, f"{tag} {run}",
-                                names=("fabric", "direct"))
+                                names=("fabric", "direct"), frames=frames)
         held = f"each at a near-tie within {tol:g}"
     else:
         parted = sum(g != d for g, d in zip(streams, direct))
@@ -1526,6 +1704,24 @@ def phase_fabric_mla(model: Model, served: dict, tol: float) -> dict:
     return r["launches"]
 
 
+def phase_fabric_encdec(model: Model, served: dict, tol: float) -> dict:
+    """4 sessions of 32 tokens on one ``torch`` endpoint, each with its frames
+    (F9 repaired: put once into an object store, each task carrying their
+    key), through the unbatched host (encdec is not batched, as in the
+    reference), held to serve-encdec's graphed streams for the same prompts
+    and frames. Returns the run's launches."""
+    tag = "fabric-encdec"
+    prompts, want, frames = served["prompts"][:4], served["streams"][:4], served["frames"][:4]
+    r = _fabric_run(model, "unbatched", prompts, 32, 1, max_len=served["max_len"],
+                    frames=frames)
+    _report_fabric_run(model, tag, "unbatched", r, prompts, want, 32, tol, frames=frames)
+    if r["batching"] or not all(r["launches"][k] for k in ("flash_attention",
+                                                          "decode_attention")):
+        raise AssertionError(f"{tag}: batched host, or an attention kernel not launched: "
+                             f"{r['launches']}")
+    return r["launches"]
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -1537,10 +1733,16 @@ def main() -> int:
     for arch, tag, tol in ((ARCH, "", SLICE_BF16_TOL), (SSM_ARCH, "-ssm", SLICE_SSM_BF16_TOL),
                            (HYBRID_ARCH, "-hybrid", SLICE_HYBRID_BF16_TOL),
                            (MOE_ARCH, "-moe", SLICE_MOE_BF16_TOL),
-                           (MLA_ARCH, "-mla", SLICE_MLA_BF16_TOL)):
+                           (MLA_ARCH, "-mla", SLICE_MLA_BF16_TOL),
+                           (ENCDEC_ARCH, "-encdec", SLICE_ENCDEC_BF16_TOL)):
+        t0 = time.perf_counter()
         model = phase_slice(arch, "slice" + tag, tol,
                             f32_layers=MOE_F32_LAYERS if arch == MOE_ARCH else 0)
+        t1 = time.perf_counter()
+        say("slice" + tag, f"wall {t1 - t0:.1f} s")
         served = phase_serve(model, "serve" + tag, tol)
+        t2 = time.perf_counter()
+        say("serve" + tag, f"wall {t2 - t1:.1f} s")
         phase_launches = [served["launches"]]
         # the fabric phases reuse the served bf16 model before it is freed
         if arch == ARCH:
@@ -1552,6 +1754,10 @@ def main() -> int:
             phase_launches.append(phase_fabric_moe(model, served, tol))
         elif arch == MLA_ARCH:
             phase_launches.append(phase_fabric_mla(model, served, tol))
+        elif arch == ENCDEC_ARCH:
+            phase_launches.append(phase_fabric_encdec(model, served, tol))
+        if len(phase_launches) > 1:
+            say("fabric" + tag, f"wall {time.perf_counter() - t2:.1f} s")
         for i, counts in enumerate(phase_launches):
             for k, n in counts.items():
                 launches[k] += n

@@ -10,7 +10,8 @@ Requests enter as registered-function invocations (``generate``) through
 the function submits to a ``ServeEngine`` running in a serving thread (its
 decode step one CUDA graph replay on the card) and waits. The run reports
 TTFT and aggregate token throughput. Weights are random, drawn from a seeded
-``torch.Generator``.
+``torch.Generator``. An encoder-decoder arch (``whisper-small``) is served on
+zero frames, as the reference's driver serves it.
 """
 from __future__ import annotations
 

@@ -1,10 +1,9 @@
-"""GQA attention blocks: init + train/prefill/decode application.
+"""GQA attention blocks: init + train/prefill/decode/cross application.
 
-Port of ``repro.models.attention``. Both flavours funnel into
+Port of ``repro.models.attention``. Every flavour funnels into
 ``kernels.flash_attention.ops`` (the Hopper kernels on CUDA tensors, the plain
 version on CPU ones; ``impl`` forces either). Decode writes k/v into a
 caller-owned cache at position ``pos`` and attends over entries <= pos.
-``cross_attention`` comes with the encoder-decoder family.
 """
 from __future__ import annotations
 
@@ -112,3 +111,28 @@ def self_attention_decode(
     o = attn_ops.decode_attention(q, k_cache, v_cache, pos, impl=impl)
     out = _out(o, p["wo"])
     return out, (k_cache, v_cache)
+
+
+def cross_attention(
+    p,
+    x: torch.Tensor,                       # (B, Sq, D) decoder states
+    kv_source: Optional[torch.Tensor] = None,   # (B, Skv, D) encoder output
+    kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    cfg: Optional[ModelConfig] = None,
+    impl: str = "auto",
+):
+    """Whisper-style cross attention. Pass kv_source at prefill/train (k and v
+    computed and returned for caching); pass kv_cache, (B, Skv, KV, hd) each,
+    at decode. Both go through non-causal flash attention, as the reference
+    does: at decode that is Sq = 1 against every encoder key."""
+    q = _proj(x, p["wq"])
+    if cfg is not None and cfg.qkv_bias:
+        q = q + p["bq"]
+    if kv_cache is not None:
+        k, v = kv_cache
+    else:
+        k, v = _proj(kv_source, p["wk"]), _proj(kv_source, p["wv"])
+        if cfg is not None and cfg.qkv_bias:
+            k, v = k + p["bk"], v + p["bv"]
+    o = attn_ops.flash_attention(q, k, v, causal=False, impl=impl)
+    return _out(o, p["wo"]), (k, v)

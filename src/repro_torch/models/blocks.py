@@ -1,11 +1,13 @@
-"""Blocks of the dense, MoE and SSM families: init / train-apply / decode-apply / cache.
+"""Per-family blocks: init / train-apply / decode-apply / cache.
 
-Port of the dense, MoE and SSM parts of ``repro.models.blocks``: GQA attention
-(or, where the config has ``mla``, Multi-head Latent Attention, ``mla.py``)
-+ SwiGLU MLP (the moe family: + the routed-expert FFN, ``moe.moe_ffn``), and
-RMSNorm + Mamba2 mixer. A "layer" is the unit the model stack
-loops over (the hybrid family runs both). The JAX ``partition.shard_act``
-calls are dropped: the port runs on one device.
+Port of ``repro.models.blocks``: GQA attention (or, where the config has
+``mla``, Multi-head Latent Attention, ``mla.py``) + SwiGLU MLP (the moe
+family: + the routed-expert FFN, ``moe.moe_ffn``); RMSNorm + Mamba2 mixer;
+and the encoder-decoder family's encoder layer (non-causal self-attention +
+GELU MLP) and decoder layer (causal self-attention + cross-attention + GELU
+MLP), each norm a LayerNorm. A "layer" is the unit the model stack loops
+over (the hybrid family runs both of the first two). The JAX
+``partition.shard_act`` calls are dropped: the port runs on one device.
 
 The dense layer's residual add and second RMSNorm are one call,
 ``kernels.rmsnorm.ops.fused_add_rmsnorm`` (the Hopper kernel on CUDA tensors).
@@ -124,3 +126,69 @@ def ssm_layer_decode(p, h: torch.Tensor, state: dict, cfg: ModelConfig):
     hn = layers.rmsnorm(h, p["ln"], cfg.norm_eps)
     y, state = mamba2.mamba2_decode(p["mamba"], hn, state, cfg)
     return h + y, state
+
+
+# --------------------------------------------------------------------- encdec
+def init_encoder_layer(gen, cfg: ModelConfig, device, lead: Tuple[int, ...] = ()):
+    dt = layers.dtype_of(cfg)
+    return {
+        "attn": attention.init_attention(gen, cfg, device, lead),
+        "mlp": layers.init_gelu_mlp(gen, cfg.d_model, cfg.d_ff, dt, device, lead),
+        "ln1": layers.init_layernorm(cfg.d_model, device, lead),
+        "ln2": layers.init_layernorm(cfg.d_model, device, lead),
+    }
+
+
+def encoder_layer(p, h: torch.Tensor, cfg: ModelConfig, impl: str = "auto") -> torch.Tensor:
+    """LayerNorm -> non-causal self-attention (no positions) -> residual ->
+    LayerNorm -> GELU MLP -> residual."""
+    hn = layers.layernorm(h, p["ln1"], cfg.norm_eps)
+    a, _ = attention.self_attention(p["attn"], hn, cfg, positions=None, causal=False,
+                                    impl=impl)
+    h = h + a
+    hn = layers.layernorm(h, p["ln2"], cfg.norm_eps)
+    return h + layers.gelu_mlp(hn, p["mlp"])
+
+
+def init_cross_decoder_layer(gen, cfg: ModelConfig, device, lead: Tuple[int, ...] = ()):
+    dt = layers.dtype_of(cfg)
+    return {
+        "self": attention.init_attention(gen, cfg, device, lead),
+        "cross": attention.init_attention(gen, cfg, device, lead),
+        "mlp": layers.init_gelu_mlp(gen, cfg.d_model, cfg.d_ff, dt, device, lead),
+        "ln1": layers.init_layernorm(cfg.d_model, device, lead),
+        "ln2": layers.init_layernorm(cfg.d_model, device, lead),
+        "ln3": layers.init_layernorm(cfg.d_model, device, lead),
+    }
+
+
+def cross_decoder_layer(p, h: torch.Tensor, enc_out: torch.Tensor, cfg: ModelConfig,
+                        impl: str = "auto"):
+    """Train/prefill decoder layer. Returns (h, ((self_k, self_v), (cross_k, cross_v)))."""
+    hn = layers.layernorm(h, p["ln1"], cfg.norm_eps)
+    a, self_kv = attention.self_attention(p["self"], hn, cfg, positions=None, causal=True,
+                                          return_kv=True, impl=impl)
+    h = h + a
+    hn = layers.layernorm(h, p["ln2"], cfg.norm_eps)
+    c, cross_kv = attention.cross_attention(p["cross"], hn, kv_source=enc_out, cfg=cfg,
+                                            impl=impl)
+    h = h + c
+    hn = layers.layernorm(h, p["ln3"], cfg.norm_eps)
+    return h + layers.gelu_mlp(hn, p["mlp"]), (self_kv, cross_kv)
+
+
+def cross_decoder_layer_decode(p, h: torch.Tensor, cache: dict, pos: torch.Tensor,
+                               cfg: ModelConfig, impl: str = "auto"):
+    """One token. ``cache`` ({"k", "v", "cross_k", "cross_v"}) is updated in
+    place: k and v at ``pos``; the cross leaves are only read."""
+    hn = layers.layernorm(h, p["ln1"], cfg.norm_eps)
+    a, _ = attention.self_attention_decode(p["self"], hn, cache["k"], cache["v"], pos, cfg,
+                                           impl=impl)
+    h = h + a
+    hn = layers.layernorm(h, p["ln2"], cfg.norm_eps)
+    c, _ = attention.cross_attention(p["cross"], hn,
+                                     kv_cache=(cache["cross_k"], cache["cross_v"]), cfg=cfg,
+                                     impl=impl)
+    h = h + c
+    hn = layers.layernorm(h, p["ln3"], cfg.norm_eps)
+    return h + layers.gelu_mlp(hn, p["mlp"]), cache

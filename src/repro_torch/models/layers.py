@@ -1,4 +1,4 @@
-"""Shared model primitives (dense subset): norms, RoPE, SwiGLU, embeddings, logits.
+"""Shared model primitives: norms, RoPE, sinusoidal positions, MLPs, embeddings, logits.
 
 Port of ``repro.models.layers``. Every ``init_*`` takes an explicit
 ``torch.Generator`` and device, and returns a dict of tensors; ``lead`` is a
@@ -8,6 +8,7 @@ activations, fp32 norms/softmax/rope.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -39,7 +40,21 @@ def rmsnorm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-# -- rotary positions ------------------------------------------------------
+def init_layernorm(d: int, device, lead: Tuple[int, ...] = ()) -> Params:
+    return {"scale": torch.ones((*lead, d), dtype=torch.float32, device=device),
+            "bias": torch.zeros((*lead, d), dtype=torch.float32, device=device)}
+
+
+def layernorm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
+    """fp32 inside with the population variance, cast back to x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return y.to(x.dtype)
+
+
+# -- rotary / sinusoidal positions --------------------------------------------
 def rope_frequencies(dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
     return 1.0 / (theta ** exps)
@@ -58,6 +73,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed absolute positional embedding (n, d) in f32:
+    ``[sin | cos]`` of position x ``exp(-log(10000) / max(d/2 - 1, 1) * i)``.
+    Row i does not depend on n."""
+    half = d // 2
+    log_timescale = math.log(10000.0) / max(half - 1, 1)
+    inv = torch.exp(-log_timescale * torch.arange(half, dtype=torch.float32, device=device))
+    scaled = torch.arange(n, dtype=torch.float32, device=device)[:, None] * inv[None, :]
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=-1)
+
+
 # -- MLPs -------------------------------------------------------------------
 def init_swiglu(gen, d: int, f: int, dtype, device, lead: Tuple[int, ...] = ()) -> Params:
     return {
@@ -73,6 +99,23 @@ def swiglu(x: torch.Tensor, p: Params) -> torch.Tensor:
     # silu in fp32, cast back to the activation dtype before the product
     h = h * F.silu(g.float()).to(x.dtype)
     return h @ p["wo"]
+
+
+def init_gelu_mlp(gen, d: int, f: int, dtype, device, lead: Tuple[int, ...] = ()) -> Params:
+    return {
+        "wi": dense_init(gen, (*lead, d, f), d, dtype, device),
+        "bi": torch.zeros((*lead, f), dtype=dtype, device=device),
+        "wo": dense_init(gen, (*lead, f, d), f, dtype, device),
+        "bo": torch.zeros((*lead, d), dtype=dtype, device=device),
+    }
+
+
+def gelu_mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation, in fp32, cast back
+    to the activation dtype before the output product."""
+    h = x @ p["wi"] + p["bi"]
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return h @ p["wo"] + p["bo"]
 
 
 # -- embeddings ---------------------------------------------------------------

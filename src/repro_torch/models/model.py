@@ -1,4 +1,4 @@
-"""Model assembly for the dense (GQA or MLA), MoE, SSM and hybrid families: embedding + layer stack + head.
+"""Model assembly for every ported family: embedding + layer stack + head.
 
 Port of ``repro.models.model.Model``. The model is an ``nn.Module`` whose
 ``state_dict`` keys are the JAX parameter pytree paths joined by ``.``, with
@@ -7,7 +7,12 @@ JAX ``Model.init`` weights load through ``repro_torch.params`` unchanged. A
 Python loop over the stacked layer axis replaces ``lax.scan``. The hybrid
 family (zamba2) stacks its Mamba2 layers in G groups of PG
 (``layers.mamba.wx`` is ``(G, PG, D, d_inner)``) and holds one unstacked
-dense block, ``shared``, which runs before each group.
+dense block, ``shared``, which runs before each group. The encoder-decoder
+family (whisper) stacks its encoder layers under ``enc_layers`` and its
+decoder layers under ``layers``; ``enc_norm`` and ``final_norm`` are
+LayerNorms. Its batches carry ``frames`` (B, enc_seq, d_model), the audio
+front end's output, encoded once per prefill; sinusoidal positions are added
+to the frames and to the decoder's tokens.
 
 API (the JAX one without the ``params`` argument, which the module holds):
     init(generator)                      -> self (weights drawn in place)
@@ -19,7 +24,9 @@ API (the JAX one without the ``params`` argument, which the module holds):
                {"ckv": (L, B, S, kv_lora), "krope": (L, B, S, rope)};
         ssm    {"conv": (L, B, K-1, Cd) in the model dtype, "ssm": (L, B, H, P, N) f32};
         hybrid {"attn": {"k", "v"}: (G, B, S, KV, hd),
-                "mamba": {"conv": (G, PG, B, K-1, Cd), "ssm": (G, PG, B, H, P, N)}}
+                "mamba": {"conv": (G, PG, B, K-1, Cd), "ssm": (G, PG, B, H, P, N)}};
+        encdec {"k", "v"}: (L, B, S, KV, hd) and {"cross_k", "cross_v"}:
+               (L, B, enc_seq, KV, hd), the encoder's keys and values
     cache_batch_axes()                   -> the batch axis of each cache leaf
 """
 from __future__ import annotations
@@ -33,7 +40,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from . import blocks, layers, mamba2
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
 
 def _as_module(tree: dict, module: nn.Module) -> nn.Module:
@@ -92,6 +99,11 @@ class Model(nn.Module):
             self._shared = self.params["shared"]
         else:
             self._layer_params = [_index(stacked, i) for i in range(cfg.n_layers)]
+        if cfg.family == "encdec":
+            self._enc_layer_params = [_index(self.params["enc_layers"], i)
+                                      for i in range(cfg.n_enc_layers)]
+        # the decode step's sinusoidal tables, one per cache length (encdec)
+        self._pos_tables: Dict[int, torch.Tensor] = {}
 
     def _hybrid_groups(self) -> Tuple[int, int]:
         cfg = self.cfg
@@ -102,29 +114,41 @@ class Model(nn.Module):
         return cfg.n_layers // PG, PG
 
     # ================================================================ init
+    def _stacks(self) -> List[Tuple[str, object, Tuple[int, ...]]]:
+        """(name, per-layer init, stacked lead shape) of each layer stack."""
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            return [("layers", blocks.init_ssm_layer, self._hybrid_groups())]
+        if cfg.family == "ssm":
+            return [("layers", blocks.init_ssm_layer, (cfg.n_layers,))]
+        if cfg.family == "encdec":
+            return [("enc_layers", blocks.init_encoder_layer, (cfg.n_enc_layers,)),
+                    ("layers", blocks.init_cross_decoder_layer, (cfg.n_layers,))]
+        return [("layers", blocks.init_decoder_layer, (cfg.n_layers,))]
+
     def _parts(self, gen, device, per_layer: bool) -> Iterator[Tuple[tuple, Dict]]:
         """Yield the weight tree's parts in draw order, each drawn when it is
         asked for: (("embed",), tree), the unembedding, the final norm, then
-        the layers: one part stacked on ``lead`` (``per_layer`` False), or one
-        (("layers", index), tree) per layer; the hybrid's shared block last."""
+        each layer stack: one part stacked on its lead shape (``per_layer``
+        False), or one ((name, index), tree) per layer; the hybrid's shared
+        block and the encoder-decoder's encoder norm last."""
         cfg = self.cfg
         dt = layers.dtype_of(cfg)
         yield ("embed",), layers.init_embedding(gen, cfg.vocab, cfg.d_model, dt, device)
         if not cfg.tie_embeddings:
             yield ("unembed",), layers.init_unembed(gen, cfg.vocab, cfg.d_model, dt, device)
-        yield ("final_norm",), layers.init_rmsnorm(cfg.d_model, device)
-        if cfg.family == "hybrid":
-            init_layer, lead = blocks.init_ssm_layer, self._hybrid_groups()
-        else:
-            init_layer = blocks.init_ssm_layer if cfg.family == "ssm" else blocks.init_decoder_layer
-            lead = (cfg.n_layers,)
-        if per_layer:
-            for index in itertools.product(*map(range, lead)):
-                yield ("layers", index), init_layer(gen, cfg, device)
-        else:
-            yield ("layers",), init_layer(gen, cfg, device, lead=lead)
+        norm = layers.init_layernorm if cfg.family == "encdec" else layers.init_rmsnorm
+        yield ("final_norm",), norm(cfg.d_model, device)
+        for name, init_layer, lead in self._stacks():
+            if per_layer:
+                for index in itertools.product(*map(range, lead)):
+                    yield (name, index), init_layer(gen, cfg, device)
+            else:
+                yield (name,), init_layer(gen, cfg, device, lead=lead)
         if cfg.family == "hybrid":
             yield ("shared",), blocks.init_decoder_layer(gen, cfg, device)
+        if cfg.family == "encdec":
+            yield ("enc_norm",), layers.init_layernorm(cfg.d_model, device)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
@@ -150,13 +174,45 @@ class Model(nn.Module):
     # ============================================================ embedding
     def _embed_inputs(self, batch) -> torch.Tensor:
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        return layers.embed(tokens, self.params["embed"])
+        h = layers.embed(tokens, self.params["embed"])
+        if self.cfg.family == "encdec":
+            pos = layers.sinusoidal_positions(h.shape[1], self.cfg.d_model, self.device)
+            h = h + pos.to(h.dtype)[None]
+        return h
+
+    def _encode(self, batch) -> torch.Tensor:
+        """The encoder over ``batch["frames"]`` (B, enc_seq, d_model): the
+        frames cast to the model dtype plus the sinusoidal table, the encoder
+        layers, then ``enc_norm``."""
+        cfg = self.cfg
+        frames = torch.as_tensor(batch["frames"], device=self.device).to(layers.dtype_of(cfg))
+        pos = layers.sinusoidal_positions(frames.shape[1], cfg.d_model, self.device)
+        h = frames + pos.to(frames.dtype)[None]
+        for lp in self._enc_layer_params:
+            h = blocks.encoder_layer(lp, h, cfg, self.kernel_impl)
+        return layers.layernorm(h, self.params["enc_norm"], cfg.norm_eps)
+
+    def _final_norm(self, h: torch.Tensor) -> torch.Tensor:
+        norm = layers.layernorm if self.cfg.family == "encdec" else layers.rmsnorm
+        return norm(h, self.params["final_norm"], self.cfg.norm_eps)
+
+    def _decode_positions(self, cache_len: int) -> torch.Tensor:
+        """The sinusoidal table of a cache of ``cache_len`` positions in the
+        model dtype (the reference's ``sinusoidal_positions(cache_len_of(cache),
+        d)`` cast as its decode step casts it), built once per length by
+        ``init_cache``, outside a captured step, and only indexed by it."""
+        table = self._pos_tables.get(cache_len)
+        if table is None:
+            table = layers.sinusoidal_positions(cache_len, self.cfg.d_model, self.device)
+            table = self._pos_tables[cache_len] = table.to(layers.dtype_of(self.cfg))
+        return table
 
     # ============================================================== forward
-    def _layers(self, h: torch.Tensor, return_state: bool
+    def _layers(self, h: torch.Tensor, return_state: bool, enc: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
-        """The layer stack over a full sequence. Returns (h, the sum of the
-        layers' aux losses (an fp32 tensor for the moe family, else 0.0), and with
+        """The layer stack over a full sequence (``enc``: the encoder's output,
+        for the encoder-decoder family). Returns (h, the sum of the layers' aux
+        losses (an fp32 tensor for the moe family, else 0.0), and with
         ``return_state`` the prefill cache, stacked as ``init_cache`` stacks
         it (batch and sequence from ``h``), else None)."""
         cfg, impl = self.cfg, self.kernel_impl
@@ -172,6 +228,11 @@ class Model(nn.Module):
                     states.append(state)
                 if return_state:
                     per_layer.append({"attn": {"k": k, "v": v}, "mamba": _stack(states)})
+        elif cfg.family == "encdec":
+            for lp in self._layer_params:
+                h, ((k, v), (ck, cv)) = blocks.cross_decoder_layer(lp, h, enc, cfg, impl)
+                if return_state:
+                    per_layer.append({"k": k, "v": v, "cross_k": ck, "cross_v": cv})
         else:
             for lp in self._layer_params:
                 if cfg.family == "ssm":
@@ -185,6 +246,9 @@ class Model(nn.Module):
                     per_layer.append(state)
         return h, aux, (_stack(per_layer) if return_state else None)
 
+    def _encoder_output(self, batch) -> Optional[torch.Tensor]:
+        return self._encode(batch) if self.cfg.family == "encdec" else None
+
     def _pack_kv(self, kv: tuple) -> dict:
         """A dense layer's prefill cache as its decode-cache leaves."""
         names = ("ckv", "krope") if self.cfg.mla is not None else ("k", "v")
@@ -193,8 +257,9 @@ class Model(nn.Module):
     def forward(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward. Returns (hidden_states, aux_loss): the sum
         of the layers' load-balance losses for the moe family, else zero."""
-        h, aux, _ = self._layers(self._embed_inputs(batch), return_state=False)
-        h = layers.rmsnorm(h, self.params["final_norm"], self.cfg.norm_eps)
+        h, aux, _ = self._layers(self._embed_inputs(batch), return_state=False,
+                                 enc=self._encoder_output(batch))
+        h = self._final_norm(h)
         return h, torch.as_tensor(aux, dtype=torch.float32, device=self.device)
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
@@ -204,9 +269,11 @@ class Model(nn.Module):
     # ============================================================== prefill
     def prefill(self, batch) -> Tuple[torch.Tensor, dict]:
         """Run the full prompt, return (last-position logits (B, V), cache
-        stacked as ``init_cache`` stacks it, at the prompt's length)."""
-        h, _, cache = self._layers(self._embed_inputs(batch), return_state=True)
-        h = layers.rmsnorm(h, self.params["final_norm"], self.cfg.norm_eps)
+        stacked as ``init_cache`` stacks it, at the prompt's length; the
+        encoder-decoder's cross leaves at the frames' length)."""
+        h, _, cache = self._layers(self._embed_inputs(batch), return_state=True,
+                                   enc=self._encoder_output(batch))
+        h = self._final_norm(h)
         logits = self._logits(h[:, -1:])[:, 0]
         return logits, cache
 
@@ -218,6 +285,11 @@ class Model(nn.Module):
         cfg = self.cfg
         pos = torch.as_tensor(pos, device=self.device)
         h = layers.embed(torch.as_tensor(token, device=self.device), self.params["embed"])
+        if cfg.family == "encdec":
+            # the sinusoidal row at pos, from the table of the cache's length
+            rows = self._decode_positions(cache["k"].shape[2]).index_select(
+                0, pos.reshape(-1).long())
+            h = h + (rows[:, None] if pos.ndim == 1 else rows[None])
         # each layer gets views of its slices of the stacked cache, updated in place
         if cfg.family == "hybrid":
             for g, group in enumerate(self._layer_params):
@@ -231,9 +303,12 @@ class Model(nn.Module):
                 lc = _index(cache, i)
                 if cfg.family == "ssm":
                     h, _ = blocks.ssm_layer_decode(lp, h, lc, cfg)
+                elif cfg.family == "encdec":
+                    h, _ = blocks.cross_decoder_layer_decode(lp, h, lc, pos, cfg,
+                                                             self.kernel_impl)
                 else:
                     h, _ = blocks.decoder_layer_decode(lp, h, lc, pos, cfg, self.kernel_impl)
-        h = layers.rmsnorm(h, self.params["final_norm"], cfg.norm_eps)
+        h = self._final_norm(h)
         return self._logits(h)[:, 0], cache
 
     # ================================================================ cache
@@ -250,14 +325,23 @@ class Model(nn.Module):
         lead = (cfg.n_layers,)
         if cfg.family == "ssm":
             return mamba2.init_decode_state(cfg, batch, self.device, lead=lead)
-        return blocks.init_decoder_cache(cfg, batch, cache_len, self.device, lead=lead)
+        cache = blocks.init_decoder_cache(cfg, batch, cache_len, self.device, lead=lead)
+        if cfg.family == "encdec":
+            shape = (*lead, batch, cfg.enc_seq, cfg.n_kv_heads, cfg.hd)
+            dt = layers.dtype_of(cfg)
+            cache["cross_k"] = torch.zeros(shape, dtype=dt, device=self.device)
+            cache["cross_v"] = torch.zeros(shape, dtype=dt, device=self.device)
+            self._decode_positions(cache_len)
+        return cache
 
     def cache_batch_axes(self) -> dict:
         """The batch axis of each leaf of ``init_cache``'s tree, for
         ``kv_cache.insert_sequence``: it follows the stacked layer axes, so it
-        is 1 for every dense (MLA too) and ssm leaf and for the hybrid's
-        ``attn`` leaves, and 2 for the hybrid's ``(G, PG, B, ...)`` ``mamba``
-        leaves."""
+        is 1 for every dense (MLA too), ssm and encoder-decoder leaf and for
+        the hybrid's ``attn`` leaves, and 2 for the hybrid's ``(G, PG, B,
+        ...)`` ``mamba`` leaves."""
+        if self.cfg.family == "encdec":
+            return {"k": 1, "v": 1, "cross_k": 1, "cross_v": 1}
         if self.cfg.family == "hybrid":
             return {"attn": {"k": 1, "v": 1}, "mamba": {"conv": 2, "ssm": 2}}
         if self.cfg.family == "ssm":

@@ -17,9 +17,11 @@ import torch
 # leaves the JAX init keeps in float32 whatever the model dtype: the norm
 # scales (MLA's q_norm and kv_norm too, repro/models/mla.py:30, 34), the SSM's
 # decay, skip, step-bias and gated-norm scale (repro/models/mamba2.py:44-47),
-# and the MoE router (repro/models/moe.py:32)
+# the MoE router (repro/models/moe.py:32), and a LayerNorm's bias
+# (repro/models/layers.py:44; the MLP's biases are bi / bo, the attention's
+# bq / bk / bv)
 FP32_LEAVES = ("scale", "q_norm", "k_norm", "kv_norm", "A_log", "D", "dt_bias", "norm",
-               "router")
+               "router", "bias")
 
 
 def to_tensor(a, device="cuda") -> torch.Tensor:

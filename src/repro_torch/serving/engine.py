@@ -12,6 +12,12 @@ engine captures ``Model.decode_step`` and the greedy ``argmax`` once, at
 construction, over static token, position and sampled-token buffers and its
 own cache, and each step replays it. Prefill stays eager (its length varies).
 On the CPU the same step runs eagerly.
+
+An encoder-decoder request carries its audio frames, (enc_seq, d_model), and
+its prefill encodes them (zeros when none are given). The reference prefills
+every encoder-decoder request on zero frames (fault F9). The captured step
+reads each slot's cross keys and values from the engine's cache, where
+admission writes them.
 """
 from __future__ import annotations
 
@@ -103,6 +109,31 @@ class DecodeGraph:
                 mod.LAUNCHES[name] += self.launches.get(name, 0)
 
 
+def check_frames(cfg: ModelConfig, frames) -> None:
+    """Frames go with encoder-decoder requests only, shaped (enc_seq, d_model)."""
+    if frames is None:
+        return
+    if cfg.family != "encdec":
+        raise ValueError(f"{cfg.name} ({cfg.family}) takes no frames; only the "
+                         "encoder-decoder family does")
+    if tuple(frames.shape) != (cfg.enc_seq, cfg.d_model):
+        raise ValueError(f"{cfg.name}: frames must be (enc_seq, d_model) = "
+                         f"({cfg.enc_seq}, {cfg.d_model}), got {tuple(frames.shape)}")
+
+
+def prefill_batch(model: Model, prompt: np.ndarray, frames=None) -> dict:
+    """One request's B = 1 prefill batch on the model's device: its tokens
+    and, for the encoder-decoder family, its frames (zeros when None)."""
+    batch = {"tokens": torch.from_numpy(np.asarray(prompt, np.int32)[None, :]).to(model.device)}
+    cfg = model.cfg
+    if cfg.family == "encdec":
+        if frames is None:
+            batch["frames"] = torch.zeros((1, cfg.enc_seq, cfg.d_model), device=model.device)
+        else:
+            batch["frames"] = torch.as_tensor(frames, device=model.device)[None]
+    return batch
+
+
 def zero_cache(tree: dict) -> None:
     for leaf in tree.values():
         if isinstance(leaf, dict):
@@ -116,6 +147,7 @@ class Request:
     prompt: np.ndarray                 # (S,) int32
     max_new_tokens: int = 16
     eos_id: int = -1                   # -1: never stops early
+    frames: Optional[object] = None    # encdec: (enc_seq, d_model) array or tensor
     request_id: str = field(default_factory=lambda: uuid.uuid4().hex[:8])
     # outputs
     tokens: List[int] = field(default_factory=list)
@@ -172,14 +204,20 @@ class ServeEngine:
                 zero_cache(self.cache)
 
     # -- client API -------------------------------------------------------
-    def submit(self, prompt, max_new_tokens: int = 16, eos_id: int = -1) -> Request:
-        req = Request(np.asarray(prompt, np.int32), max_new_tokens, eos_id)
+    def submit(self, prompt, max_new_tokens: int = 16, eos_id: int = -1,
+               frames=None) -> Request:
+        """Queue a request. ``frames`` (encoder-decoder family only): the
+        audio front end's output, (enc_seq, d_model), numpy or a tensor;
+        None prefills on zeros, as the reference does."""
+        check_frames(self.cfg, frames)
+        req = Request(np.asarray(prompt, np.int32), max_new_tokens, eos_id, frames)
         with self._lock:
             self.pending.append(req)
         return req
 
-    def generate(self, prompt, max_new_tokens: int = 16, timeout: float = 120.0) -> List[int]:
-        req = self.submit(prompt, max_new_tokens)
+    def generate(self, prompt, max_new_tokens: int = 16, timeout: float = 120.0,
+                 frames=None) -> List[int]:
+        req = self.submit(prompt, max_new_tokens, frames=frames)
         if not self._alive:
             self.run_until_drained()
         if not req.done.wait(timeout):
@@ -194,8 +232,8 @@ class ServeEngine:
                 if self.slot_req[slot] is not None or not self.pending:
                     continue
                 req = self.pending.pop(0)
-                tokens = torch.from_numpy(req.prompt[None, :]).to(self.device)
-                logits, seq_cache = self.model.prefill({"tokens": tokens})
+                batch = prefill_batch(self.model, req.prompt, req.frames)
+                logits, seq_cache = self.model.prefill(batch)
                 first = int(torch.argmax(logits[0]))
                 kv_cache.insert_sequence(self.cache, seq_cache, slot, self.batch_axes)
                 req.tokens.append(first)

@@ -42,6 +42,15 @@ What differs from the reference:
   positions with the prefill cache inserted into it. The reference keeps the
   prefill cache at the prompt's length, so its decode writes fall outside it.
   Unbatched steps are eager.
+- An encoder-decoder session carries its audio frames (fault F9: the
+  reference prefills every such session on zero frames). The client packs
+  them once into an object store (the service's ``datastore`` when it has
+  one, else the client's own ``InMemoryStore``) and every prefill and decode
+  task carries only their content key and the store's id, as plain strings:
+  a decode task does not carry the frames' bytes, and the worker resolves no
+  ``DataRef`` a step. A host fetches the frames only when it prefills, so a
+  session that migrates re-prefills with its own frames. Encoder-decoder
+  hosts are unbatched, as in the reference.
 - Hosts are built lazily by whichever worker runs a model's first task, so
   two endpoints may capture, prefill and step at once. A graph capture fails
   if another thread launches work on the card meanwhile, so one process-wide
@@ -59,10 +68,12 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import serializer
 from ..core.containers import ResourceSpec
+from ..core.datastore import InMemoryStore, get_store
 from ..models.model import Model
 from . import kv_cache
-from .engine import DecodeGraph, zero_cache
+from .engine import DecodeGraph, check_frames, prefill_batch, zero_cache
 
 # Families whose decode state is positionally idempotent: re-running a step
 # for a slot at an unchanged position rewrites the same K/V rows with the
@@ -275,11 +286,16 @@ class ModelHost:
             self.metrics.counter(name).inc(n)
 
     # -- session lifecycle -------------------------------------------------
-    def prefill(self, session: str, tokens) -> int:
+    def prefill(self, session: str, tokens, frames=None) -> int:
         """Open (or rebuild) `session` from its full token history; returns
         the next predicted token. Raises CacheAdmissionError when every slot
-        under the cache_bytes budget is taken."""
+        under the cache_bytes budget is taken. ``frames`` (encoder-decoder
+        family): (enc_seq, d_model), or a callable that fetches them; None
+        prefills on zeros."""
         tokens = np.asarray(tokens, np.int32)
+        if callable(frames):
+            frames = frames()
+        check_frames(self.cfg, frames)
         if len(tokens) >= self.max_len:
             raise ValueError(
                 f"session {session}: {len(tokens)} tokens >= max_len {self.max_len}"
@@ -298,8 +314,7 @@ class ModelHost:
             slot = self._free.pop()
         # lock order: _DEVICE_LOCK, then the host's lock (see _DEVICE_LOCK)
         with _DEVICE_LOCK, torch.inference_mode():
-            batch = {"tokens": torch.from_numpy(tokens[None, :]).to(self.device)}
-            logits, seq_cache = self.model.prefill(batch)
+            logits, seq_cache = self.model.prefill(prefill_batch(self.model, tokens, frames))
             first = int(torch.argmax(logits[0]))
             if not self.batching:
                 # a private cache of max_len positions: the decode steps
@@ -323,19 +338,20 @@ class ModelHost:
             self.metrics.gauge("serving.sessions_active").set(n_active)
         return first
 
-    def decode(self, session: str, tokens) -> Tuple[int, bool]:
+    def decode(self, session: str, tokens, frames=None) -> Tuple[int, bool]:
         """One decode step for `session`; returns ``(next_token, migrated)``.
 
         A hit (`serving.affinity_hits`) runs against the resident cache slot;
         a miss means the session's home died and sticky routing moved it here
-        — the cache is rebuilt from the full token history (`tokens`), which
-        is the explicit re-prefill migration path.
+        — the cache is rebuilt from the full token history (`tokens`) and
+        the session's `frames` (as ``prefill`` takes them; a callable is
+        called only here), which is the explicit re-prefill migration path.
         """
         with self._lock:
             st = self.sessions.get(session)
         if st is None:
             self._count("serving.cache_migrations")
-            return self.prefill(session, tokens), True
+            return self.prefill(session, tokens, frames), True
         self._count("serving.affinity_hits")
         if self.batching:
             nxt = self.coalescer.submit(st.slot)
@@ -459,17 +475,27 @@ def reset_serving() -> None:
         _SPECS.clear()
 
 
+def _frames_loader(doc) -> Optional[Callable[[], np.ndarray]]:
+    """A task's frames as a fetch the host calls only when it prefills: the
+    packed array under ``doc["frames"]`` (a content key) in the object store
+    ``doc["frames_store"]``; None when the task names no frames."""
+    key = doc.get("frames")
+    if key is None:
+        return None
+    return lambda: serializer.unpackb(get_store(doc["frames_store"]).get(key))
+
+
 # the three serving functions: module-level so registration is idempotent
 # (same content hash) no matter how many models/services register them
 def _serve_prefill(doc, site):
     host = _host_for(site, doc["model"])
-    token = host.prefill(doc["session"], doc["tokens"])
+    token = host.prefill(doc["session"], doc["tokens"], _frames_loader(doc))
     return {"token": token, "endpoint": site.endpoint_id, "migrated": False}
 
 
 def _serve_decode(doc, site):
     host = _host_for(site, doc["model"])
-    token, migrated = host.decode(doc["session"], doc["tokens"])
+    token, migrated = host.decode(doc["session"], doc["tokens"], _frames_loader(doc))
     return {"token": token, "endpoint": site.endpoint_id, "migrated": migrated}
 
 
@@ -540,9 +566,10 @@ class ServeSession:
 
     def __init__(self, client: "ServingClient", session_id: str,
                  history: List[int], first_token: int, endpoint: str,
-                 ttft_s: float):
+                 ttft_s: float, frames_ref: Optional[Dict[str, str]] = None):
         self._client = client
         self.session_id = session_id
+        self.frames_ref = frames_ref or {}   # {"frames": key, "frames_store": id}
         self.history = history          # prompt + every generated token
         self.tokens = [first_token]     # generated tokens only
         self.endpoints = [endpoint]     # serving endpoint per step
@@ -551,11 +578,12 @@ class ServeSession:
         self.closed = False
 
     def step(self, timeout: float = 60.0) -> int:
-        """One decode step (one fabric task). The full token history rides
-        along so a failed-over session can re-prefill on its new endpoint."""
+        """One decode step (one fabric task). The full token history and the
+        frames' key ride along so a failed-over session can re-prefill on its
+        new endpoint."""
         out = self._client._call(
             "decode",
-            {"session": self.session_id, "tokens": list(self.history)},
+            {"session": self.session_id, "tokens": list(self.history), **self.frames_ref},
             session_id=self.session_id,
             timeout=timeout,
         )
@@ -590,6 +618,7 @@ class ServeSession:
             sessions = getattr(self._client.service.forwarder, "sessions", None)
             if sessions is not None:
                 sessions.forget(self.session_id)
+            self._client._drop_frames(self.frames_ref)
 
     def __enter__(self) -> "ServeSession":
         return self
@@ -609,6 +638,40 @@ class ServingClient:
         self.fids = fids
         self.max_len = max_len
         self.token = token
+        # frames of open sessions, when the service has no datastore: the
+        # client's own store, and how many open sessions use each key
+        self._frames_store: Optional[InMemoryStore] = None
+        self._frames_users: Dict[str, int] = {}
+        self._frames_lock = threading.Lock()
+
+    def _put_frames(self, frames) -> Dict[str, str]:
+        """Pack `frames` into an object store once; returns the key and the
+        store's id that the session's tasks carry."""
+        if isinstance(frames, torch.Tensor):
+            frames = frames.detach().cpu().numpy()
+        blob = serializer.packb(np.asarray(frames))
+        with self._frames_lock:
+            store = self.service.datastore
+            if store is None:
+                if self._frames_store is None:
+                    self._frames_store = InMemoryStore()
+                store = self._frames_store
+            key = store.put(blob)
+            if store is self._frames_store:
+                self._frames_users[key] = self._frames_users.get(key, 0) + 1
+        return {"frames": key, "frames_store": store.store_id}
+
+    def _drop_frames(self, ref: Dict[str, str]) -> None:
+        """A session closed: drop its frames from the client's own store once
+        no open session uses them (the service's datastore keeps them)."""
+        key = ref.get("frames")
+        with self._frames_lock:
+            if key is None or key not in self._frames_users:
+                return
+            self._frames_users[key] -= 1
+            if not self._frames_users[key]:
+                del self._frames_users[key]
+                self._frames_store.delete(key)
 
     def _call(self, which: str, doc: dict, session_id: Optional[str] = None,
               endpoint_id: Optional[str] = None, timeout: float = 60.0):
@@ -622,38 +685,46 @@ class ServingClient:
 
     def session(self, prompt, session_id: Optional[str] = None,
                 endpoint_id: Optional[str] = None, timeout: float = 60.0,
-                admission_retries: int = 2) -> ServeSession:
+                admission_retries: int = 2, frames=None) -> ServeSession:
         """Prefill `prompt` into a slot somewhere and return the sticky
         session. A CacheAdmissionError (endpoint full under its cache_bytes
         budget) forgets the binding and retries, letting the policy place
-        the session on an endpoint with free slots."""
+        the session on an endpoint with free slots. ``frames`` (encoder-
+        decoder models): (enc_seq, d_model), numpy or a tensor, put once into
+        an object store; None prefills on zeros."""
         session_id = session_id or f"s-{uuid.uuid4().hex[:12]}"
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
+        frames_ref = self._put_frames(frames) if frames is not None else {}
         t0 = time.monotonic()
         attempt = 0
-        while True:
-            try:
-                out = self._call(
-                    "prefill", {"session": session_id, "tokens": prompt},
-                    session_id=session_id, endpoint_id=endpoint_id,
-                    timeout=timeout,
-                )
-                break
-            except CacheAdmissionError:
-                attempt += 1
-                sessions = getattr(self.service.forwarder, "sessions", None)
-                if sessions is not None:
-                    sessions.forget(session_id)
-                if attempt > admission_retries:
-                    raise
+        try:
+            while True:
+                try:
+                    out = self._call(
+                        "prefill", {"session": session_id, "tokens": prompt, **frames_ref},
+                        session_id=session_id, endpoint_id=endpoint_id,
+                        timeout=timeout,
+                    )
+                    break
+                except CacheAdmissionError:
+                    attempt += 1
+                    sessions = getattr(self.service.forwarder, "sessions", None)
+                    if sessions is not None:
+                        sessions.forget(session_id)
+                    if attempt > admission_retries:
+                        raise
+        except BaseException:
+            self._drop_frames(frames_ref)
+            raise
         ttft = time.monotonic() - t0
         self.service.metrics.histogram("serving.ttft_s").observe(ttft)
         return ServeSession(
             self, session_id, history=prompt + [out["token"]],
             first_token=out["token"], endpoint=out["endpoint"], ttft_s=ttft,
+            frames_ref=frames_ref,
         )
 
     def generate(self, prompt, max_new_tokens: int = 16, eos_id: int = -1,
-                 timeout: float = 60.0) -> List[int]:
-        with self.session(prompt, timeout=timeout) as s:
+                 timeout: float = 60.0, frames=None) -> List[int]:
+        with self.session(prompt, timeout=timeout, frames=frames) as s:
             return list(s.stream(max_new_tokens, eos_id=eos_id, timeout=timeout))

@@ -1,7 +1,7 @@
 """KV-cache utilities: sizing, slot insertion for continuous batching.
 
-Port of ``repro.serving.kv_cache`` for the dense (GQA or MLA), MoE, SSM and
-hybrid families.
+Port of ``repro.serving.kv_cache`` for the dense (GQA or MLA), MoE, SSM,
+hybrid and encoder-decoder families.
 """
 from __future__ import annotations
 
@@ -22,6 +22,11 @@ def cache_bytes(cfg: ModelConfig, batch: int, seq_len: int) -> int:
         else:
             per_tok = 2 * cfg.n_kv_heads * cfg.hd
         return cfg.n_layers * batch * seq_len * per_tok * itemsize
+    if cfg.family == "encdec":
+        # self-attention k/v over seq_len positions and the cross k/v over the
+        # encoder's enc_seq frames (the reference's live branch, kv_cache.py:26-28)
+        per_tok = 2 * cfg.n_kv_heads * cfg.hd
+        return cfg.n_layers * batch * (seq_len + cfg.enc_seq) * per_tok * itemsize
     if cfg.family not in ("ssm", "hybrid"):
         raise NotImplementedError(f"cache_bytes: family {cfg.family!r} is not ported yet")
     s = cfg.ssm
@@ -49,7 +54,8 @@ def insert_sequence(batched_cache: dict, seq_cache: dict, slot: int,
     attention leaves take 1. (The reference takes one axis for every leaf and
     so cannot serve the hybrid.) The sequence is zero-padded up to the
     batched cache's length, as the JAX version pads it; the SSM leaves
-    ({"conv", "ssm"}) have no sequence axis and are copied whole."""
+    ({"conv", "ssm"}) have no sequence axis, and the encoder-decoder's cross
+    leaves are as long as the destination's (enc_seq): both are copied whole."""
     for name, dst in batched_cache.items():
         src = seq_cache[name]
         axis = batch_axis[name] if isinstance(batch_axis, dict) else batch_axis

@@ -120,6 +120,42 @@ def test_port_matches_pallas_interpret(case):
     _close(tops.flash_attention(q, k, v, causal=causal, **kw), theirs, 2e-5)
 
 
+WHISPER_CASES = {  # B, Sq, Skv, H, KV, hd: non-causal, Skv not a multiple of 128 (nor 64)
+    "cross-decode-sq1": (3, 1, 150, 4, 4, 16),     # one token against every encoder key
+    "cross-prefill-sq7": (1, 7, 150, 4, 4, 16),    # a prompt against the encoder's keys
+    "cross-prefill-sq64": (2, 64, 150, 4, 4, 16),
+    "encoder-square": (1, 150, 150, 4, 4, 16),     # the encoder's own attention
+}
+
+
+@pytest.mark.parametrize("case", list(WHISPER_CASES))
+def test_whisper_attention_matches_pallas_interpret(case):
+    """The encoder-decoder family's flash calls (all non-causal) against the
+    Pallas kernel in interpret mode: Sq = 1, Sq < Skv and Sq = Skv, against
+    key counts that fill no whole block."""
+    B, Sq, Skv, H, KV, hd = WHISPER_CASES[case]
+    arrs = _inputs(8, (B, Sq, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd))
+    (jq, jk, jv), (q, k, v) = _both(arrs, "float32")
+    theirs = flash_attention_pallas(jq, jk, jv, causal=False, block_q=16, block_k=16,
+                                    interpret=True)
+    ours = tops.flash_attention(q, k, v, causal=False)
+    assert ours.shape == (B, Sq, H, hd)
+    _close(ours, theirs, 2e-5)
+
+
+def test_cross_attention_over_an_empty_slot_gives_zeros():
+    """An idle engine slot's cross keys and values are zeros: its Sq = 1
+    cross-attention gives zeros, not NaN, as the Pallas kernel does."""
+    q = _inputs(9, (2, 1, 4, 16))[0]
+    kv = np.zeros((2, 150, 4, 16), np.float32)
+    theirs = flash_attention_pallas(jnp.asarray(q), jnp.asarray(kv), jnp.asarray(kv),
+                                    causal=False, block_q=16, block_k=16, interpret=True)
+    ours = tops.flash_attention(torch.from_numpy(q), torch.from_numpy(kv),
+                                torch.from_numpy(kv), causal=False)
+    assert torch.equal(ours, torch.zeros_like(ours))
+    _close(ours, theirs, 0.0)
+
+
 def test_decode_matches_pallas_interpret_vector_pos():
     B, S, KV, H, hd = 3, 32, 2, 4, 16
     arrs = _inputs(6, (B, 1, H, hd), (B, S, KV, hd), (B, S, KV, hd))

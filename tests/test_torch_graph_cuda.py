@@ -23,7 +23,7 @@ from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
-ARCHS = ["qwen2-0.5b", "mamba2-2.7b", "zamba2-2.7b", "minicpm3-4b"]
+ARCHS = ["qwen2-0.5b", "mamba2-2.7b", "zamba2-2.7b", "minicpm3-4b", "whisper-small"]
 
 
 @pytest.fixture
@@ -73,6 +73,48 @@ def test_graphed_engine_equals_eager_engine(arch, dtype, cuda_device):
     assert graphed.steps == eager.steps
     for (name, g), (_, e) in zip(_leaves(graphed.cache), _leaves(eager.cache)):
         assert torch.equal(g, e), name
+
+
+class _KeepLogits(ServeEngine):
+    """An engine whose step keeps its logits (in a graphed engine, the
+    captured step's static output, which each replay rewrites)."""
+
+    def _decode(self) -> None:
+        logits, _ = self.model.decode_step(self._tokens, self.cache, self._positions)
+        self.logits = logits
+        torch.argmax(logits, dim=-1, out=self._sampled)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_encdec_step_reads_each_new_slots_cross_cache(dtype, cuda_device):
+    """whisper reduced: two admissions, each with its own frames, into two
+    slots, a step after each; the graphed step's logits and every cache leaf
+    equal the eager step's bit for bit. The captured flash call (its TMA
+    descriptors encoded once, at capture) reads each slot's cross keys and
+    values from the fixed cache, where admission wrote them."""
+    model = _model("whisper-small", dtype, cuda_device)
+    cfg = model.cfg
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (6, 11)]
+    frames = [rng.standard_normal((cfg.enc_seq, cfg.d_model)).astype(np.float32)
+              for _ in prompts]
+    engines = [_KeepLogits(model, max_batch=3, max_len=32),
+               _KeepLogits(model, max_batch=3, max_len=32, cuda_graph=False)]
+    assert engines[0]._graph is not None and engines[1]._graph is None
+    logits = [[], []]
+    for p, f in zip(prompts, frames):
+        for e, out in zip(engines, logits):
+            e.submit(p, max_new_tokens=8, frames=f)
+            e._admit()
+            e._step()
+            out.append(e.logits.clone())
+    assert engines[0].slot_req[1] is not None                    # the second slot is in use
+    for g, e in zip(*logits):
+        assert torch.equal(g, e)
+    for (name, g), (_, e) in zip(_leaves(engines[0].cache), _leaves(engines[1].cache)):
+        assert torch.equal(g, e), name
+    cross = engines[0].cache["cross_k"]
+    assert cross[:, 1].abs().sum() > 0 and not torch.equal(cross[:, 0], cross[:, 1])
 
 
 def test_a_host_sync_in_the_step_makes_construction_raise(cuda_device, monkeypatch):

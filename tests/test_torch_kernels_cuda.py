@@ -321,6 +321,66 @@ def test_flash_kernel_dv_differs_from_dqk(shape, dtype, cuda_device):
             rtol=tol, atol=tol)
 
 
+# ------------------------------------------------------- whisper (encdec)
+WHISPER_FLASH = {  # B, Sq, Skv, H, KV, hd: every call non-causal, Skv = 1500 = 23 x 64 + 28
+    "encoder": (1, 1500, 1500, 12, 12, 64),
+    "cross-prefill-64": (1, 64, 1500, 12, 12, 64),
+    "cross-prefill-7": (1, 7, 1500, 12, 12, 64),
+    "cross-prefill-1": (1, 1, 1500, 12, 12, 64),
+    "cross-decode": (8, 1, 1500, 12, 12, 64),     # row 0 an idle slot: zero keys and values
+}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(WHISPER_FLASH))
+def test_flash_kernel_at_whisper_shapes(case, dtype, cuda_device):
+    """whisper-small's flash calls: the encoder (Sq = Skv = 1500), cross-
+    attention of a 64-, 7- and 1-token prompt against 1500 encoder keys (a
+    masked 28-key tail tile; at Sq < 64 a 64-row box over fewer rows), and
+    the decode step's Sq = 1 cross-attention over 8 slots, one of them idle
+    (all-zero keys and values: zeros out, not NaN)."""
+    B, Sq, Skv, H, KV, hd = WHISPER_FLASH[case]
+    tdt, tol = DTYPES[dtype]
+    q, k, v = _inputs(cuda_device, tdt, 40, (B, Sq, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd))
+    if B > 1:
+        k[0].zero_()
+        v[0].zero_()
+    before = tkernel.LAUNCHES["flash_attention"]
+    out = tkernel.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert tkernel.LAUNCHES["flash_attention"] == before + 1
+    assert out.shape == (B, Sq, H, hd) and torch.isfinite(out).all()
+    if B > 1:
+        assert torch.equal(out[0], torch.zeros_like(out[0]))
+    torch.testing.assert_close(out.float(), tref.mha_reference(q, k, v, causal=False).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_decode_kernel_at_whisper_self_decode_shape(dtype, cuda_device):
+    """whisper-small's decoder self-attention at decode: MHA 12/12 hd 64, 8
+    slots of a 448-position cache (its text context), row 0 an idle slot
+    (zero cache, pos 0), a full row; and the same kernel as the Sq = 1
+    cross-attention's function (pos 1499 over 1500 keys)."""
+    tdt, tol = DTYPES[dtype]
+    B, S, H = 8, 448, 12
+    q, k, v = _inputs(cuda_device, tdt, 41, (B, 1, H, 64), (B, S, H, 64), (B, S, H, 64))
+    k[0].zero_()
+    v[0].zero_()
+    pos = torch.tensor([0, 3, 64, 127, 128, 300, 446, S - 1], device=cuda_device)
+    out = tkernel.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    torch.testing.assert_close(out.float(),
+                               tref.decode_attention_reference(q, k, v, pos).float(),
+                               rtol=tol, atol=tol)
+    ck, cv = _inputs(cuda_device, tdt, 42, (B, 1500, H, 64), (B, 1500, H, 64))
+    out = tkernel.decode_attention(q, ck, cv, 1499)
+    torch.testing.assert_close(out.float(),
+                               tref.mha_reference(q, ck, cv, causal=False).float(),
+                               rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_decode_kernel_at_the_mla_shape(dtype, cuda_device):
     """minicpm3-4b's absorbed decode: 8 slots of a 1024-long cache, 40 query

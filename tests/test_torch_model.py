@@ -1,4 +1,4 @@
-"""The port's dense (GQA and MLA), MoE, SSM and hybrid models against the JAX package's, on carried weights.
+"""The port's dense (GQA and MLA), MoE, SSM, hybrid and encoder-decoder models against the JAX package's, on carried weights.
 
 JAX ``Model.init`` parameters go through ``repro_torch.params`` into the
 port; both packages then run the same numpy batch (reduced configs, f32).
@@ -7,7 +7,7 @@ forward/prefill logits, 3e-4 for each decode step. The MoE archs run at
 capacity factor 8.0, as that test does: the decode steps are held to the
 full forward, and a forward over B*S tokens drops assignments where a
 decode step over B does not (tests/test_torch_moe.py holds the published
-capacity).
+capacity). The encoder-decoder batches carry ``make_batch``'s random frames.
 """
 import dataclasses
 import functools
@@ -28,7 +28,7 @@ from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving.kv_cache import insert_sequence  # noqa: E402
 
 ARCHS = ("qwen2-0.5b", "qwen1.5-0.5b", "deepseek-67b", "mamba2-2.7b", "zamba2-2.7b",
-         "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b", "minicpm3-4b")
+         "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b", "minicpm3-4b", "whisper-small")
 
 
 def _no_drop(cfg):
@@ -58,12 +58,21 @@ def _reference_logits(arch: str):
     return batch, np.asarray(jmodel._logits(jparams, h)), float(aux)
 
 
+def _inputs(batch, rows=slice(None), n=None) -> dict:
+    """A numpy batch's rows as tensors, the tokens cut to `n` positions (the
+    encoder-decoder's frames whole)."""
+    out = {"tokens": torch.from_numpy(batch["tokens"][rows, :n])}
+    if "frames" in batch:
+        out["frames"] = torch.from_numpy(batch["frames"][rows])
+    return out
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_logits_match_jax(arch):
     _, _, model = _pair(arch)
     batch, ref, ref_aux = _reference_logits(arch)
     with torch.inference_mode():
-        h, aux = model({"tokens": torch.from_numpy(batch["tokens"])})
+        h, aux = model(_inputs(batch))
         logits = model._logits(h)
     if model.cfg.family == "moe":  # the sum of the layers' load-balance losses
         assert ref_aux > 0.0
@@ -91,7 +100,7 @@ def test_prefill_then_scalar_pos_decode_match_jax(arch):
     batch, ref, _ = _reference_logits(arch)
     tokens = torch.from_numpy(batch["tokens"])
     with torch.inference_mode():
-        logits, seq_cache = model.prefill({"tokens": tokens[:, :PREFILL]})
+        logits, seq_cache = model.prefill(_inputs(batch, n=PREFILL))
         np.testing.assert_allclose(logits.numpy(), ref[:, PREFILL - 1], rtol=2e-4, atol=2e-4)
         cache = model.init_cache(B, S)
         _blit(cache, seq_cache)
@@ -113,7 +122,7 @@ def test_vector_pos_decode_matches_jax(arch):
     with torch.inference_mode():
         cache = model.init_cache(B, S)
         for row, n in enumerate(starts):
-            logits, seq_cache = model.prefill({"tokens": tokens[row:row + 1, :n]})
+            logits, seq_cache = model.prefill(_inputs(batch, slice(row, row + 1), n))
             np.testing.assert_allclose(logits[0].numpy(), ref[row, n - 1], rtol=2e-4, atol=2e-4)
             insert_sequence(cache, seq_cache, row, model.cache_batch_axes())
         for i in range(S - PREFILL - 1):
@@ -160,6 +169,13 @@ def test_state_dict_keys_and_shapes_are_the_jax_pytree(arch):
         assert ours["layers.ln.scale"] == (G, PG, cfg.d_model)
         assert ours["shared.attn.wq"] == (cfg.d_model, cfg.n_heads, cfg.hd)
         assert ours["shared.ln2.scale"] == (cfg.d_model,)
+    elif cfg.family == "encdec":
+        L, D, H, hd = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.hd
+        assert ours["enc_layers.attn.wq"] == (cfg.n_enc_layers, D, H, hd)
+        assert ours["enc_layers.mlp.bi"] == (cfg.n_enc_layers, cfg.d_ff)
+        assert ours["layers.cross.wk"] == (L, D, cfg.n_kv_heads, hd)
+        assert ours["layers.ln3.bias"] == (L, D)
+        assert ours["enc_norm.bias"] == ours["final_norm.bias"] == (D,)
     elif cfg.mla is not None:
         m, L = cfg.mla, cfg.n_layers
         assert ours["layers.attn.wuq"] == (L, m.q_lora_rank, cfg.n_heads,
@@ -264,7 +280,7 @@ def test_hybrid_prefill_cache_matches_jax_leaf_by_leaf(S):
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b", "qwen2-0.5b", "qwen2-moe-a2.7b",
-                                  "minicpm3-4b"])
+                                  "minicpm3-4b", "whisper-small"])
 def test_init_cache_tree_and_batch_axes_are_the_jax_ones(arch):
     jmodel, _, model = _pair(arch)
     jcache, _ = jmodel.init_cache(3, 10)
@@ -353,6 +369,6 @@ def test_moe_init_draws_like_the_reference_recipe():
 
 
 def test_unported_family_raises():
-    cfg = get_reduced("qwen2-0.5b").with_(family="encdec")
+    cfg = get_reduced("qwen2-0.5b").with_(family="vlm")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         Model(cfg, device="cpu")

@@ -5,17 +5,23 @@
         [--trace out.json]
 
 Builds a full-width bf16 model (``--arch``: qwen2-0.5b by default,
-mamba2-2.7b, zamba2-2.7b, qwen2-moe-a2.7b or minicpm3-4b; random weights,
-seed 0) and a ServeEngine
+mamba2-2.7b, zamba2-2.7b, qwen2-moe-a2.7b, minicpm3-4b or whisper-small;
+random weights, seed 0) and a ServeEngine
 (max_batch 8, max_len 1024; its decode step a CUDA graph replay, or eager with
 ``--eager``), fills its 8 slots with prompts of 64..512 tokens, then profiles
 two windows through the engine's own entry points: one admission (a prefill of
 one 512-token prompt plus its cache insertion, eager either way) and
-``--steps`` batched decode steps. For each window it prints the host wall
+``--steps`` batched decode steps. whisper-small runs at its published text
+context instead: max_len 448, prompts of 4..64 tokens, a 64-token admission,
+each request with its own random frames (1500 x 768), so an admission runs
+the encoder too. For each window it prints the host wall
 time, the device busy time (the device activities' own time, summed), the
 device's idle share, the sum of the gaps between consecutive device activities
 (the idle time inside their span), and the twelve kernels with the most device
-time, each with its rank, plus every kernel of the port wherever it ranks.
+time, each with its rank, plus every kernel of the port wherever it ranks;
+then the device memory allocated after the model's init (the weights), after
+the engine's construction (its cache and the captured step's pool), and the
+peak of each window.
 For the MoE it also times the decode step's expert products alone (CUDA
 events, L2 flushed): every layer's three batched products over its 60
 experts at the step's capacity, as the step runs them, against the least
@@ -43,6 +49,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.serving import kv_cache  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
 
@@ -60,8 +67,13 @@ def _gaps_us(spans) -> float:
     return gaps
 
 
+def _gib(n: int) -> str:
+    return f"{n / 2**30:.3f} GiB"
+
+
 def _window(name: str, fn, n: int, trace: str = "") -> None:
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
@@ -84,7 +96,8 @@ def _window(name: str, fn, n: int, trace: str = "") -> None:
     print(f"[{name}] {n} call(s): host wall {wall_ms / n:.3f} ms each, device busy "
           f"{busy / n:.3f} ms each, idle share {1 - busy / wall_ms:.3f}, gaps between "
           f"device activities {_gaps_us(spans) / 1e3 / n:.3f} ms each, "
-          f"{launches / n:.0f} device launches each")
+          f"{launches / n:.0f} device launches each; max_memory_allocated "
+          f"{_gib(torch.cuda.max_memory_allocated())}")
     ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])
     for rank, (kname, (count, ms)) in enumerate(ranked):
         if rank < 12 or "repro_torch" in kname:   # the top 12, and every kernel of the port
@@ -161,7 +174,7 @@ def _latent_concat(engine: ServeEngine, reps: int = 20) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", choices=["qwen2-0.5b", "mamba2-2.7b", "zamba2-2.7b",
-                                       "qwen2-moe-a2.7b", "minicpm3-4b"],
+                                       "qwen2-moe-a2.7b", "minicpm3-4b", "whisper-small"],
                     default="qwen2-0.5b")
     ap.add_argument("--eager", action="store_true",
                     help="profile the eager decode step (ServeEngine(cuda_graph=False))")
@@ -175,17 +188,31 @@ def main() -> int:
 
     cfg = get_config(args.arch)
     model = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    weights = torch.cuda.memory_allocated()
     rng = np.random.default_rng(0)
-    engine = ServeEngine(model, max_batch=8, max_len=1024, cuda_graph=not args.eager)
-    for n in rng.integers(64, 513, 8):
-        engine.submit(rng.integers(0, cfg.vocab, int(n)), max_new_tokens=10_000)
+    encdec = cfg.family == "encdec"
+    max_len, lo, hi = (448, 4, 64) if encdec else (1024, 64, 512)
+
+    def frames():
+        if not encdec:
+            return None
+        return rng.standard_normal((cfg.enc_seq, cfg.d_model)).astype(np.float32)
+
+    engine = ServeEngine(model, max_batch=8, max_len=max_len, cuda_graph=not args.eager)
+    print(f"[memory] allocated after init {_gib(weights)} (the weights), after the engine "
+          f"{_gib(torch.cuda.memory_allocated())} (its cache: "
+          f"{_gib(kv_cache.cache_bytes(cfg, 8, max_len))} by cache_bytes)")
+    for n in rng.integers(lo, hi + 1, 8):
+        engine.submit(rng.integers(0, cfg.vocab, int(n)), max_new_tokens=10_000, frames=frames())
     engine._admit()                       # fills the 8 slots (also warms cuBLAS)
     for _ in range(3):
         engine._step()
 
+    admitted = frames()                   # drawn outside the profiled window
+
     def admit_one():
-        engine.slot_req[0] = None         # free slot 0 for one 512-token prompt
-        engine.submit(rng.integers(0, cfg.vocab, 512), max_new_tokens=10_000)
+        engine.slot_req[0] = None         # free slot 0 for one prompt of `hi` tokens
+        engine.submit(rng.integers(0, cfg.vocab, hi), max_new_tokens=10_000, frames=admitted)
         engine._admit()
 
     admit_one()
