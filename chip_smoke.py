@@ -22,8 +22,10 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      flash calls: the encoder at Sq = Skv = 1500, cross-attention
                      at prefill, 64 queries against 1500 keys, and at decode,
                      Sq = 1 against 1500 keys at B = 8 with an all-zero (idle)
-                     slot, and its self decode at B = 8 over 448 positions);
-                     time kernel, plain version and
+                     slot, and its self decode at B = 8 over 448 positions;
+                     internvl2-26b's GQA 48/8 (G = 6) hd 128: prefill of 256
+                     patches + 512 tokens, decode at B = 8 over 1024
+                     positions); time kernel, plain version and
                      ``F.scaled_dot_product_attention`` (a yardstick only) there,
                      and each SDPA backend that takes the shape; beside the Sq = 1
                      cross row, ``decode_attention`` at pos 1499 on the same
@@ -31,7 +33,9 @@ order, each printing its lines; any failure raises and the exit code is not 0:
 4. kernels-rmsnorm  - hold the fused add + RMSNorm kernel against its plain
                      version at 1e-6 (f32) / 1e-2 (bf16) on the reference's sweep
                      and the slices' rows (d_model 896, 2560 and 2048, 512-token
-                     prefill and 8-slot decode); time kernel and plain version there
+                     prefill and 8-slot decode; internvl2-26b's 6144, a
+                     768-position prefill and 8-slot decode); time kernel and
+                     plain version there
                      (no single PyTorch call computes add + norm: no library
                      time; the two-call
                      chain ``x + d`` then ``F.rms_norm`` is printed beside it,
@@ -42,7 +46,7 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      decode rows. The launcher's one rule: a block a row, each
                      thread holding ceil(D / 4096) 8-wide chunks, just enough
                      threads in whole warps (128 of one chunk at D = 896, 320
-                     at 2560).
+                     at 2560, 384 of two chunks at 6144).
 5. kernels-ssd      - hold the SSD scan against its plain version at 1e-4 (f32) /
                      5e-2 (bf16) on the reference's shapes, a ragged chunk, a
                      dt = 0 padded tail, a nonzero initial state and, at the full
@@ -151,12 +155,35 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      an object store; each task carries their key), through the
                      unbatched host, held to serve-encdec's graphed streams for
                      the same prompts and frames under the near-tie rule.
+24. slice-vlm       - the same as slice for full-width internvl2-26b (48 layers,
+                     d_model 6144, GQA 48/8 hd 128, d_ff 16384, vocab 92553),
+                     each prompt after its own 256 random patches (256 x 6144,
+                     numpy seed 3); the f32 check runs 8 of its 48 layers (a
+                     depth cut: the full-width f32 model is 79.6 GB, 8 layers
+                     17.2 GB), bf16 all 48.
+25. serve-vlm       - a graphed ServeEngine(max_batch=8, max_len=1024) answers
+                     16 requests of 64..512 tokens, each after its own random
+                     patches (a slot's positions count them), then an eager one
+                     answers the same 16, held as serve is; the counters must
+                     show exactly 48 flash calls a prefill, 48 decode
+                     attention calls a step and 48 add + norm calls a prefill
+                     and a step. Prints the step against its byte bound.
+26. fabric-vlm      - ``serve_model`` on two ``torch`` endpoints with a journal:
+                     4 sessions of 32 tokens, each with its patches (put once
+                     into an object store; each task carries their key),
+                     through the unbatched host; the endpoint holding the
+                     first session is killed after every session's third
+                     step, and the sessions it held re-prefill on the survivor
+                     with their patches from the store. Held to serve-vlm's
+                     graphed streams under the near-tie rule.
 
+The VLM phases run last, after every other model is freed: internvl2-26b's
+39.8 GB of bf16 weights leave about 38 GB for its engine and hosts.
 Each family's slice, serve and fabric phases print their wall time.
 
 Each serve and fabric phase resets the launch counters just before it submits
 its requests and reads them just after; a replay adds the calls its capture
-counted. The summary's ``launches`` of a kernel is its sum over the six
+counted. The summary's ``launches`` of a kernel is its sum over the seven
 graphed serve runs and the fabric runs; the fabric phases together must have
 launched every kernel.
 
@@ -197,7 +224,7 @@ from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.launch.serve import serve_through_front_door  # noqa: E402
 from repro_torch.serving import fabric, kv_cache  # noqa: E402
-from repro_torch.serving.engine import ServeEngine  # noqa: E402
+from repro_torch.serving.engine import SIDE_INPUTS, ServeEngine, prefix_len  # noqa: E402
 
 ARCH = "qwen2-0.5b"
 DEVICE = "cuda"
@@ -255,7 +282,7 @@ RMS_TOL = {torch.float32: 1e-6, torch.bfloat16: 1e-2}  # tests/test_kernels_rmsn
 # the add + norm rows of the slices: a 512-token prefill and an 8-slot decode
 # step, at qwen2-0.5b's and zamba2-2.7b's d_model; the first is the summary's row
 RMS_SHAPES = ((1, 512, 2560), (8, 1, 2560), (1, 512, 896), (8, 1, 896),
-              (1, 512, 2048), (8, 1, 2048))
+              (1, 512, 2048), (8, 1, 2048), (1, 768, 6144), (8, 1, 6144))
 
 HYBRID_ARCH = "zamba2-2.7b"
 # bf16 slice of zamba2-2.7b, held as the mamba2 slice is: 54 Mamba2 layers each
@@ -316,7 +343,25 @@ WHISPER_MAX_LEN = 448                                # the published text contex
 # is: max|dlogit| within 16 such ulps, and every top-1 disagreement a near-tie
 # within that same margin.
 SLICE_ENCDEC_BF16_TOL = 0.5
-FRAMES_SEED = 3
+# each request's side input (whisper's frames, internvl2's patches), standard
+# normal from this numpy seed
+SIDE_SEED = 3
+
+VLM_ARCH = "internvl2-26b"
+# its attention: GQA, 48 query heads over 8 KV heads (G = 6), hd 128; prefill of
+# one request's 256 patches + 512 tokens, decode over 8 slots of 1024 positions
+VLM_PREFILL_SHAPE = (1, 768, 48, 8, 128, 128)
+VLM_DECODE_SHAPE = (8, 1024, 48, 8, 128, 128)
+# the f32 check of the VLM slice runs 8 of the 48 layers (a depth cut): the
+# full-width f32 model is 79.6 GB and does not fit on the card; 8 layers and
+# the f32 embedding and unembedding are 17.2 GB
+VLM_F32_LAYERS = 8
+# bf16 slice of internvl2-26b, held as the other families past qwen2 are: both
+# paths round attention outputs to bf16 in 48 layers (twice qwen2's 24), and
+# the logits are bf16 products (one ulp is 2^-5 at |logit| 4..8). Held:
+# max|dlogit| within 16 such ulps, and every top-1 disagreement a near-tie
+# within that same margin.
+SLICE_VLM_BF16_TOL = 0.5
 
 
 def say(phase: str, msg: str) -> None:
@@ -485,6 +530,7 @@ def phase_kernels() -> dict:
     pos_mla[1] = -1                           # and a row of length 0
     _attn_slice_rows(gen, MLA_PREFILL_SHAPE, MLA_DECODE_SHAPE, pos_mla, MLA_ARCH, scale=MLA_SCALE)
     _whisper_attn_rows(gen)
+    _attn_slice_rows(gen, VLM_PREFILL_SHAPE, VLM_DECODE_SHAPE, pos_np, VLM_ARCH)
     return rows
 
 
@@ -721,7 +767,8 @@ def phase_kernels_rmsnorm() -> dict:
         rows.setdefault("fused_add_rmsnorm", r)   # the first shape is the summary's row
     say("kernels-rmsnorm", "library: none (no single PyTorch call computes add + norm); "
                            "layout: a block a row, 128 threads of one 8-wide chunk at "
-                           "D = 896, 320 at 2560")
+                           "D = 896, 320 at 2560; at D = 6144 (internvl2-26b) 384 threads "
+                           "of two 8-wide chunks")
     floor_w = cuda_ms(rms_kernel.empty_launch)
     floor_r = cuda_ms(rms_kernel.empty_launch, flush="read")
     say("kernels-rmsnorm", f"launch floor (an empty kernel of the same library, launched "
@@ -949,30 +996,48 @@ def _blit(cache: dict, seq_cache: dict) -> None:
 
 
 def _teacher_forced(model: Model, tokens: np.ndarray, n_prefill: int,
-                    frames=None) -> torch.Tensor:
+                    side=None) -> torch.Tensor:
     """Logits at the last prefill position and after each teacher-forced decode
-    step: (steps + 1, B, V). ``frames`` (B, enc_seq, d_model): the
-    encoder-decoder's input."""
+    step: (steps + 1, B, V). ``side`` (``_random_side``): the encoder-decoder's
+    frames or the VLM's patches, one row a prompt; a VLM's positions count
+    its patches."""
     B, total = tokens.shape
+    P = prefix_len(model.cfg)
     tok = torch.from_numpy(tokens).to(DEVICE)
     batch = {"tokens": tok[:, :n_prefill]}
-    if frames is not None:
-        batch["frames"] = torch.from_numpy(frames).to(DEVICE)
+    if side is not None:
+        batch[side[0]] = torch.from_numpy(side[1]).to(DEVICE)
     logits, seq_cache = model.prefill(batch)
-    cache = model.init_cache(B, total)
+    cache = model.init_cache(B, P + total)
     _blit(cache, seq_cache)
     out = [logits]
     for i in range(total - n_prefill):
-        pos = torch.full((B,), n_prefill + i, dtype=torch.int32, device=DEVICE)
+        pos = torch.full((B,), P + n_prefill + i, dtype=torch.int32, device=DEVICE)
         logits, cache = model.decode_step(tok[:, n_prefill + i:n_prefill + i + 1], cache, pos)
         out.append(logits)
     return torch.stack(out)
 
 
-def _random_frames(cfg, n: int, seed: int) -> np.ndarray:
-    """(n, enc_seq, d_model) f32 frames, standard normal from a numpy seed."""
+def _random_side(cfg, n: int, seed: int):
+    """n requests' side inputs (``SIDE_INPUTS``: whisper's frames, (enc_seq,
+    d_model); internvl2's patches, (n_patches, d_model)), f32 standard normal
+    from a numpy seed, as (name, an (n, rows, d_model) array); None for a
+    family that takes none."""
+    spec = SIDE_INPUTS.get(cfg.family)
+    if spec is None:
+        return None
+    name, rows = spec
     rng = np.random.default_rng(seed)
-    return rng.standard_normal((n, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return name, rng.standard_normal((n, getattr(cfg, rows), cfg.d_model)).astype(np.float32)
+
+
+def _side_kw(side, i: int) -> dict:
+    """Request i's side input as the keyword the entry points take, or none."""
+    return {} if side is None else {side[0]: side[1][i]}
+
+
+def _side_rows(side, rows: slice):
+    return None if side is None else (side[0], side[1][rows])
 
 
 class _RouteLog:
@@ -1006,13 +1071,16 @@ def _route_flips(got: list, want: list) -> tuple:
 
 def phase_slice(arch: str, tag: str, bf16_tol: float, f32_layers: int = 0) -> Model:
     """Kernel path against plain path on the same weights, f32 (at
-    ``f32_layers`` layers when given: a depth cut) then bf16 at full depth;
-    the MoE's routing flips between the two paths are counted and printed."""
+    ``f32_layers`` layers when given: a depth cut, the MoE's 8 of 24 and the
+    VLM's 8 of 48) then bf16 at full depth, each prompt with its own side
+    input (whisper's frames, internvl2's 256 patches before the prompt); the
+    MoE's routing flips between the two paths are counted and printed."""
     cfg = get_config(arch)
     B, n_prefill, steps = 4, 384, 16
     tokens = np.random.default_rng(1).integers(0, cfg.vocab, (B, n_prefill + steps))
     tokens = tokens.astype(np.int32)
-    frames = (_random_frames(cfg, B, FRAMES_SEED) if cfg.family == "encdec" else None)
+    side = _random_side(cfg, B, SIDE_SEED)
+    patches = f" after {cfg.n_patches} patches" if prefix_len(cfg) else ""
     model = None
     for dtype in ("float32", "bfloat16"):
         del model
@@ -1022,10 +1090,10 @@ def phase_slice(arch: str, tag: str, bf16_tol: float, f32_layers: int = 0) -> Mo
             torch.Generator(device=DEVICE).manual_seed(0))
         model.kernel_impl = "auto"
         with _RouteLog() as got_routes:
-            got = _teacher_forced(model, tokens, n_prefill, frames)
+            got = _teacher_forced(model, tokens, n_prefill, side)
         model.kernel_impl = "ref"
         with _RouteLog() as want_routes:
-            want = _teacher_forced(model, tokens, n_prefill, frames)
+            want = _teacher_forced(model, tokens, n_prefill, side)
         model.kernel_impl = "auto"
         if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
             raise AssertionError(f"{tag} {dtype}: non-finite logits")
@@ -1040,7 +1108,8 @@ def phase_slice(arch: str, tag: str, bf16_tol: float, f32_layers: int = 0) -> Mo
             flips, routed = _route_flips(got_routes, want_routes)
             routing = (f"; routing flips (tokens x layers whose top-{cfg.moe.top_k} expert set "
                        f"differs between the paths) {flips} of {routed}")
-        say(tag, f"{arch} {dtype}, {n_layers} layers: {B}x{n_prefill} prefill + {steps} decode "
+        say(tag, f"{arch} {dtype}, {n_layers} layers: {B}x{n_prefill} prefill{patches} + "
+                 f"{steps} decode "
                  f"steps, {positions} positions: max|dlogit| {diff:.3e}, top-1 agreement "
                  f"{top1:.4f}, largest near-tie gap {gap:.3e} (logit range "
                  f"{want.min().item():.2f}..{want.max().item():.2f}){routing}")
@@ -1125,10 +1194,11 @@ def _graph_nodes(graph):
 
 
 def _serve_run(model: Model, prompts, new_tokens: int, cuda_graph: bool, max_len: int = 1024,
-               frames=None) -> dict:
+               side=None) -> dict:
     """One engine (max_batch 8, `max_len`) serves `prompts` (each with its
-    `frames` row, for the encoder-decoder); the launch counters are reset just
-    before the requests are submitted and read just after they are drained."""
+    row of `side`: the encoder-decoder's frames, the VLM's patches); the
+    launch counters are reset just before the requests are submitted and read
+    just after they are drained."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     engine = _TimedEngine(model, max_batch=8, max_len=max_len, cuda_graph=cuda_graph)
@@ -1138,8 +1208,7 @@ def _serve_run(model: Model, prompts, new_tokens: int, cuda_graph: bool, max_len
     for mod in KERNEL_MODULES:                 # the run starts here
         mod.reset_launches()
     t0 = time.monotonic()
-    reqs = [engine.submit(p, max_new_tokens=new_tokens,
-                          frames=None if frames is None else frames[i])
+    reqs = [engine.submit(p, max_new_tokens=new_tokens, **_side_kw(side, i))
             for i, p in enumerate(prompts)]
     engine.run_until_drained(timeout=900)
     wall = time.monotonic() - t0
@@ -1150,12 +1219,12 @@ def _serve_run(model: Model, prompts, new_tokens: int, cuda_graph: bool, max_len
 
 
 def _check_streams(model: Model, prompts, got, want, tol: float, tag: str,
-                   names=("graphed", "eager"), frames=None) -> int:
+                   names=("graphed", "eager"), side=None) -> int:
     """Two runs' token streams (lists of tokens), request by request: where
     they part, both tokens must be a near-tie, each within ``tol`` of the top
-    logit of an eager B = 1 prefill of the prompt and the common prefix (over
-    the request's `frames` row, for the encoder-decoder). Returns the number
-    of requests whose streams part."""
+    logit of an eager B = 1 prefill of the prompt and the common prefix (with
+    the request's row of `side`: the encoder-decoder's frames, the VLM's
+    patches). Returns the number of requests whose streams part."""
     parted = 0
     for i, (p, g, e) in enumerate(zip(prompts, got, want)):
         j = next((j for j, (a, b) in enumerate(zip(g, e)) if a != b), None)
@@ -1164,8 +1233,8 @@ def _check_streams(model: Model, prompts, got, want, tol: float, tag: str,
         parted += 1
         seq = np.concatenate([np.asarray(p), np.asarray(g[:j])]).astype(np.int64)
         batch = {"tokens": torch.from_numpy(seq[None]).to(DEVICE)}
-        if frames is not None:
-            batch["frames"] = torch.from_numpy(frames[i][None]).to(DEVICE)
+        if side is not None:
+            batch[side[0]] = torch.from_numpy(side[1][i][None]).to(DEVICE)
         with torch.inference_mode():
             logits, _ = model.prefill(batch)
         top = logits[0].max().item()
@@ -1213,7 +1282,7 @@ def phase_serve(model: Model, tag: str, bf16_tol: float) -> dict:
     # the encoder-decoder at whisper's published text context, short prompts
     max_len, lo, hi = (WHISPER_MAX_LEN, 4, 64) if encdec else (1024, 64, 512)
     # warm-up through the same entry points (cuBLAS handles, allocator)
-    warm = ServeEngine(model, max_batch=2, max_len=128)
+    warm = ServeEngine(model, max_batch=2, max_len=prefix_len(cfg) + 128)
     warm.submit(np.arange(16) % cfg.vocab, max_new_tokens=4)
     warm.run_until_drained(timeout=300)
     del warm
@@ -1221,15 +1290,16 @@ def phase_serve(model: Model, tag: str, bf16_tol: float) -> dict:
     rng = np.random.default_rng(2)
     lens = rng.integers(lo, hi + 1, n_req)
     prompts = [rng.integers(0, cfg.vocab, int(n)) for n in lens]
-    frames = _random_frames(cfg, n_req, FRAMES_SEED) if encdec else None
+    side = _random_side(cfg, n_req, SIDE_SEED)
+    own = f", each with its own random {side[0]}" if side else ""
     say(tag, f"{cfg.name} bf16, {n_req} requests (prompts {lens.min()}..{lens.max()} "
-             f"tokens, {new_tokens} new each{', each with its own random frames' if encdec else ''}"
+             f"tokens, {new_tokens} new each{own}"
              f"), max_batch {max_batch}, max_len {max_len}; "
              f"cache {kv_cache.summarize(cfg, max_batch, max_len)}")
 
     runs = {}
     for mode, cuda_graph in (("graphed", True), ("eager", False)):
-        run = runs[mode] = _serve_run(model, prompts, new_tokens, cuda_graph, max_len, frames)
+        run = runs[mode] = _serve_run(model, prompts, new_tokens, cuda_graph, max_len, side)
         engine, reqs, launches = run["engine"], run["reqs"], run["launches"]
         for r in reqs:
             if not r.done.is_set() or len(r.tokens) != new_tokens:
@@ -1242,7 +1312,7 @@ def phase_serve(model: Model, tag: str, bf16_tol: float) -> dict:
         if any(launches[k] < n for k, n in need.items()) or any(launches[k] != 0 for k in absent):
             raise AssertionError(f"{mode} launch counters {launches} do not meet {need}: the "
                                  "path skipped a kernel or ran another family's")
-        if encdec and any(launches[k] != n for k, n in need.items()):
+        if cfg.family in ("encdec", "vlm") and any(launches[k] != n for k, n in need.items()):
             raise AssertionError(f"{mode} launch counters {launches} are not exactly {need}")
         total = sum(len(r.tokens) for r in reqs)
         ttft = np.array([(r.first_token_at - r.submitted) * 1e3 for r in reqs])
@@ -1258,6 +1328,9 @@ def phase_serve(model: Model, tag: str, bf16_tol: float) -> dict:
                  f"{run['peak_reserved'] / 2**30:.3f} GiB; engine built in "
                  f"{run['build_s']:.3f} s")
         say(tag, f"{mode}: launches {launches} (need >= {need}, none of {list(absent)})")
+        say(tag, f"{mode}: step mean {np.mean(engine.step_s) * 1e3:.3f} ms, median "
+                 f"{np.median(engine.step_s) * 1e3:.3f} ms against "
+                 f"{_step_bound(model, max_batch, max_len)}")
         if mode == "graphed":
             graph = engine._graph
             nodes = _graph_nodes(graph.graph)
@@ -1277,14 +1350,37 @@ def phase_serve(model: Model, tag: str, bf16_tol: float) -> dict:
         torch.cuda.empty_cache()
     graphed = [r.tokens for r in runs["graphed"]["reqs"]]
     eager = [r.tokens for r in runs["eager"]["reqs"]]
-    parted = _check_streams(model, prompts, graphed, eager, bf16_tol, tag, frames=frames)
+    parted = _check_streams(model, prompts, graphed, eager, bf16_tol, tag, side=side)
     say(tag, f"graphed and eager token streams: {n_req - parted} of {n_req} requests equal; "
              f"{parted} part, each at a near-tie within {bf16_tol:g}")
     launches = runs["graphed"]["launches"]
     return dict(launches={k: launches[k]
                           for k in _launch_floor(cfg, n_req, runs["graphed"]["steps"])},
                 prompts=prompts, streams=graphed, new_tokens=new_tokens,
-                direct=runs["graphed"]["summary"], frames=frames, max_len=max_len)
+                direct=runs["graphed"]["summary"], side=side, max_len=max_len)
+
+
+def _step_bound(model: Model, max_batch: int, max_len: int) -> str:
+    """The least time of a decode step by bytes: the weights every step reads
+    once, at HBM's rate, plus at most the whole cache. Left out are a table
+    the step only gathers rows of (an untied embedding), what runs only at
+    prefill (an encoder, the cross-attention's K/V projections, a VLM's patch
+    projection), and all but top_k of each MoE layer's n_experts routed
+    experts (the fewest a step can read)."""
+    cfg = model.cfg
+    params = dict(model.named_parameters())
+    prefill_only = ("enc_", "patch_proj", "layers.cross.wk", "layers.cross.wv")
+    routed = ("layers.ffn.wi", "layers.ffn.wg", "layers.ffn.wo")
+    w = 0.0
+    for n, p in params.items():
+        if n.startswith(prefill_only) or (n == "embed.tok" and "unembed.w" in params):
+            continue
+        share = cfg.moe.top_k / cfg.moe.n_experts if cfg.moe and n in routed else 1.0
+        w += p.numel() * p.element_size() * share
+    kv = kv_cache.cache_bytes(cfg, max_batch, max_len)
+    return (f"a byte bound of {w / HBM_BYTES_S * 1e3:.3f} ms (its {w / 1e9:.3f} GB of weights "
+            f"read once at 3.35 TB/s) plus at most {kv / HBM_BYTES_S * 1e3:.3f} ms of cache "
+            f"({kv / 1e9:.3f} GB at {max_batch} x {max_len})")
 
 
 # ------------------------------------------------------------------ the fabric
@@ -1372,10 +1468,11 @@ def _counters(svc) -> dict:
     return dict(svc.metrics.snapshot()["counters"])
 
 
-def _fabric_users(client, prompts, new_tokens: int, kill=None, frames=None) -> list:
-    """One client thread per prompt: a session (with its `frames` row, for
-    the encoder-decoder) streams `new_tokens` tokens (``ServingClient.
-    generate``'s loop, each step timed as the client sees it). With ``kill``,
+def _fabric_users(client, prompts, new_tokens: int, kill=None, side=None) -> list:
+    """One client thread per prompt: a session (with its row of `side`: the
+    encoder-decoder's frames, the VLM's patches) streams `new_tokens` tokens
+    (``ServingClient.generate``'s loop, each step timed as the client sees
+    it). With ``kill``,
     every thread waits after its third step while ``kill(sessions)`` runs.
     Returns one dict per session."""
     out = [None] * len(prompts)
@@ -1385,8 +1482,7 @@ def _fabric_users(client, prompts, new_tokens: int, kill=None, frames=None) -> l
 
     def user(k):
         try:
-            with client.session(prompts[k], timeout=300,
-                                frames=None if frames is None else frames[k]) as s:
+            with client.session(prompts[k], timeout=300, **_side_kw(side, k)) as s:
                 sessions[k] = s
                 steps, t = [], time.perf_counter()
                 for j, _ in enumerate(s.stream(new_tokens, timeout=300)):
@@ -1448,10 +1544,10 @@ def _graph_step_ms(host, reps: int = 50) -> float:
 
 
 def _fabric_run(model: Model, run: str, prompts, new_tokens: int, n_endpoints: int,
-                kill: bool = False, fabric_mod=fabric, max_len: int = 1024, frames=None,
+                kill: bool = False, fabric_mod=fabric, max_len: int = 1024, side=None,
                 **serve_kw) -> dict:
     """One fabric run on a fresh journaled service, its hosts warmed first: a
-    client thread per prompt streams its session (with its `frames` row);
+    client thread per prompt streams its session (with its row of `side`);
     with ``kill``, the endpoint holding the first session is killed after
     every session's third step. The launch counters are reset just before the
     sessions open and read just after they close. Returns the run's numbers."""
@@ -1474,7 +1570,7 @@ def _fabric_run(model: Model, run: str, prompts, new_tokens: int, n_endpoints: i
             _reset_launches()                   # the run starts here
             t0 = time.monotonic()
             outs = _fabric_users(client, prompts, new_tokens, kill=kill_home if kill else None,
-                                 frames=frames)
+                                 side=side)
             wall = time.monotonic() - t0
             launches = _launch_counts()          # ... and ends here
             after = _counters(svc)
@@ -1494,7 +1590,7 @@ def _fabric_run(model: Model, run: str, prompts, new_tokens: int, n_endpoints: i
 
 def _report_fabric_run(model: Model, tag: str, run: str, r: dict, prompts, want,
                        new_tokens: int, tol: float, hold_streams: bool = True,
-                       frames=None) -> None:
+                       side=None) -> None:
     """Check one run (every session's tokens, the streams against `want`
     under the near-tie rule unless ``hold_streams`` is False, one affinity
     hit per decode task, no duplicate commitment in the journal, the kernels'
@@ -1508,7 +1604,7 @@ def _report_fabric_run(model: Model, tag: str, run: str, r: dict, prompts, want,
     streams, direct = [o["tokens"] for o in outs], [w[:new_tokens] for w in want]
     if hold_streams:
         parted = _check_streams(model, prompts, streams, direct, tol, f"{tag} {run}",
-                                names=("fabric", "direct"), frames=frames)
+                                names=("fabric", "direct"), side=side)
         held = f"each at a near-tie within {tol:g}"
     else:
         parted = sum(g != d for g, d in zip(streams, direct))
@@ -1711,14 +1807,40 @@ def phase_fabric_encdec(model: Model, served: dict, tol: float) -> dict:
     reference), held to serve-encdec's graphed streams for the same prompts
     and frames. Returns the run's launches."""
     tag = "fabric-encdec"
-    prompts, want, frames = served["prompts"][:4], served["streams"][:4], served["frames"][:4]
+    prompts, want = served["prompts"][:4], served["streams"][:4]
+    frames = _side_rows(served["side"], slice(0, 4))
     r = _fabric_run(model, "unbatched", prompts, 32, 1, max_len=served["max_len"],
-                    frames=frames)
-    _report_fabric_run(model, tag, "unbatched", r, prompts, want, 32, tol, frames=frames)
+                    side=frames)
+    _report_fabric_run(model, tag, "unbatched", r, prompts, want, 32, tol, side=frames)
     if r["batching"] or not all(r["launches"][k] for k in ("flash_attention",
                                                           "decode_attention")):
         raise AssertionError(f"{tag}: batched host, or an attention kernel not launched: "
                              f"{r['launches']}")
+    return r["launches"]
+
+
+def phase_fabric_vlm(model: Model, served: dict, tol: float) -> dict:
+    """4 sessions of 32 tokens over two ``torch`` endpoints with a journal,
+    each with its own patches (F7 repaired: put once into an object store,
+    each task carrying their key), through the unbatched host (the reference
+    batches only dense and moe); the endpoint holding the first session is
+    killed after every session's third step, and the sessions it held
+    re-prefill on the survivor with their patches fetched from the store.
+    Held to serve-vlm's graphed streams for the same prompts and patches
+    under the near-tie rule. Returns the run's launches."""
+    tag = "fabric-vlm"
+    prompts, want = served["prompts"][:4], served["streams"][:4]
+    patches = _side_rows(served["side"], slice(0, 4))
+    r = _fabric_run(model, "failover", prompts, 32, 2, kill=True, max_len=served["max_len"],
+                    side=patches)
+    _report_fabric_run(model, tag, "failover", r, prompts, want, 32, tol, side=patches)
+    reprefills = r["delta"].get("serving.cache_migrations", 0)
+    if r["batching"] or not r["killed"] or r["migrations"] < 1 or reprefills != r["migrations"]:
+        raise AssertionError(f"{tag}: batched host {r['batching']}, killed {r['killed']}, "
+                             f"{r['migrations']} sessions migrated, {reprefills} re-prefills")
+    say(tag, f"failover: killed {r['killed'][0]} after the third step; {r['migrations']} "
+             f"session(s) re-prefilled on the survivor with their own patches from the "
+             "object store; every session ended with its 32 tokens")
     return r["launches"]
 
 
@@ -1734,10 +1856,11 @@ def main() -> int:
                            (HYBRID_ARCH, "-hybrid", SLICE_HYBRID_BF16_TOL),
                            (MOE_ARCH, "-moe", SLICE_MOE_BF16_TOL),
                            (MLA_ARCH, "-mla", SLICE_MLA_BF16_TOL),
-                           (ENCDEC_ARCH, "-encdec", SLICE_ENCDEC_BF16_TOL)):
+                           (ENCDEC_ARCH, "-encdec", SLICE_ENCDEC_BF16_TOL),
+                           (VLM_ARCH, "-vlm", SLICE_VLM_BF16_TOL)):
         t0 = time.perf_counter()
-        model = phase_slice(arch, "slice" + tag, tol,
-                            f32_layers=MOE_F32_LAYERS if arch == MOE_ARCH else 0)
+        f32_layers = {MOE_ARCH: MOE_F32_LAYERS, VLM_ARCH: VLM_F32_LAYERS}.get(arch, 0)
+        model = phase_slice(arch, "slice" + tag, tol, f32_layers=f32_layers)
         t1 = time.perf_counter()
         say("slice" + tag, f"wall {t1 - t0:.1f} s")
         served = phase_serve(model, "serve" + tag, tol)
@@ -1756,6 +1879,8 @@ def main() -> int:
             phase_launches.append(phase_fabric_mla(model, served, tol))
         elif arch == ENCDEC_ARCH:
             phase_launches.append(phase_fabric_encdec(model, served, tol))
+        elif arch == VLM_ARCH:
+            phase_launches.append(phase_fabric_vlm(model, served, tol))
         if len(phase_launches) > 1:
             say("fabric" + tag, f"wall {time.perf_counter() - t2:.1f} s")
         for i, counts in enumerate(phase_launches):

@@ -8,8 +8,8 @@ from .base import ARCHS, ModelConfig  # noqa: F401
 
 # importing each module populates ARCHS
 from . import (  # noqa: F401,E402
-    deepseek_67b, mamba2_2_7b, minicpm3_4b, qwen1_5_0_5b, qwen2_0_5b, qwen2_moe_a2_7b,
-    qwen3_moe_235b, whisper_small, zamba2_2_7b,
+    deepseek_67b, internvl2_26b, mamba2_2_7b, minicpm3_4b, qwen1_5_0_5b, qwen2_0_5b,
+    qwen2_moe_a2_7b, qwen3_moe_235b, whisper_small, zamba2_2_7b,
 )
 
 ARCH_IDS = tuple(sorted(ARCHS))

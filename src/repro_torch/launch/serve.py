@@ -11,7 +11,9 @@ the function submits to a ``ServeEngine`` running in a serving thread (its
 decode step one CUDA graph replay on the card) and waits. The run reports
 TTFT and aggregate token throughput. Weights are random, drawn from a seeded
 ``torch.Generator``. An encoder-decoder arch (``whisper-small``) is served on
-zero frames, as the reference's driver serves it.
+zero frames, as the reference's driver serves it, and a VLM
+(``internvl2-26b``) on zero patches: its ``--max-len`` (default 96 after the
+patches) counts the patches too.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.core import FunctionService
 from repro_torch.models.model import Model
-from repro_torch.serving.engine import ServeEngine
+from repro_torch.serving.engine import ServeEngine, prefix_len
 
 
 def serve_through_front_door(engine: ServeEngine, prompts: Sequence, max_new_tokens: int,
@@ -79,7 +81,8 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-new-tokens", type=int, default=12)
     ap.add_argument("--max-batch", type=int, default=4)
-    ap.add_argument("--max-len", type=int, default=96)
+    ap.add_argument("--max-len", type=int, default=None,
+                    help="cache positions a slot holds (default: 96 after a VLM's patches)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
 
@@ -91,7 +94,8 @@ def main() -> int:
     )
     gen = torch.Generator(device=device).manual_seed(0)
     model = Model(cfg, device=device).init(gen)
-    engine = ServeEngine(model, max_batch=args.max_batch, max_len=args.max_len)
+    max_len = args.max_len if args.max_len is not None else prefix_len(cfg) + 96
+    engine = ServeEngine(model, max_batch=args.max_batch, max_len=max_len)
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, int(rng.integers(4, 12))) for _ in range(args.requests)]

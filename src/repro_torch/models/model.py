@@ -12,7 +12,11 @@ family (whisper) stacks its encoder layers under ``enc_layers`` and its
 decoder layers under ``layers``; ``enc_norm`` and ``final_norm`` are
 LayerNorms. Its batches carry ``frames`` (B, enc_seq, d_model), the audio
 front end's output, encoded once per prefill; sinusoidal positions are added
-to the frames and to the decoder's tokens.
+to the frames and to the decoder's tokens. The VLM family (internvl2) is the
+dense decoder with ``patch_proj``, a (d_model, d_model) weight at the top of
+the tree: its batches carry ``patches`` (B, n_patches, d_model), the stubbed
+vision front end's output, projected and prepended to the token embeddings,
+so its caches and positions count the patches before the prompt.
 
 API (the JAX one without the ``params`` argument, which the module holds):
     init(generator)                      -> self (weights drawn in place)
@@ -26,11 +30,14 @@ API (the JAX one without the ``params`` argument, which the module holds):
         hybrid {"attn": {"k", "v"}: (G, B, S, KV, hd),
                 "mamba": {"conv": (G, PG, B, K-1, Cd), "ssm": (G, PG, B, H, P, N)}};
         encdec {"k", "v"}: (L, B, S, KV, hd) and {"cross_k", "cross_v"}:
-               (L, B, enc_seq, KV, hd), the encoder's keys and values
+               (L, B, enc_seq, KV, hd), the encoder's keys and values;
+        vlm    the dense tree, S counting the patches
     cache_batch_axes()                   -> the batch axis of each cache leaf
+cache_len_of(cache) and build_model(cfg) are the reference's serving helpers.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import Dict, Iterator, List, Optional, Tuple
 
@@ -40,7 +47,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from . import blocks, layers, mamba2
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def _as_module(tree: dict, module: nn.Module) -> nn.Module:
@@ -131,7 +138,9 @@ class Model(nn.Module):
         asked for: (("embed",), tree), the unembedding, the final norm, then
         each layer stack: one part stacked on its lead shape (``per_layer``
         False), or one ((name, index), tree) per layer; the hybrid's shared
-        block and the encoder-decoder's encoder norm last."""
+        block, the encoder-decoder's encoder norm and the VLM's patch
+        projection (a bare weight, drawn as the reference's ``dense_init``)
+        last."""
         cfg = self.cfg
         dt = layers.dtype_of(cfg)
         yield ("embed",), layers.init_embedding(gen, cfg.vocab, cfg.d_model, dt, device)
@@ -149,6 +158,9 @@ class Model(nn.Module):
             yield ("shared",), blocks.init_decoder_layer(gen, cfg, device)
         if cfg.family == "encdec":
             yield ("enc_norm",), layers.init_layernorm(cfg.d_model, device)
+        if cfg.family == "vlm":
+            yield ("patch_proj",), layers.dense_init(gen, (cfg.d_model, cfg.d_model),
+                                                     cfg.d_model, dt, device)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
@@ -173,8 +185,14 @@ class Model(nn.Module):
 
     # ============================================================ embedding
     def _embed_inputs(self, batch) -> torch.Tensor:
+        """The token embeddings; a VLM's ``batch["patches"]`` (B, P, d_model)
+        cast to the model dtype, projected by ``patch_proj`` and prepended."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        h = layers.embed(tokens, self.params["embed"])
+        p = self.params
+        h = layers.embed(tokens, p["embed"])
+        if self.cfg.family == "vlm":
+            patches = torch.as_tensor(batch["patches"], device=self.device).to(h.dtype)
+            h = torch.cat([patches @ p["patch_proj"], h], dim=1)
         if self.cfg.family == "encdec":
             pos = layers.sinusoidal_positions(h.shape[1], self.cfg.d_model, self.device)
             h = h + pos.to(h.dtype)[None]
@@ -353,9 +371,34 @@ def _map(tree: dict, fn) -> dict:
     return {k: _map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
-def _map2(a: dict, b: dict, fn) -> None:
+def _map2(a, b, fn) -> None:
+    """fn(leaf of a, leaf of b) over two trees of one shape (a leaf alone
+    is a tree: the VLM's ``patch_proj`` is a part with no dict around it)."""
+    if not isinstance(a, dict):
+        fn(a, b)
+        return
     for k, v in a.items():
-        if isinstance(v, dict):
-            _map2(v, b[k], fn)
-        else:
-            fn(v, b[k])
+        _map2(v, b[k], fn)
+
+
+def _first_leaf(tree: dict) -> torch.Tensor:
+    """The first leaf in JAX's flatten order (dict keys sorted)."""
+    leaf = tree[min(tree)]
+    return _first_leaf(leaf) if isinstance(leaf, dict) else leaf
+
+
+def cache_len_of(cache: dict) -> int:
+    """Sequence capacity of a dense-style cache (``cache["k"]``'s axis 2,
+    else the first leaf's, as the reference reads it)."""
+    return (cache["k"] if "k" in cache else _first_leaf(cache)).shape[2]
+
+
+@functools.lru_cache(maxsize=1)
+def build_model(cfg: ModelConfig, device="cuda") -> Model:
+    """The model of a frozen config, cached as the reference caches one per
+    config. Unlike the reference's, the model holds its weights: callers
+    asking for one config share one weight set (an ``init`` or
+    ``load_state_dict`` by one is seen by all), and the cache keeps only the
+    latest model alive so as not to pin several full-width weight sets; a
+    caller that wants the plain path sets ``model.kernel_impl``."""
+    return Model(cfg, device=device)

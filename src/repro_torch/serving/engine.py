@@ -13,11 +13,15 @@ construction, over static token, position and sampled-token buffers and its
 own cache, and each step replays it. Prefill stays eager (its length varies).
 On the CPU the same step runs eagerly.
 
-An encoder-decoder request carries its audio frames, (enc_seq, d_model), and
-its prefill encodes them (zeros when none are given). The reference prefills
-every encoder-decoder request on zero frames (fault F9). The captured step
-reads each slot's cross keys and values from the engine's cache, where
-admission writes them.
+A request carries its family's side input (``SIDE_INPUTS``): an
+encoder-decoder's audio frames, (enc_seq, d_model), which its prefill
+encodes, or a VLM's patch embeddings, (n_patches, d_model), which its prefill
+projects and puts before the prompt; zeros when none are given. The reference
+prefills every encoder-decoder request on zero frames (fault F9) and cannot
+prefill a VLM request at all (fault F7). The captured step reads each slot's
+cross keys and values from the engine's cache, where admission writes them.
+A VLM slot's position counts its patches: it starts at n_patches + the
+prompt's length.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ import threading
 import time
 import uuid
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -109,28 +113,58 @@ class DecodeGraph:
                 mod.LAUNCHES[name] += self.launches.get(name, 0)
 
 
-def check_frames(cfg: ModelConfig, frames) -> None:
-    """Frames go with encoder-decoder requests only, shaped (enc_seq, d_model)."""
-    if frames is None:
-        return
-    if cfg.family != "encdec":
-        raise ValueError(f"{cfg.name} ({cfg.family}) takes no frames; only the "
-                         "encoder-decoder family does")
-    if tuple(frames.shape) != (cfg.enc_seq, cfg.d_model):
-        raise ValueError(f"{cfg.name}: frames must be (enc_seq, d_model) = "
-                         f"({cfg.enc_seq}, {cfg.d_model}), got {tuple(frames.shape)}")
+# the input a family's requests carry beside their tokens: its batch key and
+# the config field that counts its rows, each d_model wide
+SIDE_INPUTS: Dict[str, Tuple[str, str]] = {"encdec": ("frames", "enc_seq"),
+                                           "vlm": ("patches", "n_patches")}
 
 
-def prefill_batch(model: Model, prompt: np.ndarray, frames=None) -> dict:
+def prefix_len(cfg: ModelConfig) -> int:
+    """Cache positions a request fills before its prompt: a VLM's patches."""
+    return cfg.n_patches if cfg.family == "vlm" else 0
+
+
+def check_side_input(cfg: ModelConfig, side: Dict[str, object]):
+    """A request's side inputs by name (None values dropped), checked against
+    its family's (``SIDE_INPUTS``): each name goes with its family only,
+    shaped (rows, d_model). Returns the family's input, or None."""
+    spec = SIDE_INPUTS.get(cfg.family)
+    for name, a in side.items():
+        if a is None:
+            continue
+        if spec is None or spec[0] != name:
+            owners = [f for f, (n, _) in SIDE_INPUTS.items() if n == name]
+            owner = f"only the {owners[0]} family does" if owners else "no family does"
+            raise ValueError(f"{cfg.name} ({cfg.family}) takes no {name}; {owner}")
+        want = (getattr(cfg, spec[1]), cfg.d_model)
+        if tuple(a.shape) != want:
+            raise ValueError(f"{cfg.name}: {name} must be ({spec[1]}, d_model) = {want}, "
+                             f"got {tuple(a.shape)}")
+    return side.get(spec[0]) if spec else None
+
+
+def check_fits(cfg: ModelConfig, n_tokens: int, max_len: int) -> None:
+    """A prompt of ``n_tokens`` (after a VLM's patches) must leave a cache
+    position of ``max_len`` free."""
+    used = prefix_len(cfg) + n_tokens
+    if used >= max_len:
+        patches = f"{prefix_len(cfg)} patches + " if prefix_len(cfg) else ""
+        raise ValueError(f"{cfg.name}: {patches}{n_tokens} prompt tokens = {used} positions "
+                         f"do not fit in max_len {max_len}")
+
+
+def prefill_batch(model: Model, prompt: np.ndarray, side=None) -> dict:
     """One request's B = 1 prefill batch on the model's device: its tokens
-    and, for the encoder-decoder family, its frames (zeros when None)."""
+    and its family's side input (``SIDE_INPUTS``; zeros when None)."""
     batch = {"tokens": torch.from_numpy(np.asarray(prompt, np.int32)[None, :]).to(model.device)}
     cfg = model.cfg
-    if cfg.family == "encdec":
-        if frames is None:
-            batch["frames"] = torch.zeros((1, cfg.enc_seq, cfg.d_model), device=model.device)
+    spec = SIDE_INPUTS.get(cfg.family)
+    if spec is not None:
+        name, rows = spec
+        if side is None:
+            batch[name] = torch.zeros((1, getattr(cfg, rows), cfg.d_model), device=model.device)
         else:
-            batch["frames"] = torch.as_tensor(frames, device=model.device)[None]
+            batch[name] = torch.as_tensor(side, device=model.device)[None]
     return batch
 
 
@@ -147,7 +181,7 @@ class Request:
     prompt: np.ndarray                 # (S,) int32
     max_new_tokens: int = 16
     eos_id: int = -1                   # -1: never stops early
-    frames: Optional[object] = None    # encdec: (enc_seq, d_model) array or tensor
+    side: Optional[object] = None      # encdec frames or vlm patches, array or tensor
     request_id: str = field(default_factory=lambda: uuid.uuid4().hex[:8])
     # outputs
     tokens: List[int] = field(default_factory=list)
@@ -174,6 +208,7 @@ class ServeEngine:
         self.device = model.device
         self.max_batch = max_batch
         self.max_len = max_len
+        self.prefix = prefix_len(self.cfg)
         self.metrics = metrics if metrics is not None else MetricsRegistry()
 
         self.cache = model.init_cache(max_batch, max_len)
@@ -205,19 +240,23 @@ class ServeEngine:
 
     # -- client API -------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 16, eos_id: int = -1,
-               frames=None) -> Request:
+               frames=None, patches=None) -> Request:
         """Queue a request. ``frames`` (encoder-decoder family only): the
-        audio front end's output, (enc_seq, d_model), numpy or a tensor;
-        None prefills on zeros, as the reference does."""
-        check_frames(self.cfg, frames)
-        req = Request(np.asarray(prompt, np.int32), max_new_tokens, eos_id, frames)
+        audio front end's output, (enc_seq, d_model); ``patches`` (VLM family
+        only): the vision front end's, (n_patches, d_model); numpy or a
+        tensor, None prefills on zeros. A prompt that leaves no position of
+        ``max_len`` free after the patches is refused."""
+        side = check_side_input(self.cfg, {"frames": frames, "patches": patches})
+        prompt = np.asarray(prompt, np.int32)
+        check_fits(self.cfg, len(prompt), self.max_len)
+        req = Request(prompt, max_new_tokens, eos_id, side)
         with self._lock:
             self.pending.append(req)
         return req
 
     def generate(self, prompt, max_new_tokens: int = 16, timeout: float = 120.0,
-                 frames=None) -> List[int]:
-        req = self.submit(prompt, max_new_tokens, frames=frames)
+                 frames=None, patches=None) -> List[int]:
+        req = self.submit(prompt, max_new_tokens, frames=frames, patches=patches)
         if not self._alive:
             self.run_until_drained()
         if not req.done.wait(timeout):
@@ -232,7 +271,7 @@ class ServeEngine:
                 if self.slot_req[slot] is not None or not self.pending:
                     continue
                 req = self.pending.pop(0)
-                batch = prefill_batch(self.model, req.prompt, req.frames)
+                batch = prefill_batch(self.model, req.prompt, req.side)
                 logits, seq_cache = self.model.prefill(batch)
                 first = int(torch.argmax(logits[0]))
                 kv_cache.insert_sequence(self.cache, seq_cache, slot, self.batch_axes)
@@ -243,7 +282,7 @@ class ServeEngine:
                 )
                 self.metrics.counter("serving.tokens_generated").inc()
                 self.slot_req[slot] = req
-                self.slot_pos[slot] = len(req.prompt)
+                self.slot_pos[slot] = self.prefix + len(req.prompt)
                 self._finish_if_done(slot)
 
     def _finish_if_done(self, slot: int) -> None:

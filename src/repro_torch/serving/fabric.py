@@ -42,15 +42,19 @@ What differs from the reference:
   positions with the prefill cache inserted into it. The reference keeps the
   prefill cache at the prompt's length, so its decode writes fall outside it.
   Unbatched steps are eager.
-- An encoder-decoder session carries its audio frames (fault F9: the
-  reference prefills every such session on zero frames). The client packs
-  them once into an object store (the service's ``datastore`` when it has
-  one, else the client's own ``InMemoryStore``) and every prefill and decode
-  task carries only their content key and the store's id, as plain strings:
-  a decode task does not carry the frames' bytes, and the worker resolves no
-  ``DataRef`` a step. A host fetches the frames only when it prefills, so a
-  session that migrates re-prefills with its own frames. Encoder-decoder
-  hosts are unbatched, as in the reference.
+- A session carries its family's side input: an encoder-decoder's audio
+  frames (fault F9: the reference prefills every such session on zero
+  frames) or a VLM's patch embeddings (fault F7: the reference cannot
+  prefill a VLM session). The client packs it once into an object store
+  (the service's ``datastore`` when it has one, else the client's own
+  ``InMemoryStore``) and every prefill and decode task carries only its
+  content key and the store's id, as plain strings (``frames`` and
+  ``frames_store``, or ``patches`` and ``patches_store``): a decode task
+  does not carry the array's bytes, and the worker resolves no ``DataRef`` a
+  step. A host fetches it only when it prefills, so a session that migrates
+  re-prefills with its own frames or patches. A VLM session's positions
+  count its patches before the prompt. Encoder-decoder and VLM hosts are
+  unbatched, as in the reference.
 - Hosts are built lazily by whichever worker runs a model's first task, so
   two endpoints may capture, prefill and step at once. A graph capture fails
   if another thread launches work on the card meanwhile, so one process-wide
@@ -73,7 +77,8 @@ from ..core.containers import ResourceSpec
 from ..core.datastore import InMemoryStore, get_store
 from ..models.model import Model
 from . import kv_cache
-from .engine import DecodeGraph, check_frames, prefill_batch, zero_cache
+from .engine import (SIDE_INPUTS, DecodeGraph, check_fits, check_side_input, prefill_batch,
+                     prefix_len, zero_cache)
 
 # Families whose decode state is positionally idempotent: re-running a step
 # for a slot at an unchanged position rewrites the same K/V rows with the
@@ -229,6 +234,7 @@ class ModelHost:
         self.cfg = model.cfg
         self.device = model.device
         self.max_len = max_len
+        self.prefix = prefix_len(self.cfg)
         if batching and self.cfg.family not in _BATCHABLE_FAMILIES:
             batching = False
         self.batching = batching
@@ -286,20 +292,19 @@ class ModelHost:
             self.metrics.counter(name).inc(n)
 
     # -- session lifecycle -------------------------------------------------
-    def prefill(self, session: str, tokens, frames=None) -> int:
+    def prefill(self, session: str, tokens, side: Optional[Dict[str, object]] = None) -> int:
         """Open (or rebuild) `session` from its full token history; returns
         the next predicted token. Raises CacheAdmissionError when every slot
-        under the cache_bytes budget is taken. ``frames`` (encoder-decoder
-        family): (enc_seq, d_model), or a callable that fetches them; None
-        prefills on zeros."""
+        under the cache_bytes budget is taken, ValueError when the history
+        (after a VLM's patches) leaves no position of max_len free.
+        ``side``: the session's side inputs by name (``SIDE_INPUTS``: an
+        encoder-decoder's frames, a VLM's patches), each an array or a
+        callable that fetches it; none given prefills on zeros."""
         tokens = np.asarray(tokens, np.int32)
-        if callable(frames):
-            frames = frames()
-        check_frames(self.cfg, frames)
-        if len(tokens) >= self.max_len:
-            raise ValueError(
-                f"session {session}: {len(tokens)} tokens >= max_len {self.max_len}"
-            )
+        side = check_side_input(self.cfg, {name: a() if callable(a) else a
+                                           for name, a in (side or {}).items()})
+        check_fits(self.cfg, len(tokens), self.max_len)
+        pos = self.prefix + len(tokens)
         with self._lock:
             old = self.sessions.pop(session, None)
             if old is not None:
@@ -314,7 +319,7 @@ class ModelHost:
             slot = self._free.pop()
         # lock order: _DEVICE_LOCK, then the host's lock (see _DEVICE_LOCK)
         with _DEVICE_LOCK, torch.inference_mode():
-            logits, seq_cache = self.model.prefill(prefill_batch(self.model, tokens, frames))
+            logits, seq_cache = self.model.prefill(prefill_batch(self.model, tokens, side))
             first = int(torch.argmax(logits[0]))
             if not self.batching:
                 # a private cache of max_len positions: the decode steps
@@ -325,11 +330,11 @@ class ModelHost:
             with self._lock:
                 if self.batching:
                     kv_cache.insert_sequence(self.cache, seq_cache, slot, self.batch_axes)
-                    self.slot_pos[slot] = len(tokens)
+                    self.slot_pos[slot] = pos
                     self.slot_last[slot] = first
                     seq_cache = None
                 self.sessions[session] = _SessionState(
-                    slot=slot, pos=len(tokens), last=first, cache=seq_cache
+                    slot=slot, pos=pos, last=first, cache=seq_cache
                 )
                 n_active = len(self.sessions)
         self._count("serving.prefills")
@@ -338,20 +343,22 @@ class ModelHost:
             self.metrics.gauge("serving.sessions_active").set(n_active)
         return first
 
-    def decode(self, session: str, tokens, frames=None) -> Tuple[int, bool]:
+    def decode(self, session: str, tokens,
+               side: Optional[Dict[str, object]] = None) -> Tuple[int, bool]:
         """One decode step for `session`; returns ``(next_token, migrated)``.
 
         A hit (`serving.affinity_hits`) runs against the resident cache slot;
         a miss means the session's home died and sticky routing moved it here
         — the cache is rebuilt from the full token history (`tokens`) and
-        the session's `frames` (as ``prefill`` takes them; a callable is
-        called only here), which is the explicit re-prefill migration path.
+        the session's `side` inputs (as ``prefill`` takes them; a callable
+        is called only here), which is the explicit re-prefill
+        migration path.
         """
         with self._lock:
             st = self.sessions.get(session)
         if st is None:
             self._count("serving.cache_migrations")
-            return self.prefill(session, tokens, frames), True
+            return self.prefill(session, tokens, side), True
         self._count("serving.affinity_hits")
         if self.batching:
             nxt = self.coalescer.submit(st.slot)
@@ -475,27 +482,33 @@ def reset_serving() -> None:
         _SPECS.clear()
 
 
-def _frames_loader(doc) -> Optional[Callable[[], np.ndarray]]:
-    """A task's frames as a fetch the host calls only when it prefills: the
-    packed array under ``doc["frames"]`` (a content key) in the object store
-    ``doc["frames_store"]``; None when the task names no frames."""
-    key = doc.get("frames")
-    if key is None:
-        return None
-    return lambda: serializer.unpackb(get_store(doc["frames_store"]).get(key))
+# the side inputs a task may name (an encoder-decoder's frames, a VLM's patches)
+_SIDE_NAMES = tuple(name for name, _ in SIDE_INPUTS.values())
+
+
+def _fetch(key: str, store_id: str) -> Callable[[], np.ndarray]:
+    return lambda: serializer.unpackb(get_store(store_id).get(key))
+
+
+def _side_loaders(doc) -> Dict[str, Callable[[], np.ndarray]]:
+    """A task's side input as a fetch the host calls only when it prefills,
+    by name: the packed array under ``doc[name]`` (a content key) in the
+    object store ``doc[name + "_store"]``; empty when the task names none."""
+    return {name: _fetch(doc[name], doc[f"{name}_store"])
+            for name in _SIDE_NAMES if doc.get(name) is not None}
 
 
 # the three serving functions: module-level so registration is idempotent
 # (same content hash) no matter how many models/services register them
 def _serve_prefill(doc, site):
     host = _host_for(site, doc["model"])
-    token = host.prefill(doc["session"], doc["tokens"], _frames_loader(doc))
+    token = host.prefill(doc["session"], doc["tokens"], _side_loaders(doc))
     return {"token": token, "endpoint": site.endpoint_id, "migrated": False}
 
 
 def _serve_decode(doc, site):
     host = _host_for(site, doc["model"])
-    token, migrated = host.decode(doc["session"], doc["tokens"], _frames_loader(doc))
+    token, migrated = host.decode(doc["session"], doc["tokens"], _side_loaders(doc))
     return {"token": token, "endpoint": site.endpoint_id, "migrated": migrated}
 
 
@@ -553,7 +566,8 @@ def serve_model(
             description="free a session's KV-cache slot", **common,
         ),
     }
-    return ServingClient(service, name, fids, max_len=max_len, token=token)
+    return ServingClient(service, name, fids, max_len=max_len, token=token,
+                         prefix=prefix_len(model.cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -566,10 +580,10 @@ class ServeSession:
 
     def __init__(self, client: "ServingClient", session_id: str,
                  history: List[int], first_token: int, endpoint: str,
-                 ttft_s: float, frames_ref: Optional[Dict[str, str]] = None):
+                 ttft_s: float, side_ref: Optional[Dict[str, str]] = None):
         self._client = client
         self.session_id = session_id
-        self.frames_ref = frames_ref or {}   # {"frames": key, "frames_store": id}
+        self.side_ref = side_ref or {}   # e.g. {"patches": key, "patches_store": id}
         self.history = history          # prompt + every generated token
         self.tokens = [first_token]     # generated tokens only
         self.endpoints = [endpoint]     # serving endpoint per step
@@ -579,11 +593,11 @@ class ServeSession:
 
     def step(self, timeout: float = 60.0) -> int:
         """One decode step (one fabric task). The full token history and the
-        frames' key ride along so a failed-over session can re-prefill on its
-        new endpoint."""
+        side input's key ride along so a failed-over session can re-prefill
+        on its new endpoint."""
         out = self._client._call(
             "decode",
-            {"session": self.session_id, "tokens": list(self.history), **self.frames_ref},
+            {"session": self.session_id, "tokens": list(self.history), **self.side_ref},
             session_id=self.session_id,
             timeout=timeout,
         )
@@ -601,7 +615,7 @@ class ServeSession:
         while (
             len(self.tokens) < max_new_tokens
             and self.tokens[-1] != eos_id
-            and len(self.history) < self._client.max_len - 1
+            and self._client.prefix + len(self.history) < self._client.max_len - 1
         ):
             yield self.step(timeout=timeout)
 
@@ -618,7 +632,7 @@ class ServeSession:
             sessions = getattr(self._client.service.forwarder, "sessions", None)
             if sessions is not None:
                 sessions.forget(self.session_id)
-            self._client._drop_frames(self.frames_ref)
+            self._client._drop_side(self.side_ref)
 
     def __enter__(self) -> "ServeSession":
         return self
@@ -632,46 +646,53 @@ class ServingClient:
     tokens, observe TTFT through the fabric metrics."""
 
     def __init__(self, service, model_name: str, fids: Dict[str, str],
-                 max_len: int, token=None):
+                 max_len: int, token=None, prefix: int = 0):
         self.service = service
         self.model_name = model_name
         self.fids = fids
         self.max_len = max_len
+        self.prefix = prefix          # cache positions before a prompt: a VLM's patches
         self.token = token
-        # frames of open sessions, when the service has no datastore: the
-        # client's own store, and how many open sessions use each key
-        self._frames_store: Optional[InMemoryStore] = None
-        self._frames_users: Dict[str, int] = {}
-        self._frames_lock = threading.Lock()
+        # side inputs of open sessions, when the service has no datastore:
+        # the client's own store, and how many open sessions use each key
+        self._side_store: Optional[InMemoryStore] = None
+        self._side_users: Dict[str, int] = {}
+        self._side_lock = threading.Lock()
 
-    def _put_frames(self, frames) -> Dict[str, str]:
-        """Pack `frames` into an object store once; returns the key and the
-        store's id that the session's tasks carry."""
-        if isinstance(frames, torch.Tensor):
-            frames = frames.detach().cpu().numpy()
-        blob = serializer.packb(np.asarray(frames))
-        with self._frames_lock:
-            store = self.service.datastore
-            if store is None:
-                if self._frames_store is None:
-                    self._frames_store = InMemoryStore()
-                store = self._frames_store
-            key = store.put(blob)
-            if store is self._frames_store:
-                self._frames_users[key] = self._frames_users.get(key, 0) + 1
-        return {"frames": key, "frames_store": store.store_id}
+    def _put_side(self, side: Dict[str, object]) -> Dict[str, str]:
+        """Pack each side input given (by name; None skipped) into an object
+        store once; returns the keys and the store's id that the session's
+        tasks carry."""
+        ref = {}
+        for name, a in side.items():
+            if a is None:
+                continue
+            if isinstance(a, torch.Tensor):
+                a = a.detach().cpu().numpy()
+            blob = serializer.packb(np.asarray(a))
+            with self._side_lock:
+                store = self.service.datastore
+                if store is None:
+                    if self._side_store is None:
+                        self._side_store = InMemoryStore()
+                    store = self._side_store
+                key = store.put(blob)
+                if store is self._side_store:
+                    self._side_users[key] = self._side_users.get(key, 0) + 1
+            ref.update({name: key, f"{name}_store": store.store_id})
+        return ref
 
-    def _drop_frames(self, ref: Dict[str, str]) -> None:
-        """A session closed: drop its frames from the client's own store once
-        no open session uses them (the service's datastore keeps them)."""
-        key = ref.get("frames")
-        with self._frames_lock:
-            if key is None or key not in self._frames_users:
-                return
-            self._frames_users[key] -= 1
-            if not self._frames_users[key]:
-                del self._frames_users[key]
-                self._frames_store.delete(key)
+    def _drop_side(self, ref: Dict[str, str]) -> None:
+        """A session closed: drop its side inputs from the client's own store
+        once no open session uses them (the service's datastore keeps them)."""
+        with self._side_lock:
+            for key in (ref.get(name) for name in _SIDE_NAMES):
+                if key is None or key not in self._side_users:
+                    continue
+                self._side_users[key] -= 1
+                if not self._side_users[key]:
+                    del self._side_users[key]
+                    self._side_store.delete(key)
 
     def _call(self, which: str, doc: dict, session_id: Optional[str] = None,
               endpoint_id: Optional[str] = None, timeout: float = 60.0):
@@ -685,23 +706,24 @@ class ServingClient:
 
     def session(self, prompt, session_id: Optional[str] = None,
                 endpoint_id: Optional[str] = None, timeout: float = 60.0,
-                admission_retries: int = 2, frames=None) -> ServeSession:
+                admission_retries: int = 2, frames=None, patches=None) -> ServeSession:
         """Prefill `prompt` into a slot somewhere and return the sticky
         session. A CacheAdmissionError (endpoint full under its cache_bytes
         budget) forgets the binding and retries, letting the policy place
         the session on an endpoint with free slots. ``frames`` (encoder-
-        decoder models): (enc_seq, d_model), numpy or a tensor, put once into
-        an object store; None prefills on zeros."""
+        decoder models): (enc_seq, d_model); ``patches`` (VLM models):
+        (n_patches, d_model); numpy or a tensor, put once into an object
+        store; None prefills on zeros."""
         session_id = session_id or f"s-{uuid.uuid4().hex[:12]}"
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
-        frames_ref = self._put_frames(frames) if frames is not None else {}
+        side_ref = self._put_side({"frames": frames, "patches": patches})
         t0 = time.monotonic()
         attempt = 0
         try:
             while True:
                 try:
                     out = self._call(
-                        "prefill", {"session": session_id, "tokens": prompt, **frames_ref},
+                        "prefill", {"session": session_id, "tokens": prompt, **side_ref},
                         session_id=session_id, endpoint_id=endpoint_id,
                         timeout=timeout,
                     )
@@ -714,17 +736,17 @@ class ServingClient:
                     if attempt > admission_retries:
                         raise
         except BaseException:
-            self._drop_frames(frames_ref)
+            self._drop_side(side_ref)
             raise
         ttft = time.monotonic() - t0
         self.service.metrics.histogram("serving.ttft_s").observe(ttft)
         return ServeSession(
             self, session_id, history=prompt + [out["token"]],
             first_token=out["token"], endpoint=out["endpoint"], ttft_s=ttft,
-            frames_ref=frames_ref,
+            side_ref=side_ref,
         )
 
     def generate(self, prompt, max_new_tokens: int = 16, eos_id: int = -1,
-                 timeout: float = 60.0, frames=None) -> List[int]:
-        with self.session(prompt, timeout=timeout, frames=frames) as s:
+                 timeout: float = 60.0, frames=None, patches=None) -> List[int]:
+        with self.session(prompt, timeout=timeout, frames=frames, patches=patches) as s:
             return list(s.stream(max_new_tokens, eos_id=eos_id, timeout=timeout))

@@ -1,7 +1,7 @@
 """KV-cache utilities: sizing, slot insertion for continuous batching.
 
-Port of ``repro.serving.kv_cache`` for the dense (GQA or MLA), MoE, SSM,
-hybrid and encoder-decoder families.
+Port of ``repro.serving.kv_cache`` for every family: dense (GQA or MLA),
+MoE, SSM, hybrid, encoder-decoder and VLM.
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ def cache_bytes(cfg: ModelConfig, batch: int, seq_len: int) -> int:
     """Analytical decode-state footprint (bytes): the serving-capacity
     planner for admission control and the roofline memory term."""
     itemsize = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
+        # a VLM's seq_len counts its patches, as its cache does
         if cfg.mla is not None:
             per_tok = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim
         else:
@@ -28,7 +29,7 @@ def cache_bytes(cfg: ModelConfig, batch: int, seq_len: int) -> int:
         per_tok = 2 * cfg.n_kv_heads * cfg.hd
         return cfg.n_layers * batch * (seq_len + cfg.enc_seq) * per_tok * itemsize
     if cfg.family not in ("ssm", "hybrid"):
-        raise NotImplementedError(f"cache_bytes: family {cfg.family!r} is not ported yet")
+        raise ValueError(f"cache_bytes: unknown family {cfg.family!r}")
     s = cfg.ssm
     d_in = s.d_inner(cfg.d_model)
     H = s.n_heads(cfg.d_model)

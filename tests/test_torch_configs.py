@@ -9,7 +9,8 @@ from repro import configs as jax_configs  # noqa: E402
 from repro_torch import configs as torch_configs  # noqa: E402
 
 PORTED = ("qwen2-0.5b", "qwen1.5-0.5b", "deepseek-67b", "mamba2-2.7b", "zamba2-2.7b",
-          "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b", "minicpm3-4b", "whisper-small")
+          "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b", "minicpm3-4b", "whisper-small",
+          "internvl2-26b")
 
 
 def test_port_lists_exactly_the_ported_archs():
@@ -27,7 +28,7 @@ def test_config_equals_reference(arch, which):
     assert ours.param_count() == theirs.param_count()
 
 
-@pytest.mark.parametrize("arch", ["internvl2-26b", "whisper-large-v3", "no-such"])
+@pytest.mark.parametrize("arch", ["internvl2-76b", "whisper-large-v3", "no-such"])
 def test_unported_arch_raises_clear_keyerror(arch):
     with pytest.raises(KeyError, match="not ported to repro_torch"):
         torch_configs.get_config(arch)

@@ -345,13 +345,13 @@ def test_fabric_session_failover_reprefills_with_its_own_frames(carried, fabric)
     assert s.tokens == _greedy_reference(model, prompt, 6, frames)
     counters = svc.metrics.snapshot()["counters"]
     assert counters["serving.cache_migrations"] == 1
-    key = s.frames_ref["frames"]
+    key = s.side_ref["frames"]
     for which, doc in sent:
         assert doc["frames"] == key and isinstance(doc["frames_store"], str), which
         assert len(serializer.packb(doc)) < 1024, which    # no frame bytes in a task
     assert [w for w, _ in sent] == ["prefill"] + ["decode"] * 5
     s.close()
-    assert key not in client._frames_store                # dropped with its last session
+    assert key not in client._side_store                # dropped with its last session
 
 
 def test_fabric_streams_with_and_without_frames(carried, fabric):
@@ -373,7 +373,7 @@ def test_unbatched_host_cache_holds_max_len_and_the_cross_leaves(carried):
     assert not host.batching                                 # encdec serves unbatched
     prompt = np.random.default_rng(15).integers(0, cfg.vocab, 6)
     frames = _frames(model, 16)
-    toks = [host.prefill("s1", prompt, frames)]
+    toks = [host.prefill("s1", prompt, {"frames": frames})]
     history = list(prompt) + toks
     for _ in range(4):
         nxt, migrated = host.decode("s1", history)

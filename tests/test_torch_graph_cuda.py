@@ -23,7 +23,8 @@ from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
-ARCHS = ["qwen2-0.5b", "mamba2-2.7b", "zamba2-2.7b", "minicpm3-4b", "whisper-small"]
+ARCHS = ["qwen2-0.5b", "mamba2-2.7b", "zamba2-2.7b", "minicpm3-4b", "whisper-small",
+         "internvl2-26b"]
 
 
 @pytest.fixture
@@ -115,6 +116,36 @@ def test_graphed_encdec_step_reads_each_new_slots_cross_cache(dtype, cuda_device
         assert torch.equal(g, e), name
     cross = engines[0].cache["cross_k"]
     assert cross[:, 1].abs().sum() > 0 and not torch.equal(cross[:, 0], cross[:, 1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_vlm_step_equals_eager_after_admissions_with_patches(dtype, cuda_device):
+    """internvl2 reduced: two admissions, each with its own patches, into two
+    slots, a step after each; the graphed step's logits and every cache leaf
+    equal the eager step's bit for bit, each slot decoding at n_patches + its
+    prompt's length."""
+    model = _model("internvl2-26b", dtype, cuda_device)
+    cfg = model.cfg
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (6, 11)]
+    patches = [rng.standard_normal((cfg.n_patches, cfg.d_model)).astype(np.float32)
+               for _ in prompts]
+    engines = [_KeepLogits(model, max_batch=3, max_len=48),
+               _KeepLogits(model, max_batch=3, max_len=48, cuda_graph=False)]
+    assert engines[0]._graph is not None and engines[1]._graph is None
+    logits = [[], []]
+    for p, x in zip(prompts, patches):
+        for e, out in zip(engines, logits):
+            e.submit(p, max_new_tokens=8, patches=x)
+            e._admit()
+            e._step()
+            out.append(e.logits.clone())
+    for e in engines:
+        assert list(e.slot_pos[:2]) == [cfg.n_patches + 6 + 2, cfg.n_patches + 11 + 1]
+    for g, e in zip(*logits):
+        assert torch.equal(g, e)
+    for (name, g), (_, e) in zip(_leaves(engines[0].cache), _leaves(engines[1].cache)):
+        assert torch.equal(g, e), name
 
 
 def test_a_host_sync_in_the_step_makes_construction_raise(cuda_device, monkeypatch):

@@ -38,6 +38,8 @@ SHAPES = [  # B, Sq, Skv, H, KV, hd — the sweep of tests/test_kernels_flash.py
     (1, 70, 70, 8, 1, 128),
     (1, 512, 512, 32, 32, 80),   # zamba2-2.7b's shared block: MHA (G = 1), hd 80
     (2, 100, 100, 32, 32, 80),
+    (1, 768, 768, 48, 8, 128),   # internvl2-26b: GQA 48/8 (G = 6), hd 128, 256 patches + 512
+    (2, 100, 100, 48, 8, 128),
 ]
 SWEEP = [(s, c) for s in SHAPES for c in (True, False) if not (c and s[1] != s[2])]
 
@@ -123,6 +125,30 @@ def test_decode_kernel_at_the_hybrid_shape(dtype, cuda_device):
     torch.testing.assert_close(out.float(),
                                tref.decode_attention_reference(q, kc, vc, pos).float(),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_decode_kernel_at_the_vlm_shape(dtype, cuda_device):
+    """internvl2-26b's decode: 8 slots of a 1024-long cache, 48 query heads
+    over 8 KV heads (G = 6), hd 128, lengths 1 and 1024 among mixed ones (a
+    length across the split boundaries, one a split long), then scalar
+    positions."""
+    B, S, H, KV, hd = 8, 1024, 48, 8, 128
+    tdt, tol = DTYPES[dtype]
+    q, kc, vc = _inputs(cuda_device, tdt, 43, (B, 1, H, hd), (B, S, KV, hd), (B, S, KV, hd))
+    pos = torch.tensor([0, 675, 555, 127, 128, 300, 767, S - 1], device=cuda_device)
+    before = tkernel.LAUNCHES["decode_attention"]
+    out = tkernel.decode_attention(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    assert tkernel.LAUNCHES["decode_attention"] == before + 1
+    torch.testing.assert_close(out.float(),
+                               tref.decode_attention_reference(q, kc, vc, pos).float(),
+                               rtol=tol, atol=tol)
+    for p in (0, S - 1):
+        out = tkernel.decode_attention(q, kc, vc, p)
+        torch.testing.assert_close(out.float(),
+                                   tref.decode_attention_reference(q, kc, vc, p).float(),
+                                   rtol=tol, atol=tol)
 
 
 HEAD_DIMS = [80, 128, 24]   # zamba2-2.7b's; the widest; one that is not a multiple of 16
@@ -567,6 +593,7 @@ RMS_DTYPES = {"float32": (torch.float32, 1e-6), "bfloat16": (torch.bfloat16, 1e-
 RMS_SHAPES = [  # tests/test_kernels_rmsnorm.py:14, then the slices' prefill and decode rows
     (4, 32, 64), (2, 100, 128), (1, 8, 256), (7, 96),
     (1, 512, 896), (8, 1, 896), (1, 512, 2560), (8, 1, 2560),
+    (1, 768, 6144), (8, 1, 6144),   # internvl2-26b: 384 threads of two 8-wide chunks a row
 ]
 
 

@@ -1,4 +1,5 @@
-"""The port's dense (GQA and MLA), MoE, SSM, hybrid and encoder-decoder models against the JAX package's, on carried weights.
+"""The port's dense (GQA and MLA), MoE, SSM, hybrid, encoder-decoder and VLM
+models against the JAX package's, on carried weights.
 
 JAX ``Model.init`` parameters go through ``repro_torch.params`` into the
 port; both packages then run the same numpy batch (reduced configs, f32).
@@ -7,7 +8,9 @@ forward/prefill logits, 3e-4 for each decode step. The MoE archs run at
 capacity factor 8.0, as that test does: the decode steps are held to the
 full forward, and a forward over B*S tokens drops assignments where a
 decode step over B does not (tests/test_torch_moe.py holds the published
-capacity). The encoder-decoder batches carry ``make_batch``'s random frames.
+capacity). The encoder-decoder batches carry ``make_batch``'s random frames,
+the VLM's its random patches, which fill the first n_patches positions (so a
+prefill of PREFILL positions holds PREFILL - n_patches tokens).
 """
 import dataclasses
 import functools
@@ -28,7 +31,8 @@ from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving.kv_cache import insert_sequence  # noqa: E402
 
 ARCHS = ("qwen2-0.5b", "qwen1.5-0.5b", "deepseek-67b", "mamba2-2.7b", "zamba2-2.7b",
-         "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b", "minicpm3-4b", "whisper-small")
+         "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b", "minicpm3-4b", "whisper-small",
+         "internvl2-26b")
 
 
 def _no_drop(cfg):
@@ -59,12 +63,18 @@ def _reference_logits(arch: str):
 
 
 def _inputs(batch, rows=slice(None), n=None) -> dict:
-    """A numpy batch's rows as tensors, the tokens cut to `n` positions (the
-    encoder-decoder's frames whole)."""
+    """A numpy batch's rows as tensors, the tokens cut to `n` tokens (the
+    encoder-decoder's frames and the VLM's patches whole)."""
     out = {"tokens": torch.from_numpy(batch["tokens"][rows, :n])}
-    if "frames" in batch:
-        out["frames"] = torch.from_numpy(batch["frames"][rows])
+    for side in ("frames", "patches"):
+        if side in batch:
+            out[side] = torch.from_numpy(batch[side][rows])
     return out
+
+
+def _prefix(cfg) -> int:
+    """Positions before the first token: the VLM's patches."""
+    return cfg.n_patches if cfg.family == "vlm" else 0
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -99,14 +109,16 @@ def test_prefill_then_scalar_pos_decode_match_jax(arch):
     _, _, model = _pair(arch)
     batch, ref, _ = _reference_logits(arch)
     tokens = torch.from_numpy(batch["tokens"])
+    off = _prefix(model.cfg)
     with torch.inference_mode():
-        logits, seq_cache = model.prefill(_inputs(batch, n=PREFILL))
+        logits, seq_cache = model.prefill(_inputs(batch, n=PREFILL - off))
         np.testing.assert_allclose(logits.numpy(), ref[:, PREFILL - 1], rtol=2e-4, atol=2e-4)
         cache = model.init_cache(B, S)
         _blit(cache, seq_cache)
         for i in range(S - PREFILL - 1):
             pos = torch.tensor(PREFILL + i, dtype=torch.int32)
-            logits, cache = model.decode_step(tokens[:, PREFILL + i:PREFILL + i + 1], cache, pos)
+            t = PREFILL - off + i
+            logits, cache = model.decode_step(tokens[:, t:t + 1], cache, pos)
             np.testing.assert_allclose(logits.numpy(), ref[:, PREFILL + i], rtol=3e-4,
                                        atol=3e-4, err_msg=f"{arch}: decode step {i}")
 
@@ -119,15 +131,16 @@ def test_vector_pos_decode_matches_jax(arch):
     batch, ref, _ = _reference_logits(arch)
     tokens = torch.from_numpy(batch["tokens"])
     starts = [PREFILL, PREFILL - 5]
+    off = _prefix(model.cfg)
     with torch.inference_mode():
         cache = model.init_cache(B, S)
         for row, n in enumerate(starts):
-            logits, seq_cache = model.prefill(_inputs(batch, slice(row, row + 1), n))
+            logits, seq_cache = model.prefill(_inputs(batch, slice(row, row + 1), n - off))
             np.testing.assert_allclose(logits[0].numpy(), ref[row, n - 1], rtol=2e-4, atol=2e-4)
             insert_sequence(cache, seq_cache, row, model.cache_batch_axes())
         for i in range(S - PREFILL - 1):
             pos = torch.tensor([n + i for n in starts], dtype=torch.int32)
-            tok = torch.stack([tokens[row, p] for row, p in enumerate(pos.tolist())])[:, None]
+            tok = torch.stack([tokens[row, p - off] for row, p in enumerate(pos.tolist())])[:, None]
             logits, cache = model.decode_step(tok, cache, pos)
             for row, p in enumerate(pos.tolist()):
                 np.testing.assert_allclose(logits[row].numpy(), ref[row, p], rtol=3e-4,
@@ -176,6 +189,9 @@ def test_state_dict_keys_and_shapes_are_the_jax_pytree(arch):
         assert ours["layers.cross.wk"] == (L, D, cfg.n_kv_heads, hd)
         assert ours["layers.ln3.bias"] == (L, D)
         assert ours["enc_norm.bias"] == ours["final_norm.bias"] == (D,)
+    elif cfg.family == "vlm":
+        assert ours["patch_proj"] == (cfg.d_model, cfg.d_model)
+        assert ours["layers.attn.wk"] == (cfg.n_layers, cfg.d_model, cfg.n_kv_heads, cfg.hd)
     elif cfg.mla is not None:
         m, L = cfg.mla, cfg.n_layers
         assert ours["layers.attn.wuq"] == (L, m.q_lora_rank, cfg.n_heads,
@@ -280,7 +296,7 @@ def test_hybrid_prefill_cache_matches_jax_leaf_by_leaf(S):
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b", "qwen2-0.5b", "qwen2-moe-a2.7b",
-                                  "minicpm3-4b", "whisper-small"])
+                                  "minicpm3-4b", "whisper-small", "internvl2-26b"])
 def test_init_cache_tree_and_batch_axes_are_the_jax_ones(arch):
     jmodel, _, model = _pair(arch)
     jcache, _ = jmodel.init_cache(3, 10)
@@ -369,6 +385,6 @@ def test_moe_init_draws_like_the_reference_recipe():
 
 
 def test_unported_family_raises():
-    cfg = get_reduced("qwen2-0.5b").with_(family="vlm")
+    cfg = get_reduced("qwen2-0.5b").with_(family="no-such-family")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         Model(cfg, device="cpu")

@@ -5,8 +5,8 @@
         [--trace out.json]
 
 Builds a full-width bf16 model (``--arch``: qwen2-0.5b by default,
-mamba2-2.7b, zamba2-2.7b, qwen2-moe-a2.7b, minicpm3-4b or whisper-small;
-random weights, seed 0) and a ServeEngine
+mamba2-2.7b, zamba2-2.7b, qwen2-moe-a2.7b, minicpm3-4b, whisper-small or
+internvl2-26b; random weights, seed 0) and a ServeEngine
 (max_batch 8, max_len 1024; its decode step a CUDA graph replay, or eager with
 ``--eager``), fills its 8 slots with prompts of 64..512 tokens, then profiles
 two windows through the engine's own entry points: one admission (a prefill of
@@ -14,11 +14,13 @@ one 512-token prompt plus its cache insertion, eager either way) and
 ``--steps`` batched decode steps. whisper-small runs at its published text
 context instead: max_len 448, prompts of 4..64 tokens, a 64-token admission,
 each request with its own random frames (1500 x 768), so an admission runs
-the encoder too. For each window it prints the host wall
-time, the device busy time (the device activities' own time, summed), the
-device's idle share, the sum of the gaps between consecutive device activities
-(the idle time inside their span), and the twelve kernels with the most device
-time, each with its rank, plus every kernel of the port wherever it ranks;
+the encoder too. internvl2-26b's requests each carry their own random patches
+(256 x 6144), so its admission prefills 256 patches + 512 tokens. For each
+window it prints the host wall time, the device busy time (the device
+activities' own time, summed), the device's idle share, the sum of the gaps
+between consecutive device activities (the idle time inside their span), and
+the twelve kernels with the most device time, each with its rank, plus every
+kernel of the port wherever it ranks;
 then the device memory allocated after the model's init (the weights), after
 the engine's construction (its cache and the captured step's pool), and the
 peak of each window.
@@ -50,7 +52,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving import kv_cache  # noqa: E402
-from repro_torch.serving.engine import ServeEngine  # noqa: E402
+from repro_torch.serving.engine import SIDE_INPUTS, ServeEngine  # noqa: E402
 
 
 HBM_BYTES_S = 3.35e12   # H100 SXM, NVIDIA data sheet
@@ -174,7 +176,8 @@ def _latent_concat(engine: ServeEngine, reps: int = 20) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", choices=["qwen2-0.5b", "mamba2-2.7b", "zamba2-2.7b",
-                                       "qwen2-moe-a2.7b", "minicpm3-4b", "whisper-small"],
+                                       "qwen2-moe-a2.7b", "minicpm3-4b", "whisper-small",
+                                       "internvl2-26b"],
                     default="qwen2-0.5b")
     ap.add_argument("--eager", action="store_true",
                     help="profile the eager decode step (ServeEngine(cuda_graph=False))")
@@ -192,27 +195,29 @@ def main() -> int:
     rng = np.random.default_rng(0)
     encdec = cfg.family == "encdec"
     max_len, lo, hi = (448, 4, 64) if encdec else (1024, 64, 512)
+    side = SIDE_INPUTS.get(cfg.family)     # whisper's frames, internvl2's patches
 
-    def frames():
-        if not encdec:
-            return None
-        return rng.standard_normal((cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    def side_input() -> dict:
+        if side is None:
+            return {}
+        name, rows = side
+        return {name: rng.standard_normal((getattr(cfg, rows), cfg.d_model)).astype(np.float32)}
 
     engine = ServeEngine(model, max_batch=8, max_len=max_len, cuda_graph=not args.eager)
     print(f"[memory] allocated after init {_gib(weights)} (the weights), after the engine "
           f"{_gib(torch.cuda.memory_allocated())} (its cache: "
           f"{_gib(kv_cache.cache_bytes(cfg, 8, max_len))} by cache_bytes)")
     for n in rng.integers(lo, hi + 1, 8):
-        engine.submit(rng.integers(0, cfg.vocab, int(n)), max_new_tokens=10_000, frames=frames())
+        engine.submit(rng.integers(0, cfg.vocab, int(n)), max_new_tokens=10_000, **side_input())
     engine._admit()                       # fills the 8 slots (also warms cuBLAS)
     for _ in range(3):
         engine._step()
 
-    admitted = frames()                   # drawn outside the profiled window
+    admitted = side_input()               # drawn outside the profiled window
 
     def admit_one():
         engine.slot_req[0] = None         # free slot 0 for one prompt of `hi` tokens
-        engine.submit(rng.integers(0, cfg.vocab, hi), max_new_tokens=10_000, frames=admitted)
+        engine.submit(rng.integers(0, cfg.vocab, hi), max_new_tokens=10_000, **admitted)
         engine._admit()
 
     admit_one()
