@@ -93,32 +93,55 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      decode-task wall as a client sees it, the graphed step's
                      device time, and the wire codec's time for one decode
                      task's payload.
-10. slice-ssm       - the same as slice for full-width mamba2-2.7b (prefills pad
+10. train          - full-width qwen2-0.5b trained on the card (its own model,
+                     bf16, B = 8, S = 1024, remat on, the reference's synthetic
+                     token stream), after the served qwen2 is freed: (a) one
+                     step's loss and every gradient leaf through the kernels
+                     against the plain path (impl="ref") on the same weights
+                     and batch, f32 within 1e-4 (loss) / 1e-3 (each leaf's
+                     relative L2 difference) and bf16 within 0.02 / 0.05;
+                     (b) one ``build_train_step`` step with the counters set to
+                     0 just before it launches exactly 48 flash attention and
+                     48 add + norm calls (24 layers x forward and remat's
+                     recompute; the backward of each is its plain version's
+                     gradient) and no decode attention or scan; the step split
+                     by CUDA events into forward, backward (the plain attention
+                     backward's share from one call timed alone) and optimizer,
+                     tokens/s, model FLOP utilisation against the bf16 dense
+                     peak, peak allocated memory; (c) a ``Trainer`` runs 20
+                     steps through a FunctionService (one endpoint, one worker)
+                     with checkpoints at 10 and 20; with step 20's removed, a
+                     second Trainer on the same directory resumes at 10 and its
+                     losses for steps 11-20 match the first's within 1e-2;
+                     every loss finite, the last 5 below the first 5 on average,
+                     48 + 48 launches a step; (d) a bf16 checkpoint of the
+                     weights restores to bf16 tensors equal to those saved.
+11. slice-ssm       - the same as slice for full-width mamba2-2.7b (prefills pad
                      384 to 512).
-11. serve-ssm       - the same as serve for full-width bf16 mamba2-2.7b; the
+12. serve-ssm       - the same as serve for full-width bf16 mamba2-2.7b; the
                      counters must show the SSD kernel in every layer's prefill
                      and none of the other three (its step runs no kernel of
                      the repo).
-12. slice-hybrid    - the same for full-width zamba2-2.7b (54 Mamba2 layers in 9
+13. slice-hybrid    - the same for full-width zamba2-2.7b (54 Mamba2 layers in 9
                      groups of 6, one shared attention + MLP block before each).
-13. serve-hybrid    - the same for full-width bf16 zamba2-2.7b; the counters
+14. serve-hybrid    - the same for full-width bf16 zamba2-2.7b; the counters
                      must show all four kernels: the shared block's attention
                      and add + norm 9 times per prefill and per step, the SSD
                      scan 54 times per prefill.
-14. fabric-hybrid   - 4 sessions of 32 tokens on one ``torch`` endpoint through
+15. fabric-hybrid   - 4 sessions of 32 tokens on one ``torch`` endpoint through
                      the unbatched host (each session's cache holds max_len
                      positions), held to serve-hybrid's graphed streams under
                      the hybrid's near-tie bound; all four kernels must launch.
-15. slice-moe       - the same as slice for full-width qwen2-moe-a2.7b (60 routed
+16. slice-moe       - the same as slice for full-width qwen2-moe-a2.7b (60 routed
                      experts top-4 with capacity drop, a gated shared expert);
                      the f32 check runs 8 of its 24 layers (a depth cut: the
                      full-width f32 model is 57 GB), bf16 all 24. Routing flips
                      between the two paths (tokens x layers whose top-4 expert
                      set differs) are counted and printed.
-16. serve-moe       - the same as serve for full-width bf16 qwen2-moe-a2.7b: flash
+17. serve-moe       - the same as serve for full-width bf16 qwen2-moe-a2.7b: flash
                      attention, decode attention and the add + norm 24 times a
                      prefill and a step.
-17. fabric-moe      - ``serve_model`` on two ``torch`` endpoints with a journal, 8
+18. fabric-moe      - ``serve_model`` on two ``torch`` endpoints with a journal, 8
                      sessions of 64 tokens on batched hosts: at the published
                      capacity factor (every session's tokens, one affinity hit a
                      decode task, no duplicate commitment, coalescing; how many
@@ -127,22 +150,22 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      same weights at capacity factor E / k = 15, where nothing
                      drops, held to a direct graphed engine's streams under the
                      near-tie rule.
-18. slice-mla       - the same as slice for full-width minicpm3-4b (62 layers of
+19. slice-mla       - the same as slice for full-width minicpm3-4b (62 layers of
                      Multi-head Latent Attention, 40 heads, d_model 2560, vocab
                      73448), f32 (17 GB) and bf16, no cut.
-19. serve-mla       - the same as serve for full-width bf16 minicpm3-4b: flash
+20. serve-mla       - the same as serve for full-width bf16 minicpm3-4b: flash
                      attention (dv 64 != dqk 96), decode attention (dqk 288, dv
                      256) and the add + norm 62 times a prefill and a step.
-20. fabric-mla      - ``serve_model`` on one ``torch`` endpoint, a batched host
+21. fabric-mla      - ``serve_model`` on one ``torch`` endpoint, a batched host
                      whose slots a ``cache_bytes`` budget of 4 sessions sets: 4
                      sessions of 32 tokens held to serve-mla's graphed streams
                      under the near-tie rule; then a fifth session refused by a
                      full host and admitted once a slot is released.
-21. slice-encdec    - the same as slice for full-width whisper-small (12 encoder
+22. slice-encdec    - the same as slice for full-width whisper-small (12 encoder
                      and 12 decoder layers, d_model 768, MHA 12/12 hd 64, vocab
                      51865), each prompt with its own random frames (1500 x 768,
                      numpy seed 3), f32 and bf16, no cut.
-22. serve-encdec    - a graphed ServeEngine(max_batch=8, max_len=448: whisper's
+23. serve-encdec    - a graphed ServeEngine(max_batch=8, max_len=448: whisper's
                      published text context) answers 16 requests of 4..64
                      tokens, each with its own random frames, then an eager one
                      answers the same 16, held as serve is; the counters must
@@ -150,25 +173,25 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      12 causal self, 12 cross) and 12 a step (cross-attention,
                      Sq = 1, captured in the graph), decode attention 12 a step,
                      and no add + norm (LayerNorms) and no scan.
-23. fabric-encdec   - ``serve_model`` on one ``torch`` endpoint with a journal: 4
+24. fabric-encdec   - ``serve_model`` on one ``torch`` endpoint with a journal: 4
                      sessions of 32 tokens, each with its frames (put once into
                      an object store; each task carries their key), through the
                      unbatched host, held to serve-encdec's graphed streams for
                      the same prompts and frames under the near-tie rule.
-24. slice-vlm       - the same as slice for full-width internvl2-26b (48 layers,
+25. slice-vlm       - the same as slice for full-width internvl2-26b (48 layers,
                      d_model 6144, GQA 48/8 hd 128, d_ff 16384, vocab 92553),
                      each prompt after its own 256 random patches (256 x 6144,
                      numpy seed 3); the f32 check runs 8 of its 48 layers (a
                      depth cut: the full-width f32 model is 79.6 GB, 8 layers
                      17.2 GB), bf16 all 48.
-25. serve-vlm       - a graphed ServeEngine(max_batch=8, max_len=1024) answers
+26. serve-vlm       - a graphed ServeEngine(max_batch=8, max_len=1024) answers
                      16 requests of 64..512 tokens, each after its own random
                      patches (a slot's positions count them), then an eager one
                      answers the same 16, held as serve is; the counters must
                      show exactly 48 flash calls a prefill, 48 decode
                      attention calls a step and 48 add + norm calls a prefill
                      and a step. Prints the step against its byte bound.
-26. fabric-vlm      - ``serve_model`` on two ``torch`` endpoints with a journal:
+27. fabric-vlm      - ``serve_model`` on two ``torch`` endpoints with a journal:
                      4 sessions of 32 tokens, each with its patches (put once
                      into an object store; each task carries their key),
                      through the unbatched host; the endpoint holding the
@@ -184,8 +207,8 @@ Each family's slice, serve and fabric phases print their wall time.
 Each serve and fabric phase resets the launch counters just before it submits
 its requests and reads them just after; a replay adds the calls its capture
 counted. The summary's ``launches`` of a kernel is its sum over the seven
-graphed serve runs and the fabric runs; the fabric phases together must have
-launched every kernel.
+graphed serve runs, the fabric runs and the train phase's two trainer runs;
+the fabric phases together must have launched every kernel.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.
@@ -196,6 +219,7 @@ import contextlib
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -220,8 +244,13 @@ from repro_torch.kernels.rmsnorm import kernel as rms_kernel  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rms_ref  # noqa: E402
 from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
+from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
+from repro_torch.data.pipeline import synthetic_batch  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.training import optimizer as train_opt  # noqa: E402
+from repro_torch.training.steps import build_train_step  # noqa: E402
+from repro_torch.training.train_loop import TrainConfig, Trainer  # noqa: E402
 from repro_torch.launch.serve import serve_through_front_door  # noqa: E402
 from repro_torch.serving import fabric, kv_cache  # noqa: E402
 from repro_torch.serving.engine import SIDE_INPUTS, ServeEngine, prefix_len  # noqa: E402
@@ -362,6 +391,16 @@ VLM_F32_LAYERS = 8
 # max|dlogit| within 16 such ulps, and every top-1 disagreement a near-tie
 # within that same margin.
 SLICE_VLM_BF16_TOL = 0.5
+
+
+# the train phase: full-width qwen2-0.5b, bf16, seed 0, remat on (the config's)
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 20, 10
+TRAIN_TIMED_STEPS = 5
+# one step's loss and every gradient leaf, kernels against the plain path on
+# the same weights and batch: |dloss| and each leaf's relative L2 difference
+TRAIN_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (0.02, 0.05)}
+TRAIN_RESUME_TOL = 1e-2     # a resumed run's losses against the straight run's
 
 
 def say(phase: str, msg: str) -> None:
@@ -1844,6 +1883,271 @@ def phase_fabric_vlm(model: Model, served: dict, tol: float) -> dict:
     return r["launches"]
 
 
+# ------------------------------------------------------------------ training
+def _train_model(dtype: str) -> Model:
+    cfg = get_config(ARCH).with_(dtype=dtype)
+    model = Model(cfg, device=DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
+    return model.requires_grad_(True)
+
+
+def _train_batch(cfg, step: int = 0) -> dict:
+    return {k: torch.as_tensor(v).to(DEVICE)
+            for k, v in synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, step).items()}
+
+
+def _loss_and_grads(model: Model, batch: dict, impl: str) -> tuple:
+    model.kernel_impl = impl
+    names, leaves = zip(*model.named_parameters())
+    loss, _ = model.loss(batch)
+    grads = torch.autograd.grad(loss, leaves)
+    model.kernel_impl = "auto"
+    return loss.item(), dict(zip(names, grads))
+
+
+def _train_check_grads(tag: str) -> None:
+    """(a): one step's loss and every gradient leaf through the kernels
+    against the plain path (impl="ref") on the same weights and batch."""
+    for dtype in (torch.float32, torch.bfloat16):
+        model = _train_model(str(dtype).removeprefix("torch."))
+        batch = _train_batch(model.cfg)
+        loss_k, grads_k = _loss_and_grads(model, batch, "auto")
+        loss_r, grads_r = _loss_and_grads(model, batch, "ref")
+        dloss = abs(loss_k - loss_r)
+        rel = {n: ((grads_k[n].float() - g.float()).norm() / g.float().norm().clamp_min(1e-30)
+                   ).item() for n, g in grads_r.items()}
+        worst = max(rel, key=rel.get)
+        loss_tol, leaf_tol = TRAIN_TOL[dtype]
+        say(tag, f"(a) {dtype}: loss {loss_k:.6f} (kernels) against {loss_r:.6f} (plain), "
+                 f"|dloss| {dloss:.3e}; {len(rel)} gradient leaves, largest relative L2 "
+                 f"difference {rel[worst]:.3e} ({worst}), median "
+                 f"{float(np.median(list(rel.values()))):.3e} (tolerances {loss_tol:g} / "
+                 f"{leaf_tol:g})")
+        bad = [n for n, g in grads_k.items() if not torch.isfinite(g).all()]
+        if bad or not np.isfinite(loss_k) or dloss > loss_tol or rel[worst] > leaf_tol:
+            raise AssertionError(f"{tag} {dtype}: |dloss| {dloss:.3e} > {loss_tol} or leaf "
+                                 f"{worst} {rel[worst]:.3e} > {leaf_tol} or non-finite {bad}")
+        del model, grads_k, grads_r
+        torch.cuda.empty_cache()
+
+
+def _plain_backward_ms(model: Model) -> dict:
+    """Device ms, at the training shapes, of one call of each kernel's plain
+    backward (what ``KernelWithPlainGrad.backward`` runs: the plain forward
+    recomputed and its gradient), of the kernel forward and, for attention,
+    of ``F.scaled_dot_product_attention``'s forward + backward (a yardstick
+    for a backward kernel, B10)."""
+    cfg, gen = model.cfg, torch.Generator(device=DEVICE).manual_seed(5)
+    dt = model.params["embed"]["tok"].dtype
+    B, S, H, KV, hd = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, go = (randn(gen, (B, S, H, hd), dt).requires_grad_() for _ in range(2))
+    k, v = (randn(gen, (B, S, KV, hd), dt).requires_grad_() for _ in range(2))
+    x, d = (randn(gen, (B, S, cfg.d_model), dt).requires_grad_() for _ in range(2))
+    scale = torch.ones(cfg.d_model, device=DEVICE, requires_grad=True)
+    g_res, g_out = (randn(gen, (B, S, cfg.d_model), dt) for _ in range(2))
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    sdpa = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), (qt, kt, vt), go.detach().transpose(1, 2)),
+        reps=10)
+    out = {
+        "flash_attention": (
+            cuda_ms(lambda: torch.autograd.grad(attn_ref.mha_reference(q, k, v), (q, k, v),
+                                                go.detach()), reps=10),
+            cuda_ms(lambda: attn_kernel.flash_attention(q.detach(), k.detach(), v.detach())),
+            sdpa),
+        "fused_add_rmsnorm": (
+            cuda_ms(lambda: torch.autograd.grad(
+                rms_ref.fused_add_rmsnorm_reference(x, d, scale, cfg.norm_eps), (x, d, scale),
+                (g_res, g_out)), reps=10),
+            cuda_ms(lambda: rms_kernel.fused_add_rmsnorm(x.detach(), d.detach(),
+                                                         scale.detach(), cfg.norm_eps))),
+    }
+    return out
+
+
+def _train_flops(model: Model) -> float:
+    """Model FLOPs of one step (remat's recompute not counted): 6 x the
+    non-embedding weights x B*S tokens, 6 x the tied unembedding's d x V x the
+    B*(S-1) scored rows, and the causal attention's QK^T and PV, 3 x the
+    forward's 2*B*H*S^2*hd a layer."""
+    cfg, B, S = model.cfg, TRAIN_BATCH, TRAIN_SEQ
+    return (6 * _non_embedding(model) * B * S + 6 * cfg.d_model * cfg.vocab * B * (S - 1)
+            + 3 * 2 * B * cfg.n_heads * S * S * cfg.hd * cfg.n_layers)
+
+
+def _non_embedding(model: Model) -> int:
+    return sum(p.numel() for n, p in model.named_parameters() if n != "embed.tok")
+
+
+def _train_time_steps(tag: str, model: Model) -> None:
+    """(b) and the timings: one step through ``build_train_step`` with the
+    launch counters set to 0 just before it (exactly 2 x L flash and add +
+    norm calls: forward and remat's recompute; no decode attention, no
+    scan); then TRAIN_TIMED_STEPS steps split by CUDA events into forward,
+    backward and optimizer."""
+    cfg = model.cfg
+    ocfg = train_opt.OptimizerConfig()
+    params = model.params
+    state = train_opt.init_state(params, ocfg)
+    step = build_train_step(model, ocfg)
+    batch = _train_batch(cfg)
+    for _ in range(2):                      # warm-up: cuBLAS handles, allocator
+        step(params, state, batch)
+    torch.cuda.synchronize()
+    _reset_launches()
+    _, _, m = step(params, state, batch)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    need = {"flash_attention": 2 * cfg.n_layers, "fused_add_rmsnorm": 2 * cfg.n_layers,
+            "decode_attention": 0, "ssd": 0}
+    if launches != need:
+        raise AssertionError(f"{tag}: one train step launched {launches}, not {need}")
+    say(tag, f"(b) one train step launched {launches}: {cfg.n_layers} layers x (forward + "
+             "remat recompute); the backward of each is the plain version's gradient")
+
+    leaves = train_opt.tree_leaves(params)
+    dtypes = train_opt.tree_map(lambda p: p.dtype, params)
+    gdt = getattr(torch, ocfg.grad_dtype)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss, _ = model.loss(batch)
+        ev[1].record()
+        grads = [g.to(gdt) for g in torch.autograd.grad(loss, leaves)]
+        ev[2].record()
+        grads = train_opt.tree_unflatten(params, grads)
+        new, state = train_opt.apply_updates(grads, state, ocfg, dtypes)
+        with torch.no_grad():
+            train_opt.tree_map(lambda p, w: p.copy_(w), params, new)
+        ev[3].record()
+        ev[3].synchronize()
+        times.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        del grads, new
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fwd, bwd, optim = (float(np.median(c)) for c in zip(*times))
+    total = float(np.median([sum(t) for t in times]))
+    flops = _train_flops(model)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    plain = _plain_backward_ms(model)
+    attn_bwd = cfg.n_layers * plain["flash_attention"][0]
+    rms_bwd = cfg.n_layers * plain["fused_add_rmsnorm"][0]
+    say(tag, f"step (median of {TRAIN_TIMED_STEPS}, CUDA events) {total:.3f} ms: forward "
+             f"{fwd:.3f}, backward {bwd:.3f} (remat's recompute included; the plain attention "
+             f"backward {plain['flash_attention'][0]:.4f} ms a call alone, x {cfg.n_layers} = "
+             f"{attn_bwd:.3f} ms, {attn_bwd / bwd:.1%} of it; SDPA's forward + backward "
+             f"{plain['flash_attention'][2]:.4f} ms a call; the plain add + norm backward "
+             f"{plain['fused_add_rmsnorm'][0]:.4f} ms a call, x {cfg.n_layers} = "
+             f"{rms_bwd:.3f}), optimizer {optim:.3f}")
+    say(tag, f"{tokens / total * 1e3:.1f} tokens/s; model FLOPs {flops / 1e12:.3f} TFLOP a "
+             f"step (6 x {_non_embedding(model) / 1e6:.1f} M non-embedding weights x "
+             f"{tokens} tokens + the tied unembedding + attention): "
+             f"MFU {flops / (total / 1e3) / PEAK_FLOPS[torch.bfloat16]:.3%} of the bf16 dense "
+             f"peak ({flops / PEAK_FLOPS[torch.bfloat16] * 1e3:.3f} ms at 989 TFLOP/s); peak "
+             f"allocated {peak:.3f} GiB; at the training shapes the flash kernel forward "
+             f"takes {plain['flash_attention'][1]:.4f} ms, the add + norm kernel "
+             f"{plain['fused_add_rmsnorm'][1]:.4f} ms")
+    if not np.isfinite(float(m["loss"])):
+        raise AssertionError(f"{tag}: non-finite loss {m}")
+
+
+def _train_run(model: Model, ocfg, steps: int, ckpt_dir: str) -> tuple:
+    """A Trainer of ``steps`` steps whose steps run as functions through a
+    FunctionService (one endpoint, one worker); returns (history, seconds)."""
+    svc = FunctionService()
+    svc.make_endpoint("train", n_executors=1, workers_per_executor=1)
+    try:
+        trainer = Trainer(model, ocfg, TrainConfig(
+            steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ, ckpt_every=TRAIN_CKPT_EVERY,
+            ckpt_dir=ckpt_dir, log_every=5), service=svc)
+        start = trainer.step
+        t0 = time.perf_counter()
+        history = trainer.run()
+        wall = time.perf_counter() - t0
+        ep = list(svc.endpoints.values())[0]
+        if ep.completed < steps - start:
+            raise AssertionError(f"the endpoint completed {ep.completed} steps, not "
+                                 f"{steps - start}: the steps did not go through the fabric")
+    finally:
+        svc.shutdown()
+    return start, history, wall
+
+
+def _train_resume(tag: str, model: Model) -> dict:
+    """(c) and (d): a Trainer runs TRAIN_STEPS steps through the fabric with a
+    checkpoint every TRAIN_CKPT_EVERY; with the newest checkpoint removed, a
+    second Trainer on the same directory resumes at TRAIN_CKPT_EVERY and its
+    losses must match the first run's; then a bf16 checkpoint's round trip.
+    Returns the two runs' launches."""
+    ocfg = train_opt.OptimizerConfig(warmup_steps=2, total_steps=TRAIN_STEPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "ckpt")
+        _reset_launches()
+        _, first, wall = _train_run(model, ocfg, TRAIN_STEPS, ckpt)
+        steps = Checkpointer(ckpt).list_steps()
+        if steps != [TRAIN_CKPT_EVERY, TRAIN_STEPS]:
+            raise AssertionError(f"{tag}: checkpoints at {steps}")
+        size = sum(f.stat().st_size for f in Path(ckpt).rglob("*.npy")) / 1e9 / len(steps)
+        shutil.rmtree(Path(ckpt) / f"step_{TRAIN_STEPS:08d}")
+        start, second, wall2 = _train_run(model, ocfg, TRAIN_STEPS, ckpt)
+        launches = _launch_counts()
+        losses = [h["loss"] for h in first]
+        resumed = [h["loss"] for h in second]
+        if start != TRAIN_CKPT_EVERY or [h["step"] for h in second] != list(
+                range(TRAIN_CKPT_EVERY + 1, TRAIN_STEPS + 1)):
+            raise AssertionError(f"{tag}: the second trainer started at {start} and ran "
+                                 f"{[h['step'] for h in second]}")
+        diff = float(np.max(np.abs(np.subtract(resumed, losses[TRAIN_CKPT_EVERY:]))))
+        early, late = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        say(tag, f"(c) {TRAIN_STEPS} steps through a FunctionService (one endpoint, one "
+                 f"worker), lr {ocfg.lr:g}: losses {' '.join(f'{x:.4f}' for x in losses)} in "
+                 f"{wall:.1f} s with checkpoints at {steps} ({size:.3f} GB each); resumed at "
+                 f"step {start} after removing step {TRAIN_STEPS}'s, steps "
+                 f"{TRAIN_CKPT_EVERY + 1}-{TRAIN_STEPS} in {wall2:.1f} s: max |dloss| "
+                 f"{diff:.3e} (tolerance {TRAIN_RESUME_TOL:g}); mean of the first 5 {early:.4f}, "
+                 f"of the last 5 {late:.4f}")
+        if not (np.all(np.isfinite(losses + resumed)) and diff <= TRAIN_RESUME_TOL
+                and late < early):
+            raise AssertionError(f"{tag}: resume |dloss| {diff:.3e}, first 5 {early}, last 5 "
+                                 f"{late}, or a non-finite loss")
+        need = {"flash_attention": 2 * model.cfg.n_layers, "fused_add_rmsnorm":
+                2 * model.cfg.n_layers, "decode_attention": 0, "ssd": 0}
+        ran = len(first) + len(second)
+        if launches != {k: n * ran for k, n in need.items()}:
+            raise AssertionError(f"{tag}: {ran} trainer steps launched {launches}")
+
+        # (d) a bf16 checkpoint restores to bf16 tensors equal to those saved
+        ck = Checkpointer(str(Path(tmp) / "bf16"), async_save=False)
+        ck.save(0, model.params)
+        _, back = ck.restore(model.params)
+        pairs = list(zip(train_opt.tree_leaves(back), train_opt.tree_leaves(model.params)))
+        if any(b.dtype != p.dtype or not torch.equal(b.to(DEVICE), p) for b, p in pairs):
+            raise AssertionError(f"{tag}: a restored weight differs in dtype or value")
+        n_bf16 = sum(p.dtype == torch.bfloat16 for _, p in pairs)
+        say(tag, f"(d) a checkpoint of the {len(pairs)} weights restored equal, the "
+                 f"{n_bf16} bf16 leaves as bf16 (the fp32 norm scales as fp32)")
+    return launches
+
+
+def phase_train() -> dict:
+    """Full-width qwen2-0.5b trained on the card: (a) kernel gradients against
+    the plain path, (b) the launches of one step and the step's time split,
+    (c) 20 steps through the fabric and a resume from step 10, (d) a bf16
+    checkpoint's round trip. Returns the trainer runs' launches."""
+    tag = "train"
+    t0 = time.perf_counter()
+    say(tag, f"{ARCH} bf16 at full width, B = {TRAIN_BATCH}, S = {TRAIN_SEQ}, remat on, "
+             "random weights from seed 0, the reference's synthetic token stream")
+    _train_check_grads(tag)
+    model = _train_model("bfloat16")
+    _train_time_steps(tag, model)
+    launches = _train_resume(tag, model)
+    del model
+    torch.cuda.empty_cache()
+    say(tag, f"wall {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -1890,6 +2194,9 @@ def main() -> int:
                     fabric_launches[k] += n
         del model                               # free the weights before the next family
         torch.cuda.empty_cache()
+        if arch == ARCH:                        # training, on its own model
+            for k, n in phase_train().items():
+                launches[k] += n
     if not all(fabric_launches.values()):
         raise AssertionError(f"the fabric phases launched {fabric_launches}: a kernel of the "
                              "port ran in none of them")

@@ -11,17 +11,23 @@ then. Given CUDA tensors it checks them, allocates the output with
 ``torch.empty``, launches on the current stream, raises if the launch failed,
 and adds one to ``LAUNCHES[name]``. It never falls back to the plain version
 on the card. The libraries are built by ``nvcc`` at first use (``build()``).
+
+Under autograd (an input that requires grad, grad mode on) ``flash_attention``
+launches through ``KernelWithPlainGrad``: the kernel forward, the gradient of
+``ref.mha_reference`` backward (training runs it twice a layer with remat:
+forward and recompute). ``decode_attention`` is on no training path and raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from pathlib import Path
 from typing import Dict, Optional
 
 import torch
 
-from .. import _build
+from .. import KernelWithPlainGrad, _build, records_grad, refuse_grad
 from . import ref
 
 CSRC = Path(__file__).parent / "csrc"
@@ -149,9 +155,16 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset=None, kv_len=None,
     """GQA attention. q (B,Sq,H,dqk); k (B,Skv,KV,dqk), v (B,Skv,KV,dv) ->
     (B,Sq,H,dv). ``q_offset`` is a scalar; ``kv_len`` a scalar or one length
     per row."""
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, scale=scale)
     if q.device.type == "cpu":
-        return ref.mha_reference(q, k, v, causal=causal, q_offset=q_offset,
-                                 kv_len=kv_len, scale=scale)
+        return ref.mha_reference(q, k, v, **kw)
+    if records_grad(q, k, v):
+        return KernelWithPlainGrad.apply(functools.partial(_flash_launch, **kw),
+                                         functools.partial(ref.mha_reference, **kw), q, k, v)
+    return _flash_launch(q, k, v, **kw)
+
+
+def _flash_launch(q, k, v, *, causal: bool, q_offset, kv_len, scale) -> torch.Tensor:
     _check(q, k, v, "flash_attention")
     B, Sq, H, dqk = q.shape
     Skv, KV, dv = k.shape[1], k.shape[2], v.shape[-1]
@@ -180,6 +193,7 @@ def decode_attention(q, k_cache, v_cache, pos, *, scale: Optional[float] = None)
     scalar or (B,) (continuous batching)."""
     if q.device.type == "cpu":
         return ref.decode_attention_reference(q, k_cache, v_cache, pos, scale=scale)
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     _check(q, k_cache, v_cache, "decode_attention")
     B, Sq, H, dqk = q.shape
     if Sq != 1:

@@ -9,18 +9,22 @@ A wrapper given CPU tensors computes the plain version in ``ref.py``, and only
 then. Given CUDA tensors it checks them, allocates both outputs with
 ``torch.empty``, launches on the current stream, raises if the launch failed,
 and adds one to ``LAUNCHES["fused_add_rmsnorm"]``. The library is built by
-``nvcc`` at first use (``build()``).
+``nvcc`` at first use (``build()``). Under autograd (an input that requires
+grad, grad mode on) it launches through ``KernelWithPlainGrad``: the kernel
+forward, the gradient of ``ref.fused_add_rmsnorm_reference`` for x, delta and
+the fp32 scale backward.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from pathlib import Path
 from typing import Dict, Tuple
 
 import torch
 
-from .. import _build
+from .. import KernelWithPlainGrad, _build, records_grad
 from . import ref
 
 CSRC = Path(__file__).parent / "csrc"
@@ -121,6 +125,14 @@ def fused_add_rmsnorm(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
     (D,) fp32; both outputs contiguous in x's dtype."""
     if x.device.type == "cpu":
         return ref.fused_add_rmsnorm_reference(x, delta, scale, eps)
+    if records_grad(x, delta, scale):
+        return KernelWithPlainGrad.apply(
+            functools.partial(_launch, eps=eps),
+            functools.partial(ref.fused_add_rmsnorm_reference, eps=eps), x, delta, scale)
+    return _launch(x, delta, scale, eps=eps)
+
+
+def _launch(x, delta, scale, *, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(x, delta, scale)
     D = x.shape[-1]
     res = torch.empty(x.shape, dtype=x.dtype, device=x.device)

@@ -11,7 +11,9 @@ the bf16 passes' scratch with ``torch.empty``, launches on the current stream,
 raises if the launch failed, and adds one to ``LAUNCHES["ssd"]``. In bf16 one
 call is up to three device launches (chunk state, state passing, output; the
 launch decision lives in ``csrc/ssd.cu``); ``LAUNCHES`` counts calls. The
-library is built by ``nvcc`` at first use (``build()``).
+library is built by ``nvcc`` at first use (``build()``). It has no gradient
+yet: under autograd (an input that requires grad, grad mode on) it raises, so
+the ssm and hybrid families do not train on the card.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_grad
 from . import ref
 
 CSRC = Path(__file__).parent / "csrc"
@@ -125,6 +127,7 @@ def ssd(x, dt, A, B_, C_, *, chunk: int = 256, initial_state: Optional[torch.Ten
     if x.device.type == "cpu":
         return ref.ssd_reference(x, dt, A, B_, C_, chunk=chunk, initial_state=initial_state,
                                  return_final_state=return_final_state)
+    refuse_grad("ssd", x, dt, A, B_, C_, initial_state)
     _check(x, dt, A, B_, C_, chunk, initial_state)
     Bb, S, H, P = x.shape
     G, N = B_.shape[2], B_.shape[3]

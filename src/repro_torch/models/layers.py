@@ -138,3 +138,16 @@ def logits_from(h: torch.Tensor, unembed_p: Optional[Params], embed_p: Params) -
     if unembed_p is not None:
         return (h @ unembed_p["w"]).float()
     return (h @ embed_p["tok"].t()).float()
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token NLL of fp32 logits (B, S, V) at integer targets (B, S);
+    with ``mask`` (B, S), 1.0 where counted, the masked sum over
+    ``max(mask.sum(), 1)``."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(nll.dtype)
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -20,6 +20,7 @@ so its caches and positions count the patches before the prompt.
 
 API (the JAX one without the ``params`` argument, which the module holds):
     init(generator)                      -> self (weights drawn in place)
+    loss(batch)                          -> (scalar, {"ce", "aux", "loss"})
     forward(batch)                       -> (hidden_states, aux_loss)
     prefill(batch)                       -> (last_logits (B, V), cache)
     decode_step(token, cache, pos)       -> (logits (B, V), cache updated in place)
@@ -34,6 +35,18 @@ API (the JAX one without the ``params`` argument, which the module holds):
         vlm    the dense tree, S counting the patches
     cache_batch_axes()                   -> the batch axis of each cache leaf
 cache_len_of(cache) and build_model(cfg) are the reference's serving helpers.
+
+Training: the weights are registered with ``requires_grad=False``, so serving
+records no graph; ``model.requires_grad_(True)`` makes them trainable. A
+forward that autograd records (grad mode on and a weight that requires grad)
+takes its per-layer weights by ``torch.unbind`` of the stacked parameters on
+each call, so their gradients reach the stacks (one stacking backward per
+stack), and with ``cfg.remat`` runs each layer call under
+``torch.utils.checkpoint`` (non-reentrant): the reference's ``jax.checkpoint``
+with policy "nothing" around its scan body. The port checkpoints each block
+call (the hybrid's shared block and each Mamba2 layer apart, where the
+reference nests the group's). Other forwards use the per-layer views taken
+once at construction, which the graphed decode step relies on.
 """
 from __future__ import annotations
 
@@ -43,11 +56,13 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import blocks, layers, mamba2
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+AUX_COEF = 0.01   # the MoE load-balance loss's weight (repro/models/model.py:29)
 
 
 def _as_module(tree: dict, module: nn.Module) -> nn.Module:
@@ -68,6 +83,14 @@ def _as_tree(module: nn.Module) -> dict:
 
 def _index(tree: dict, i) -> dict:
     return {k: _index(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def _unbind(tree: dict) -> list:
+    """A tree stacked on axis 0 -> one tree per index, views by ``torch.unbind``
+    (whose backward stacks the indices' gradients once)."""
+    parts = {k: _unbind(v) if isinstance(v, dict) else v.unbind(0) for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: part[i] for k, part in parts.items()} for i in range(n)]
 
 
 def _stack(per_layer: list) -> dict:
@@ -198,6 +221,36 @@ class Model(nn.Module):
             h = h + pos.to(h.dtype)[None]
         return h
 
+    # ============================================================= training
+    def _records_grad(self) -> bool:
+        """Whether autograd records this forward: grad mode on and a weight
+        that requires grad."""
+        return torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
+
+    def _remat(self, fn):
+        """``fn`` under ``torch.utils.checkpoint`` when this forward is
+        recorded and ``cfg.remat`` is set (policy "nothing": only the call's
+        inputs are kept, the rest recomputed in the backward), else ``fn``."""
+        cfg = self.cfg
+        if not (cfg.remat and self._records_grad()):
+            return fn
+        if cfg.remat_policy != "nothing":
+            raise NotImplementedError(
+                f"remat_policy {cfg.remat_policy!r} is not ported (ROADMAP A5); "
+                "the port keeps 'nothing'")
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+
+    def _per_layer(self, name: str = "layers") -> list:
+        """The per-layer weight trees of stack ``name`` (the hybrid's: one list
+        of PG per group): views taken now by ``torch.unbind`` when autograd
+        records this forward, else the views taken at construction."""
+        if not self._records_grad():
+            return self._enc_layer_params if name == "enc_layers" else self._layer_params
+        per_layer = _unbind(self.params[name])
+        if self.cfg.family == "hybrid":
+            return [_unbind(group) for group in per_layer]
+        return per_layer
+
     def _encode(self, batch) -> torch.Tensor:
         """The encoder over ``batch["frames"]`` (B, enc_seq, d_model): the
         frames cast to the model dtype plus the sinusoidal table, the encoder
@@ -206,8 +259,9 @@ class Model(nn.Module):
         frames = torch.as_tensor(batch["frames"], device=self.device).to(layers.dtype_of(cfg))
         pos = layers.sinusoidal_positions(frames.shape[1], cfg.d_model, self.device)
         h = frames + pos.to(frames.dtype)[None]
-        for lp in self._enc_layer_params:
-            h = blocks.encoder_layer(lp, h, cfg, self.kernel_impl)
+        layer = self._remat(blocks.encoder_layer)
+        for lp in self._per_layer("enc_layers"):
+            h = layer(lp, h, cfg, self.kernel_impl)
         return layers.layernorm(h, self.params["enc_norm"], cfg.norm_eps)
 
     def _final_norm(self, h: torch.Tensor) -> torch.Tensor:
@@ -237,26 +291,30 @@ class Model(nn.Module):
         positions = torch.arange(h.shape[1], device=self.device)
         aux = 0.0
         per_layer = []  # kept only with return_state
+        decoder_layer = self._remat(blocks.decoder_layer)
+        ssm_layer = self._remat(functools.partial(blocks.ssm_layer, return_state=return_state,
+                                                  impl=impl))
         if cfg.family == "hybrid":
-            for group in self._layer_params:
-                h, _, (k, v) = blocks.decoder_layer(self._shared, h, cfg, positions, impl)
+            for group in self._per_layer():
+                h, _, (k, v) = decoder_layer(self._shared, h, cfg, positions, impl)
                 states = []
                 for lp in group:
-                    h, state = blocks.ssm_layer(lp, h, cfg, return_state=return_state, impl=impl)
+                    h, state = ssm_layer(lp, h, cfg)
                     states.append(state)
                 if return_state:
                     per_layer.append({"attn": {"k": k, "v": v}, "mamba": _stack(states)})
         elif cfg.family == "encdec":
-            for lp in self._layer_params:
-                h, ((k, v), (ck, cv)) = blocks.cross_decoder_layer(lp, h, enc, cfg, impl)
+            cross_decoder_layer = self._remat(blocks.cross_decoder_layer)
+            for lp in self._per_layer():
+                h, ((k, v), (ck, cv)) = cross_decoder_layer(lp, h, enc, cfg, impl)
                 if return_state:
                     per_layer.append({"k": k, "v": v, "cross_k": ck, "cross_v": cv})
         else:
-            for lp in self._layer_params:
+            for lp in self._per_layer():
                 if cfg.family == "ssm":
-                    h, state = blocks.ssm_layer(lp, h, cfg, return_state=return_state, impl=impl)
+                    h, state = ssm_layer(lp, h, cfg)
                 else:
-                    h, a, kv = blocks.decoder_layer(lp, h, cfg, positions, impl)
+                    h, a, kv = decoder_layer(lp, h, cfg, positions, impl)
                     if cfg.family == "moe":
                         aux = aux + a
                     state = self._pack_kv(kv)
@@ -283,6 +341,30 @@ class Model(nn.Module):
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         p = self.params
         return layers.logits_from(h, p.get("unembed"), p["embed"])
+
+    # ================================================================= loss
+    def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross-entropy plus ``AUX_COEF`` x the MoE aux loss.
+        Returns (total, {"ce", "aux", "loss"}). The VLM scores rows P - 1 ..
+        P - 1 + St (the last patch predicts the first token) against all St
+        tokens, its ``loss_mask`` (B, St) unshifted; the other families score
+        ``h[:, :-1]`` against ``tokens[:, 1:]`` and shift the mask alike."""
+        cfg = self.cfg
+        h, aux = self.forward(batch)
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        if cfg.family == "vlm":
+            P, St = cfg.n_patches, tokens.shape[1]
+            h_lm, targets = h[:, P - 1:P - 1 + St], tokens
+        else:
+            h_lm, targets = h[:, :-1], tokens[:, 1:]
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=self.device)
+            if cfg.family != "vlm":
+                mask = mask[:, 1:]
+        ce = layers.cross_entropy_loss(self._logits(h_lm), targets, mask)
+        total = ce + AUX_COEF * aux
+        return total, {"ce": ce, "aux": aux, "loss": total}
 
     # ============================================================== prefill
     def prefill(self, batch) -> Tuple[torch.Tensor, dict]:

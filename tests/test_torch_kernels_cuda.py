@@ -768,3 +768,112 @@ def test_model_kernel_path_matches_plain_path(arch, cuda_device):
             steps.append(logits)
         outs[impl] = torch.stack(steps)
     torch.testing.assert_close(outs["auto"], outs["ref"], rtol=2e-4, atol=2e-4)
+
+
+# ------------------------------------------------------------ gradients
+# Under autograd the attention and add + norm wrappers launch their kernel
+# forward through ``KernelWithPlainGrad``, whose backward is the plain
+# version's gradient recomputed from the saved inputs; decode attention and
+# the scan, on no training path, raise.
+GRAD_FLASH_SHAPES = [(2, 64, 64, 4, 2, 32), (8, 1024, 1024, 14, 2, 64)]  # small; qwen2 training
+GRAD_RMS_SHAPES = [(2, 5, 64), (8, 1024, 896)]                            # small; qwen2 training
+
+
+def _close_grads(got, want, dtype, tol):
+    for g, w in zip(got, want):
+        assert g is not None and g.dtype == w.dtype
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", GRAD_FLASH_SHAPES, ids=str)
+def test_flash_gradients_are_the_plain_versions(shape, dtype, cuda_device):
+    B, Sq, Skv, H, KV, hd = shape
+    tdt, tol = DTYPES[dtype]
+    q, k, v, go = _inputs(cuda_device, tdt, 7, (B, Sq, H, hd), (B, Skv, KV, hd),
+                          (B, Skv, KV, hd), (B, Sq, H, hd))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = tkernel.LAUNCHES["flash_attention"]
+    out = tkernel.flash_attention(q, k, v, causal=True)
+    assert tkernel.LAUNCHES["flash_attention"] == before + 1
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), go)
+    assert tkernel.LAUNCHES["flash_attention"] == before + 1   # the backward is plain
+    want_out = tref.mha_reference(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=tol, atol=tol)
+    _close_grads(got, torch.autograd.grad(want_out, (q, k, v), go), dtype, tol)
+
+
+@pytest.mark.parametrize("dtype", list(RMS_DTYPES))
+@pytest.mark.parametrize("shape", GRAD_RMS_SHAPES, ids=str)
+def test_fused_add_rmsnorm_gradients_are_the_plain_versions(shape, dtype, cuda_device):
+    tdt, tol = RMS_DTYPES[dtype]
+    x, d, scale = _rms_inputs(cuda_device, tdt, 8, shape)
+    g_res, g_out = _rms_inputs(cuda_device, tdt, 9, shape)[:2]
+    x, d, scale = (t.requires_grad_() for t in (x, d, scale))
+    before = rms_kernel.LAUNCHES["fused_add_rmsnorm"]
+    res, out = rms_kernel.fused_add_rmsnorm(x, d, scale, 1e-6)
+    assert rms_kernel.LAUNCHES["fused_add_rmsnorm"] == before + 1
+    assert res.grad_fn is not None and out.grad_fn is not None
+    got = torch.autograd.grad((res, out), (x, d, scale), (g_res, g_out))
+    want = rms_ref.fused_add_rmsnorm_reference(x, d, scale, 1e-6)
+    _close_grads(got, torch.autograd.grad(want, (x, d, scale), (g_res, g_out)), dtype,
+                 tol if dtype == "bfloat16" else 1e-5)
+
+
+def test_decode_attention_and_ssd_raise_under_grad(cuda_device):
+    q, kc, vc = _inputs(cuda_device, torch.float32, 10, (2, 1, 4, 16), (2, 32, 2, 16),
+                        (2, 32, 2, 16))
+    with pytest.raises(RuntimeError, match="no gradient"):
+        tkernel.decode_attention(q.requires_grad_(), kc, vc, 5)
+    x, dt, A, B_, C_ = _ssd_inputs(cuda_device, torch.float32, 11, 1, 64, 2, 16, 1, 16)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ssd_kernel.ssd(x, dt, A.requires_grad_(), B_, C_, chunk=16)
+    with torch.no_grad():   # the same calls outside autograd launch
+        tkernel.decode_attention(q, kc, vc, 5)
+        ssd_kernel.ssd(x, dt, A, B_, C_, chunk=16)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen2-moe-a2.7b", "minicpm3-4b",
+                                  "whisper-small", "internvl2-26b"])
+def test_model_loss_backward_reaches_every_weight(arch, cuda_device):
+    """A reduced model's loss backward through the kernels (remat on) gives
+    every weight a nonzero gradient, close to the plain path's (f32), and
+    launches flash attention and the add + norm twice a layer: forward and
+    recompute."""
+    cfg = get_reduced(arch).with_(dtype="float32")
+    model = Model(cfg, device=cuda_device).init(torch.Generator(cuda_device).manual_seed(0))
+    model.requires_grad_(True)
+    r = np.random.default_rng(12)
+    batch = {"tokens": torch.from_numpy(r.integers(0, cfg.vocab, (2, 24))).to(cuda_device)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn(2, cfg.n_patches, cfg.d_model, device=cuda_device)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(2, cfg.enc_seq, cfg.d_model, device=cuda_device)
+    names, leaves = zip(*model.named_parameters())
+    grads = {}
+    for impl in ("auto", "ref"):
+        model.kernel_impl = impl
+        tkernel.reset_launches()
+        rms_kernel.reset_launches()
+        loss, _ = model.loss(batch)
+        grads[impl] = torch.autograd.grad(loss, leaves)
+        if impl == "auto":
+            encdec = cfg.family == "encdec"   # encoder self, decoder self + cross; LayerNorms
+            per_forward = cfg.n_enc_layers + 2 * cfg.n_layers if encdec else cfg.n_layers
+            assert tkernel.LAUNCHES["flash_attention"] == 2 * per_forward
+            assert rms_kernel.LAUNCHES["fused_add_rmsnorm"] == (0 if encdec else 2 * cfg.n_layers)
+            assert tkernel.LAUNCHES["decode_attention"] == 0
+    for name, g, w in zip(names, grads["auto"], grads["ref"]):
+        assert g is not None and float(g.abs().max()) > 0, f"{name} has no gradient"
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
+def test_ssm_families_do_not_train_on_the_card_yet(arch, cuda_device):
+    cfg = get_reduced(arch).with_(dtype="float32")
+    model = Model(cfg, device=cuda_device).init(torch.Generator(cuda_device).manual_seed(0))
+    model.requires_grad_(True)
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(0, cfg.vocab, (2, 24)))
+    with pytest.raises(RuntimeError, match="ssd has no gradient"):
+        model.loss({"tokens": tokens.to(cuda_device)})
