@@ -8,9 +8,9 @@ order, each printing its lines; any failure raises and the exit code is not 0:
 
 1. device          - require CUDA and compute capability 9.0; print the card's
                      name and power limit (nvidia-smi); fp32 products in full fp32.
-2. build            - compile the four kernels from ``src/repro_torch`` with nvcc
+2. build           - compile the four kernels from ``src/repro_torch`` with nvcc
                      for sm_90a, one nvcc per source, all started together.
-3. kernels          - hold each attention kernel against its plain PyTorch version
+3. kernels         - hold each attention kernel against its plain PyTorch version
                      (ref.py) at 2e-5 (f32) / 2e-2 (bf16) on the reference's test
                      shapes, prefill at hd 80, 128 and 24 (the bf16 wgmma kernel's
                      two-slab and zero-padded head dims), decode at lengths around
@@ -29,8 +29,12 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      ``F.scaled_dot_product_attention`` (a yardstick only) there,
                      and each SDPA backend that takes the shape; beside the Sq = 1
                      cross row, ``decode_attention`` at pos 1499 on the same
-                     tensors (the same function by the other kernel, timed only).
-4. kernels-rmsnorm  - hold the fused add + RMSNorm kernel against its plain
+                     tensors (the same function by the other kernel, timed only);
+                     decode attention at the shapes phase's lengths (B 128
+                     over 32768 positions at qwen2's heads, B 1 over 524288 at
+                     zamba2's) against its plain version on 8 rows, timed
+                     whole and by pass (split, combine).
+4. kernels-rmsnorm - hold the fused add + RMSNorm kernel against its plain
                      version at 1e-6 (f32) / 1e-2 (bf16) on the reference's sweep
                      and the slices' rows (d_model 896, 2560 and 2048, 512-token
                      prefill and 8-slot decode; internvl2-26b's 6144, a
@@ -47,7 +51,7 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      thread holding ceil(D / 4096) 8-wide chunks, just enough
                      threads in whole warps (128 of one chunk at D = 896, 320
                      at 2560, 384 of two chunks at 6144).
-5. kernels-ssd      - hold the SSD scan against its plain version at 1e-4 (f32) /
+5. kernels-ssd     - hold the SSD scan against its plain version at 1e-4 (f32) /
                      5e-2 (bf16) on the reference's shapes, a ragged chunk, a
                      dt = 0 padded tail, a nonzero initial state and, at the full
                      80 heads, three chunks, chunks of 1 and 2, a batch of 2 from
@@ -56,29 +60,32 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      N = 64); time kernel and plain version there (no single
                      PyTorch call computes the scan, so there is no library time),
                      and each bf16 pass's device time (torch.profiler).
-6. slice            - full-width qwen2-0.5b, random weights from seed 0: prefill
+6. slice           - full-width qwen2-0.5b, random weights from seed 0: prefill
                      4 x 384 tokens then 16 teacher-forced decode steps with vector
                      positions, kernel path against the plain path on the same
                      weights.
-7. serve            - ServeEngine on full-width bf16 qwen2-0.5b answers 16
+7. serve           - ServeEngine on full-width bf16 qwen2-0.5b answers 16
                      requests, its decode step one CUDA graph replay (the main
                      path); the launch counters must show both attention
                      kernels and the fused add + RMSNorm on the path. One
                      replay under torch.profiler must launch on the device what
                      the capture counted (decode_attention two kernels a call,
-                     fused_add_rmsnorm one). Then an eager engine
+                     fused_add_rmsnorm one): the graph's kernel nodes
+                     exactly, and the profile no fewer than the records it
+                     lost allow (the profiler drops a few late in a long
+                     process). Then an eager engine
                      (cuda_graph=False) answers the same 16: the two token
                      streams must be equal, or part only at a near-tie within
                      the slice's bf16 tolerance. Each engine's throughput,
                      TTFT, step time and peak memory are printed, and the
                      graph's build time and node count.
-8. fabric-frontdoor - the same 16 requests as fabric tasks through the serve
+8. fabric-frontdoor- the same 16 requests as fabric tasks through the serve
                      driver's path (``launch/serve.py``: FunctionService ->
                      Forwarder -> Endpoint -> worker -> a pass-through
                      ``generate`` on a graphed engine); streams held to the
                      serve phase's graphed ones under its near-tie rule;
                      throughput and TTFT beside the direct engine's.
-9. fabric           - ``serve_model`` over two ``torch`` endpoints and a
+9. fabric          - ``serve_model`` over two ``torch`` endpoints and a
                      journal: 8 concurrent sessions of 64 tokens (the serve
                      phase's first 8 prompts) on batched hosts (a graph replay
                      a coalesced step), then on unbatched hosts, then 4
@@ -116,32 +123,52 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      every loss finite, the last 5 below the first 5 on average,
                      48 + 48 launches a step; (d) a bf16 checkpoint of the
                      weights restores to bf16 tensors equal to those saved.
-11. slice-ssm       - the same as slice for full-width mamba2-2.7b (prefills pad
+11. slice-ssm      - the same as slice for full-width mamba2-2.7b (prefills pad
                      384 to 512).
-12. serve-ssm       - the same as serve for full-width bf16 mamba2-2.7b; the
+12. serve-ssm      - the same as serve for full-width bf16 mamba2-2.7b; the
                      counters must show the SSD kernel in every layer's prefill
                      and none of the other three (its step runs no kernel of
                      the repo).
-13. slice-hybrid    - the same for full-width zamba2-2.7b (54 Mamba2 layers in 9
+13. train-ssm      - full-width mamba2-2.7b trained on the card on its own model
+                     after serve-ssm frees its (bf16, B = 8 unless one step's
+                     peak leaves under 8 GiB free, then 4, said on the line; S =
+                     1024, remat on): (a) on the bf16 weights' values in f32,
+                     the loss and every gradient leaf through the kernels
+                     against the plain path within 1e-4 / 1e-3; in bf16 |dloss|
+                     within 0.02 and each leaf's relative L2 distance to those
+                     f32 plain gradients at most 1.25 x the plain bf16 path's
+                     own (both ~9% there: two bf16 paths cannot meet 0.05);
+                     (b) one step launches exactly 128 `ssd` calls (64 forward
+                     + 64 remat) and nothing else, the step split into forward,
+                     backward (each plain scan backward's time a call beside
+                     the kernel forward) and optimizer, tokens/s, MFU, peak;
+                     (c) 10 steps through a ``Trainer`` on a FunctionService,
+                     the mean of the last 3 losses below the first 3's, 128
+                     launches a step.
+14. slice-hybrid   - the same for full-width zamba2-2.7b (54 Mamba2 layers in 9
                      groups of 6, one shared attention + MLP block before each).
-14. serve-hybrid    - the same for full-width bf16 zamba2-2.7b; the counters
+15. serve-hybrid   - the same for full-width bf16 zamba2-2.7b; the counters
                      must show all four kernels: the shared block's attention
                      and add + norm 9 times per prefill and per step, the SSD
                      scan 54 times per prefill.
-15. fabric-hybrid   - 4 sessions of 32 tokens on one ``torch`` endpoint through
+16. fabric-hybrid  - 4 sessions of 32 tokens on one ``torch`` endpoint through
                      the unbatched host (each session's cache holds max_len
                      positions), held to serve-hybrid's graphed streams under
                      the hybrid's near-tie bound; all four kernels must launch.
-16. slice-moe       - the same as slice for full-width qwen2-moe-a2.7b (60 routed
+17. train-hybrid   - the same for full-width zamba2-2.7b after fabric-hybrid:
+                     108 `ssd`, 18 flash attention and 18 add + norm calls a
+                     step (54 Mamba2 layers and 9 shared-block calls, each
+                     twice).
+18. slice-moe      - the same as slice for full-width qwen2-moe-a2.7b (60 routed
                      experts top-4 with capacity drop, a gated shared expert);
                      the f32 check runs 8 of its 24 layers (a depth cut: the
                      full-width f32 model is 57 GB), bf16 all 24. Routing flips
                      between the two paths (tokens x layers whose top-4 expert
                      set differs) are counted and printed.
-17. serve-moe       - the same as serve for full-width bf16 qwen2-moe-a2.7b: flash
+19. serve-moe      - the same as serve for full-width bf16 qwen2-moe-a2.7b: flash
                      attention, decode attention and the add + norm 24 times a
                      prefill and a step.
-18. fabric-moe      - ``serve_model`` on two ``torch`` endpoints with a journal, 8
+20. fabric-moe     - ``serve_model`` on two ``torch`` endpoints with a journal, 8
                      sessions of 64 tokens on batched hosts: at the published
                      capacity factor (every session's tokens, one affinity hit a
                      decode task, no duplicate commitment, coalescing; how many
@@ -150,22 +177,22 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      same weights at capacity factor E / k = 15, where nothing
                      drops, held to a direct graphed engine's streams under the
                      near-tie rule.
-19. slice-mla       - the same as slice for full-width minicpm3-4b (62 layers of
+21. slice-mla      - the same as slice for full-width minicpm3-4b (62 layers of
                      Multi-head Latent Attention, 40 heads, d_model 2560, vocab
                      73448), f32 (17 GB) and bf16, no cut.
-20. serve-mla       - the same as serve for full-width bf16 minicpm3-4b: flash
+22. serve-mla      - the same as serve for full-width bf16 minicpm3-4b: flash
                      attention (dv 64 != dqk 96), decode attention (dqk 288, dv
                      256) and the add + norm 62 times a prefill and a step.
-21. fabric-mla      - ``serve_model`` on one ``torch`` endpoint, a batched host
+23. fabric-mla     - ``serve_model`` on one ``torch`` endpoint, a batched host
                      whose slots a ``cache_bytes`` budget of 4 sessions sets: 4
                      sessions of 32 tokens held to serve-mla's graphed streams
                      under the near-tie rule; then a fifth session refused by a
                      full host and admitted once a slot is released.
-22. slice-encdec    - the same as slice for full-width whisper-small (12 encoder
+24. slice-encdec   - the same as slice for full-width whisper-small (12 encoder
                      and 12 decoder layers, d_model 768, MHA 12/12 hd 64, vocab
                      51865), each prompt with its own random frames (1500 x 768,
                      numpy seed 3), f32 and bf16, no cut.
-23. serve-encdec    - a graphed ServeEngine(max_batch=8, max_len=448: whisper's
+25. serve-encdec   - a graphed ServeEngine(max_batch=8, max_len=448: whisper's
                      published text context) answers 16 requests of 4..64
                      tokens, each with its own random frames, then an eager one
                      answers the same 16, held as serve is; the counters must
@@ -173,25 +200,44 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      12 causal self, 12 cross) and 12 a step (cross-attention,
                      Sq = 1, captured in the graph), decode attention 12 a step,
                      and no add + norm (LayerNorms) and no scan.
-24. fabric-encdec   - ``serve_model`` on one ``torch`` endpoint with a journal: 4
+26. fabric-encdec  - ``serve_model`` on one ``torch`` endpoint with a journal: 4
                      sessions of 32 tokens, each with its frames (put once into
                      an object store; each task carries their key), through the
                      unbatched host, held to serve-encdec's graphed streams for
                      the same prompts and frames under the near-tie rule.
-25. slice-vlm       - the same as slice for full-width internvl2-26b (48 layers,
+27. shapes         - on an otherwise empty card, before the VLM's phases: the
+                     dry run's analysis (``launch/dryrun.py``, FLOPs from two
+                     calibration traces on the meta device) of all 40 cells of
+                     the reference's ``SHAPES``, one line each (applicable,
+                     FLOPs, modeled bytes, fits, the binding roofline term);
+                     then each decode cell that fits runs through
+                     ``build_decode_step`` at full width, bf16, its cache
+                     filled with seeded normal values, at pos = S - 1: the
+                     first 8 slots' next tokens through the kernels against
+                     the plain path's (the serve phases' near-tie rule), then
+                     the step at every slot, the median of 5 with the counters
+                     set to 0 just before them (exact counts); and qwen2-0.5b's
+                     prefill_32k through ``build_prefill_step`` at the largest
+                     batch the analysis fits (the cut printed), flash against
+                     its plain version on one row and one head at S = 32768,
+                     and each row's next token against a B = 1 prefill of it.
+                     Each cell: device ms, the analysis's bound (max(compute,
+                     memory) at 989 TFLOP/s and 3.35 TB/s), the fraction, the
+                     step's peak against the modeled one.
+28. slice-vlm      - the same as slice for full-width internvl2-26b (48 layers,
                      d_model 6144, GQA 48/8 hd 128, d_ff 16384, vocab 92553),
                      each prompt after its own 256 random patches (256 x 6144,
                      numpy seed 3); the f32 check runs 8 of its 48 layers (a
                      depth cut: the full-width f32 model is 79.6 GB, 8 layers
                      17.2 GB), bf16 all 48.
-26. serve-vlm       - a graphed ServeEngine(max_batch=8, max_len=1024) answers
+29. serve-vlm      - a graphed ServeEngine(max_batch=8, max_len=1024) answers
                      16 requests of 64..512 tokens, each after its own random
                      patches (a slot's positions count them), then an eager one
                      answers the same 16, held as serve is; the counters must
                      show exactly 48 flash calls a prefill, 48 decode
                      attention calls a step and 48 add + norm calls a prefill
                      and a step. Prints the step against its byte bound.
-27. fabric-vlm      - ``serve_model`` on two ``torch`` endpoints with a journal:
+30. fabric-vlm     - ``serve_model`` on two ``torch`` endpoints with a journal:
                      4 sessions of 32 tokens, each with its patches (put once
                      into an object store; each task carries their key),
                      through the unbatched host; the endpoint holding the
@@ -204,10 +250,11 @@ The VLM phases run last, after every other model is freed: internvl2-26b's
 39.8 GB of bf16 weights leave about 38 GB for its engine and hosts.
 Each family's slice, serve and fabric phases print their wall time.
 
-Each serve and fabric phase resets the launch counters just before it submits
-its requests and reads them just after; a replay adds the calls its capture
+Each serve, fabric, train and shapes run resets the launch counters just
+before it and reads them just after; a replay adds the calls its capture
 counted. The summary's ``launches`` of a kernel is its sum over the seven
-graphed serve runs, the fabric runs and the train phase's two trainer runs;
+graphed serve runs, the fabric runs, the train phase's two trainer runs, the
+train-ssm and train-hybrid trainer runs and the shapes phase's timed runs;
 the fabric phases together must have launched every kernel.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
@@ -249,7 +296,9 @@ from repro_torch.data.pipeline import synthetic_batch  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.training import optimizer as train_opt  # noqa: E402
-from repro_torch.training.steps import build_train_step  # noqa: E402
+from repro_torch.training.steps import (  # noqa: E402
+    build_decode_step, build_prefill_step, build_train_step)
+from repro_torch.launch import analysis, dryrun  # noqa: E402
 from repro_torch.training.train_loop import TrainConfig, Trainer  # noqa: E402
 from repro_torch.launch.serve import serve_through_front_door  # noqa: E402
 from repro_torch.serving import fabric, kv_cache  # noqa: E402
@@ -401,6 +450,29 @@ TRAIN_TIMED_STEPS = 5
 # the same weights and batch: |dloss| and each leaf's relative L2 difference
 TRAIN_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (0.02, 0.05)}
 TRAIN_RESUME_TOL = 1e-2     # a resumed run's losses against the straight run's
+# the scan families' bf16 gradients: each leaf's relative L2 distance to the
+# f32 plain gradients on the same weights at most this multiple of the plain
+# bf16 path's own distance (on an H100 at seed 0 both are ~9% for mamba2-2.7b,
+# against ~2.6% for qwen2-0.5b; the kernel path's ratio read 1.01 at most
+# there, qwen2's 1.11)
+TRAIN_BF16_TRUTH_RATIO = 1.25
+# the train-ssm and train-hybrid phases: TRAIN_BATCH unless one step's peak
+# leaves under TRAIN_MIN_FREE_GIB free (the plain scan's backward at (8, 1024,
+# 80, 64) holds several fp32 (B, H, chunks, 256, 256) tensors, 671 MB each),
+# then TRAIN_SMALL_BATCH; TRAIN_SCAN_STEPS steps through the fabric
+TRAIN_MIN_FREE_GIB, TRAIN_SMALL_BATCH, TRAIN_SCAN_STEPS = 8, 4, 10
+
+# the shapes phase: the reference's assigned cells (launch/dryrun.py); each
+# decode cell's kernel-against-plain check takes the first 8 slots (so the
+# plain attention's expanded K/V fits beside the cache), each family at its
+# serve phases' near-tie bound
+SHAPES_CHECK_SLOTS, SHAPES_DECODE_REPS = 8, 5
+# one layer's decode attention in qwen2-0.5b's decode_32k cell and
+# zamba2-2.7b's long_500k cell: B, S, H, KV, hd
+LONG_DECODE_SHAPES = {"decode_32k": (128, 32768, 14, 2, 64),
+                      "long_500k": (1, 524288, 32, 32, 80)}
+SHAPES_TOL = {ARCH: SLICE_BF16_TOL, SSM_ARCH: SLICE_SSM_BF16_TOL,
+              HYBRID_ARCH: SLICE_HYBRID_BF16_TOL}
 
 
 def say(phase: str, msg: str) -> None:
@@ -570,7 +642,36 @@ def phase_kernels() -> dict:
     _attn_slice_rows(gen, MLA_PREFILL_SHAPE, MLA_DECODE_SHAPE, pos_mla, MLA_ARCH, scale=MLA_SCALE)
     _whisper_attn_rows(gen)
     _attn_slice_rows(gen, VLM_PREFILL_SHAPE, VLM_DECODE_SHAPE, pos_np, VLM_ARCH)
+    _long_decode_rows(gen)
     return rows
+
+
+def _long_decode_rows(gen) -> None:
+    """Decode attention at the shapes phase's lengths, early in the run, where
+    the profiler still records every pass: one layer's call at
+    LONG_DECODE_SHAPES, bf16, every row at pos = S - 1; the first 8 rows
+    against the plain version; the call's device time against its byte
+    bound, and each pass's (the combine walks every split of a row in one
+    thread per output element)."""
+    for name, (B, S, H, KV, hd) in LONG_DECODE_SHAPES.items():
+        q = randn(gen, (B, 1, H, hd), torch.bfloat16)
+        k, v = (randn(gen, (B, S, KV, hd), torch.bfloat16) for _ in range(2))
+        pos = torch.tensor(S - 1, device=DEVICE)
+        n = min(B, SHAPES_CHECK_SLOTS)
+        err = max_err(attn_kernel.decode_attention(q[:n], k[:n], v[:n], pos),
+                      attn_ref.decode_attention_reference(q[:n], k[:n], v[:n], pos),
+                      TOL[torch.bfloat16], f"decode attention {name}")
+        ms = cuda_ms(lambda: attn_kernel.decode_attention(q, k, v, pos))
+        b = bound(2 * k.numel() * 2 + 2 * q.numel() * 2, 4 * B * H * S * hd, torch.bfloat16)
+        passes = _kernel_passes(lambda: attn_kernel.decode_attention(q, k, v, pos), calls=5,
+                                pattern=r"decode_\w+_kernel")
+        say("kernels", f"decode attention at {name}'s shape (B {B}, S {S}, {H}/{KV} heads, hd "
+                       f"{hd}; {-(-S // attn_kernel.DECODE_SPLIT)} splits): max_abs_err "
+                       f"{err:.3e} on {n} rows; {ms:.4f} ms against its bound {b[0]:.5f} ms by "
+                       f"{b[1]}; by pass (profiler, mean of 5): " + (", ".join(
+                           f"{kn} {t:.4f} ms" for kn, (t, _) in passes.items()) or "not measured"))
+        del q, k, v
+        torch.cuda.empty_cache()
 
 
 def _sdpa_backends(call) -> str:
@@ -940,10 +1041,11 @@ def phase_kernels_ssd() -> dict:
 SSD_PR14_MS = {SSM_ARCH: 0.5117, HYBRID_ARCH: 0.3837}
 
 
-def _ssd_passes(fn, calls: int = 20) -> dict:
+def _kernel_passes(fn, calls: int = 20, pattern: str = r"\bssd_\w+") -> dict:
     """{kernel name: (device ms per call, device launches per call)} of each
-    SSD kernel, from torch.profiler over `calls` calls, each after a 256 MB
-    write that flushes the L2."""
+    kernel whose name matches ``pattern`` (the SSD scan's passes), from
+    torch.profiler over `calls` calls, each after a 256 MB write that
+    flushes the L2."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(256 << 20, dtype=torch.int8, device=DEVICE)
@@ -956,7 +1058,7 @@ def _ssd_passes(fn, calls: int = 20) -> dict:
         torch.cuda.synchronize()
     out = {}
     for evt in prof.events():
-        m = re.search(r"\bssd_\w+", evt.name)  # e.g. ...::ssd_output_bf16<128, 64>(...)
+        m = re.search(pattern, evt.name)  # e.g. ...::ssd_output_bf16<128, 64>(...)
         if evt.device_type == DeviceType.CUDA and m:
             ms, n = out.get(m.group(0), (0.0, 0.0))
             out[m.group(0)] = (ms + evt.time_range.elapsed_us() / 1e3 / calls, n + 1 / calls)
@@ -998,7 +1100,7 @@ def _ssd_slice_row(gen, shape, arch) -> dict:
                        f"{SSD_PR14_MS[arch]:.4f} ms, PR 14), plain {row['plain_ms']:.4f} ms, "
                        f"bound {row['bound'][0]:.5f} ms by {row['bound'][1]} ({row['work']}); "
                        "library: none (no single PyTorch call computes the SSD scan)")
-    passes = _ssd_passes(lambda: ssd_kernel.ssd(x, dt, A, Bm, Cm, chunk=chunk,
+    passes = _kernel_passes(lambda: ssd_kernel.ssd(x, dt, A, Bm, Cm, chunk=chunk,
                                                 return_final_state=True))
     launches = (f"{sum(n for _, n in passes.values()):g} device launches per call, counted "
                 "by the profiler" if passes else "device launches per call not measured: the "
@@ -1187,14 +1289,15 @@ STEP_DEVICE_LAUNCHES = {"decode_attention": 2, "fused_add_rmsnorm": 1, "flash_at
 
 
 def _port_kernel(name: str):
-    """The port kernel a device kernel's (demangled) name belongs to, or None."""
+    """The port kernel a device kernel's name (demangled, as the profiler
+    gives it, or mangled, as libcuda does) belongs to, or None."""
     if "decode_split_kernel" in name or "decode_combine_kernel" in name:
         return "decode_attention"
-    if "repro_torch_rmsnorm::" in name:
+    if "repro_torch_rmsnorm" in name:
         return "fused_add_rmsnorm"
-    if "repro_torch_ssd::" in name:
+    if "repro_torch_ssd" in name:
         return "ssd"
-    if "repro_torch::" in name and "flash_attention" in name:
+    if "repro_torch" in name and "flash_attention" in name:
         return "flash_attention"
     return None
 
@@ -1218,6 +1321,37 @@ def _replay_device_launches(graph, kernel_impl: str) -> tuple:
     return counts, events
 
 
+def _check_replay(tag: str, want: dict, in_graph, profiled: dict, events: int, nodes) -> None:
+    """A replay launches what the capture counted: the graph's kernel nodes
+    of each port kernel equal ``want`` (every replay launches every node),
+    and the profiled replay shows them too. The profiler loses a few
+    activity records of a replay late in a long process (8..33 fewer device
+    events than nodes in the later phases; every record in a fresh process,
+    whisper's graph included): where it recorded fewer events than the graph
+    has nodes, the port kernels it missed must be no more than the records
+    it lost. Without the graph's kernel names (``_graph_kernels`` None) the
+    profile alone must show exactly ``want``."""
+    if events == 0:
+        raise AssertionError(f"{tag}: the profiler recorded no device event of a replay")
+    if in_graph is None or nodes is None:
+        if profiled != want:
+            raise AssertionError(f"{tag}: a replay launched {profiled} on the device, the "
+                                 f"capture counted {want}")
+        return
+    if in_graph != want:
+        raise AssertionError(f"{tag}: the graph holds the port's kernel nodes {in_graph}, "
+                             f"the capture counted {want}")
+    lost = nodes - events
+    missed = {k: n - profiled.get(k, 0) for k, n in want.items()}
+    if (set(profiled) - set(want) or any(m < 0 for m in missed.values())
+            or sum(missed.values()) > max(lost, 0)):
+        raise AssertionError(f"{tag}: a replay launched {profiled} on the device, the capture "
+                             f"counted {want} ({events} device events of {nodes} nodes)")
+    if sum(missed.values()):
+        say(tag, f"the profiler lost {lost} of the replay's {nodes} records, "
+                 f"{sum(missed.values())} of them the port's kernels {missed}")
+
+
 def _graph_nodes(graph):
     """The node count of a captured graph (``cuGraphGetNodes``), or None
     where PyTorch does not keep the graph."""
@@ -1230,6 +1364,53 @@ def _graph_nodes(graph):
     err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(ctypes.c_void_p(raw), None,
                                                       ctypes.byref(n))
     return int(n.value) if err == 0 else None
+
+
+def _graph_kernels(graph):
+    """{port kernel: kernel nodes} of a captured graph, by each kernel node's
+    function name (``cuGraphKernelNodeGetParams_v2``, then ``cuFuncGetName``
+    or ``cuKernelGetName``): what every replay launches. None where PyTorch
+    does not keep the graph or libcuda cannot name a node's kernel."""
+    import ctypes
+    from ctypes import POINTER, byref, c_char_p, c_int, c_size_t, c_uint, c_void_p
+
+    class KernelNodeParams(ctypes.Structure):     # CUDA_KERNEL_NODE_PARAMS_v2, cuda.h
+        _fields_ = [("func", c_void_p), ("grid", c_uint * 3), ("block", c_uint * 3),
+                    ("shared_mem_bytes", c_uint), ("kernel_params", c_void_p),
+                    ("extra", c_void_p), ("kern", c_void_p), ("ctx", c_void_p)]
+
+    try:
+        raw = graph.raw_cuda_graph()
+        cu = ctypes.CDLL("libcuda.so.1")
+        get_params, func_name = cu.cuGraphKernelNodeGetParams_v2, cu.cuFuncGetName
+        kernel_name = cu.cuKernelGetName
+    except (AttributeError, RuntimeError, OSError):
+        return None
+    get_params.argtypes = [c_void_p, POINTER(KernelNodeParams)]
+    func_name.argtypes = kernel_name.argtypes = [POINTER(c_char_p), c_void_p]
+    n = c_size_t(0)
+    if cu.cuGraphGetNodes(c_void_p(raw), None, byref(n)) != 0:
+        return None
+    nodes = (c_void_p * n.value)()
+    if cu.cuGraphGetNodes(c_void_p(raw), nodes, byref(n)) != 0:
+        return None
+    counts = {}
+    for node in nodes:
+        kind = c_int(-1)
+        if cu.cuGraphNodeGetType(c_void_p(node), byref(kind)) != 0:
+            return None
+        if kind.value != 0:                             # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params, name = KernelNodeParams(), c_char_p()
+        if get_params(c_void_p(node), byref(params)) != 0:
+            return None
+        if not ((params.func and func_name(byref(name), params.func) == 0)
+                or (params.kern and kernel_name(byref(name), params.kern) == 0)):
+            return None
+        k = _port_kernel(name.value.decode())
+        if k is not None:
+            counts[k] = counts.get(k, 0) + 1
+    return counts
 
 
 def _serve_run(model: Model, prompts, new_tokens: int, cuda_graph: bool, max_len: int = 1024,
@@ -1373,17 +1554,15 @@ def phase_serve(model: Model, tag: str, bf16_tol: float) -> dict:
         if mode == "graphed":
             graph = engine._graph
             nodes = _graph_nodes(graph.graph)
+            in_graph = _graph_kernels(graph.graph)
             profiled, events = _replay_device_launches(graph, model.kernel_impl)
             want = {k: n * STEP_DEVICE_LAUNCHES[k] for k, n in graph.launches.items() if n}
             say(tag, f"graph: built with its warm-up and capture in {run['build_s']:.3f} s, "
-                     f"{'node count not exposed' if nodes is None else f'{nodes} nodes'}; "
-                     f"captured calls {graph.launches}; one replay under torch.profiler: "
-                     f"{events} device events, the port's kernels {profiled} (want {want})")
-            if events == 0:
-                raise AssertionError(f"{tag}: the profiler recorded no device event of a replay")
-            if profiled != want:
-                raise AssertionError(f"{tag}: a replay launched {profiled} on the device, the "
-                                     f"capture counted {want}")
+                     f"{'node count not exposed' if nodes is None else f'{nodes} nodes'}, "
+                     f"the port's kernel nodes {in_graph}; captured calls {graph.launches}; "
+                     f"one replay under torch.profiler: {events} device events, the port's "
+                     f"kernels {profiled} (want {want})")
+            _check_replay(tag, want, in_graph, profiled, events, nodes)
         run["steps"] = engine.steps
         del engine, run["engine"]              # free the cache and the graph's pool
         torch.cuda.empty_cache()
@@ -1884,15 +2063,15 @@ def phase_fabric_vlm(model: Model, served: dict, tol: float) -> dict:
 
 
 # ------------------------------------------------------------------ training
-def _train_model(dtype: str) -> Model:
-    cfg = get_config(ARCH).with_(dtype=dtype)
+def _train_model(dtype: str, arch: str = ARCH) -> Model:
+    cfg = get_config(arch).with_(dtype=dtype)
     model = Model(cfg, device=DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
     return model.requires_grad_(True)
 
 
-def _train_batch(cfg, step: int = 0) -> dict:
+def _train_batch(cfg, step: int = 0, batch: int = TRAIN_BATCH) -> dict:
     return {k: torch.as_tensor(v).to(DEVICE)
-            for k, v in synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, step).items()}
+            for k, v in synthetic_batch(cfg, batch, TRAIN_SEQ, step).items()}
 
 
 def _loss_and_grads(model: Model, batch: dict, impl: str) -> tuple:
@@ -1904,6 +2083,11 @@ def _loss_and_grads(model: Model, batch: dict, impl: str) -> tuple:
     return loss.item(), dict(zip(names, grads))
 
 
+def _rel_l2(got: dict, want: dict) -> dict:
+    return {n: ((got[n].float() - w.float()).norm() / w.float().norm().clamp_min(1e-30)).item()
+            for n, w in want.items()}
+
+
 def _train_check_grads(tag: str) -> None:
     """(a): one step's loss and every gradient leaf through the kernels
     against the plain path (impl="ref") on the same weights and batch."""
@@ -1913,8 +2097,7 @@ def _train_check_grads(tag: str) -> None:
         loss_k, grads_k = _loss_and_grads(model, batch, "auto")
         loss_r, grads_r = _loss_and_grads(model, batch, "ref")
         dloss = abs(loss_k - loss_r)
-        rel = {n: ((grads_k[n].float() - g.float()).norm() / g.float().norm().clamp_min(1e-30)
-                   ).item() for n, g in grads_r.items()}
+        rel = _rel_l2(grads_k, grads_r)
         worst = max(rel, key=rel.get)
         loss_tol, leaf_tol = TRAIN_TOL[dtype]
         say(tag, f"(a) {dtype}: loss {loss_k:.6f} (kernels) against {loss_r:.6f} (plain), "
@@ -1930,75 +2113,213 @@ def _train_check_grads(tag: str) -> None:
         torch.cuda.empty_cache()
 
 
-def _plain_backward_ms(model: Model) -> dict:
-    """Device ms, at the training shapes, of one call of each kernel's plain
-    backward (what ``KernelWithPlainGrad.backward`` runs: the plain forward
-    recomputed and its gradient), of the kernel forward and, for attention,
-    of ``F.scaled_dot_product_attention``'s forward + backward (a yardstick
-    for a backward kernel, B10)."""
+def _train_check_scan_grads(tag: str, arch: str, batch: int) -> None:
+    """(a) for the scan families, on one set of weights: the bf16 model's
+    (seed 0) and the same values in f32. f32: the loss and every gradient
+    leaf through the kernels against the plain path within TRAIN_TOL. bf16:
+    |dloss| within TRAIN_TOL, and each leaf's relative L2 distance to the
+    f32 plain gradients (the truth) at most TRAIN_BF16_TRUTH_RATIO x the
+    plain bf16 path's own distance to them: the plain bf16 path is itself
+    ~9% from the truth there, so two bf16 paths cannot agree within
+    TRAIN_TOL's 0.05 (the kernels-against-plain distance is printed)."""
+    bf = _train_model("bfloat16", arch)
+    data = _train_batch(bf.cfg, batch=batch)
+    f32 = Model(bf.cfg.with_(dtype="float32"), device=DEVICE)
+    f32.load_state_dict({k: v.float() for k, v in bf.state_dict().items()})
+    f32.requires_grad_(True)
+    loss_t, truth = _loss_and_grads(f32, data, "ref")
+    loss_k, grads_k = _loss_and_grads(f32, data, "auto")
+    rel = _rel_l2(grads_k, truth)
+    worst = max(rel, key=rel.get)
+    loss_tol, leaf_tol = TRAIN_TOL[torch.float32]
+    dloss = abs(loss_k - loss_t)
+    say(tag, f"(a) torch.float32 (the bf16 weights' values): loss {loss_k:.6f} (kernels) "
+             f"against {loss_t:.6f} (plain), |dloss| {dloss:.3e}; {len(rel)} gradient leaves, "
+             f"largest relative L2 difference {rel[worst]:.3e} ({worst}), median "
+             f"{float(np.median(list(rel.values()))):.3e} (tolerances {loss_tol:g} / "
+             f"{leaf_tol:g})")
+    bad = [n for n, g in grads_k.items() if not torch.isfinite(g).all()]
+    if bad or dloss > loss_tol or rel[worst] > leaf_tol:
+        raise AssertionError(f"{tag} f32: |dloss| {dloss:.3e} > {loss_tol} or leaf {worst} "
+                             f"{rel[worst]:.3e} > {leaf_tol} or non-finite {bad}")
+    del f32, grads_k
+    torch.cuda.empty_cache()
+    loss_k, grads_k = _loss_and_grads(bf, data, "auto")
+    loss_r, grads_r = _loss_and_grads(bf, data, "ref")
+    k_t, r_t, k_r = _rel_l2(grads_k, truth), _rel_l2(grads_r, truth), _rel_l2(grads_k, grads_r)
+    ratio = {n: k_t[n] / max(r_t[n], 1e-30) for n in k_t}
+    worst = max(ratio, key=ratio.get)
+    loss_tol = TRAIN_TOL[torch.bfloat16][0]
+    dloss = abs(loss_k - loss_r)
+    say(tag, f"(a) torch.bfloat16: loss {loss_k:.6f} (kernels) against {loss_r:.6f} (plain), "
+             f"|dloss| {dloss:.3e} (tolerance {loss_tol:g}); relative L2 distance of each "
+             f"gradient leaf to the f32 plain gradients: kernels median "
+             f"{float(np.median(list(k_t.values()))):.3e}, plain bf16 median "
+             f"{float(np.median(list(r_t.values()))):.3e}; largest ratio {ratio[worst]:.3f} "
+             f"({worst}: {k_t[worst]:.3e} against {r_t[worst]:.3e}; at most "
+             f"{TRAIN_BF16_TRUTH_RATIO:g}); kernels against plain bf16: median "
+             f"{float(np.median(list(k_r.values()))):.3e}, largest {max(k_r.values()):.3e}")
+    bad = [n for n, g in grads_k.items() if not torch.isfinite(g).all()]
+    if bad or not np.isfinite(loss_k) or dloss > loss_tol \
+            or ratio[worst] > TRAIN_BF16_TRUTH_RATIO:
+        raise AssertionError(f"{tag} bf16: |dloss| {dloss:.3e} > {loss_tol}, or leaf {worst} "
+                             f"{ratio[worst]:.3f} x the plain path's distance to the truth, "
+                             f"or non-finite {bad}")
+    del bf, grads_k, grads_r, truth
+    torch.cuda.empty_cache()
+
+
+def _attention_layers(cfg) -> int:
+    """Calls of attention (and of the add + norm) a forward makes: one a dense
+    layer or a hybrid group's shared block, none for the ssm family."""
+    return {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.shared_attn_every, 1)}.get(
+        cfg.family, cfg.n_layers)
+
+
+def _train_counts(cfg) -> dict:
+    """Kernel calls of one train step (remat on: each forward call twice,
+    forward and recompute; the backward of each is its plain version's
+    gradient): flash attention and the add + norm once a dense layer or a
+    hybrid group's shared block, the scan once a Mamba2 layer."""
+    attn = _attention_layers(cfg)
+    scan = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    if cfg.family == "encdec":   # encoder self, decoder self + cross; LayerNorms
+        return {"flash_attention": 2 * (cfg.n_enc_layers + 2 * cfg.n_layers),
+                "fused_add_rmsnorm": 0, "decode_attention": 0, "ssd": 0}
+    return {"flash_attention": 2 * attn, "fused_add_rmsnorm": 2 * attn,
+            "decode_attention": 0, "ssd": 2 * scan}
+
+
+def _plain_backward_ms(model: Model, batch: int = TRAIN_BATCH) -> dict:
+    """Each kernel on the model's training path at the training shapes:
+    {name: {"plain": device ms of one call of its plain backward (what
+    ``KernelWithPlainGrad.backward`` runs: the plain forward recomputed and
+    its gradient), "kernel": the kernel forward's ms, "bound": (the forward's
+    least ms, "bytes" or "operations"), "library": {yardstick: ms}}}. The
+    yardsticks: ``F.scaled_dot_product_attention``'s forward and its
+    forward + backward (B10); the add + norm's two calls ``x + delta`` and
+    ``F.rms_norm``; none for the scan."""
     cfg, gen = model.cfg, torch.Generator(device=DEVICE).manual_seed(5)
     dt = model.params["embed"]["tok"].dtype
-    B, S, H, KV, hd = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q, go = (randn(gen, (B, S, H, hd), dt).requires_grad_() for _ in range(2))
-    k, v = (randn(gen, (B, S, KV, hd), dt).requires_grad_() for _ in range(2))
-    x, d = (randn(gen, (B, S, cfg.d_model), dt).requires_grad_() for _ in range(2))
-    scale = torch.ones(cfg.d_model, device=DEVICE, requires_grad=True)
-    g_res, g_out = (randn(gen, (B, S, cfg.d_model), dt) for _ in range(2))
-    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
-    sdpa = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), (qt, kt, vt), go.detach().transpose(1, 2)),
-        reps=10)
-    out = {
-        "flash_attention": (
-            cuda_ms(lambda: torch.autograd.grad(attn_ref.mha_reference(q, k, v), (q, k, v),
-                                                go.detach()), reps=10),
-            cuda_ms(lambda: attn_kernel.flash_attention(q.detach(), k.detach(), v.detach())),
-            sdpa),
-        "fused_add_rmsnorm": (
-            cuda_ms(lambda: torch.autograd.grad(
+    esz = torch.empty((), dtype=dt).element_size()
+    B, S = batch, TRAIN_SEQ
+    counts = _train_counts(cfg)
+    out = {}
+    if counts["flash_attention"]:
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        q, go = (randn(gen, (B, S, H, hd), dt).requires_grad_() for _ in range(2))
+        k, v = (randn(gen, (B, S, KV, hd), dt).requires_grad_() for _ in range(2))
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)
+        with torch.no_grad():
+            sdpa_fwd = cuda_ms(sdpa)
+        out["flash_attention"] = {
+            "plain": cuda_ms(lambda: torch.autograd.grad(
+                attn_ref.mha_reference(q, k, v), (q, k, v), go.detach()), reps=10),
+            "kernel": cuda_ms(lambda: attn_kernel.flash_attention(q.detach(), k.detach(),
+                                                                  v.detach())),
+            # q, k, v read, o written; the causal QK^T and PV
+            "bound": bound((2 * q.numel() + 2 * k.numel()) * esz,
+                           2 * B * H * S * S * hd, dt),
+            "library": {"SDPA forward": sdpa_fwd, "SDPA forward + backward": cuda_ms(
+                lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), go.detach().transpose(1, 2)),
+                reps=10)},
+        }
+    if counts["fused_add_rmsnorm"]:
+        x, d = (randn(gen, (B, S, cfg.d_model), dt).requires_grad_() for _ in range(2))
+        scale = torch.ones(cfg.d_model, device=DEVICE, requires_grad=True)
+        g_res, g_out = (randn(gen, (B, S, cfg.d_model), dt) for _ in range(2))
+        xd, dd, sd = x.detach(), d.detach(), scale.detach()
+        out["fused_add_rmsnorm"] = {
+            "plain": cuda_ms(lambda: torch.autograd.grad(
                 rms_ref.fused_add_rmsnorm_reference(x, d, scale, cfg.norm_eps), (x, d, scale),
                 (g_res, g_out)), reps=10),
-            cuda_ms(lambda: rms_kernel.fused_add_rmsnorm(x.detach(), d.detach(),
-                                                         scale.detach(), cfg.norm_eps))),
-    }
+            "kernel": cuda_ms(lambda: rms_kernel.fused_add_rmsnorm(xd, dd, sd, cfg.norm_eps)),
+            # x and delta read, both outputs written, the fp32 scale read
+            "bound": bound(4 * x.numel() * esz + scale.numel() * 4, 0, dt),
+            "library": {"x + delta, F.rms_norm (two calls)": cuda_ms(
+                lambda: F.rms_norm(xd + dd, (cfg.d_model,), sd.to(dt), cfg.norm_eps))},
+        }
+    if counts["ssd"]:
+        s = cfg.ssm
+        H, P, G, N = s.n_heads(cfg.d_model), s.head_dim, s.n_groups, s.d_state
+        args = [t.requires_grad_() for t in _ssd_inputs(gen, B, S, H, P, G, N, dt)]
+        gy = randn(gen, (B, S, H, P), dt)
+        x = args[0]
+        out["ssd"] = {
+            "plain": cuda_ms(lambda: torch.autograd.grad(
+                ssd_ref.ssd_reference(*args, chunk=s.chunk)[0], args, gy), reps=5),
+            "kernel": cuda_ms(lambda: ssd_kernel.ssd(*(t.detach() for t in args),
+                                                     chunk=s.chunk)),
+            # x in, y out, B, C (the activation dtype), dt and A (fp32)
+            "bound": bound((2 * x.numel() + 2 * B * S * G * N) * esz + (B * S * H + H) * 4,
+                           _scan_flops(cfg, B, S), dt),
+            "library": {},
+        }
     return out
 
 
-def _train_flops(model: Model) -> float:
+def _scan_flops(cfg, B: int, S: int) -> float:
+    """The SSD scan's forward FLOPs at (B, S), as the kernels phase counts
+    them (the causal pairs of C B^T per group, (C B^T o L)(dt x), the state
+    read-out and update)."""
+    s = cfg.ssm
+    H, P, G, N, chunk = s.n_heads(cfg.d_model), s.head_dim, s.n_groups, s.d_state, s.chunk
+    nc, tri = S // chunk, chunk * (chunk + 1) // 2
+    return 2 * B * nc * (G * tri * N + H * tri * P + 2 * H * chunk * P * N)
+
+
+def _train_flops(model: Model, batch: int = TRAIN_BATCH) -> float:
     """Model FLOPs of one step (remat's recompute not counted): 6 x the
-    non-embedding weights x B*S tokens, 6 x the tied unembedding's d x V x the
-    B*(S-1) scored rows, and the causal attention's QK^T and PV, 3 x the
-    forward's 2*B*H*S^2*hd a layer."""
-    cfg, B, S = model.cfg, TRAIN_BATCH, TRAIN_SEQ
-    return (6 * _non_embedding(model) * B * S + 6 * cfg.d_model * cfg.vocab * B * (S - 1)
-            + 3 * 2 * B * cfg.n_heads * S * S * cfg.hd * cfg.n_layers)
+    non-embedding weights x B*S tokens (a hybrid's shared block counted once
+    per group), 6 x a tied unembedding's d x V x the B*(S-1) scored rows, the
+    causal attention's QK^T and PV, 3 x the forward's 2*B*H*S^2*hd a layer
+    or group, and 3 x the SSD scan's forward a Mamba2 layer."""
+    cfg, B, S = model.cfg, batch, TRAIN_SEQ
+    counts = _train_counts(cfg)
+    weights = _non_embedding(model)
+    if cfg.family == "hybrid":
+        shared = sum(p.numel() for n, p in model.named_parameters() if n.startswith("shared."))
+        weights += (counts["flash_attention"] // 2 - 1) * shared
+    flops = 6 * weights * B * S
+    if cfg.tie_embeddings:
+        flops += 6 * cfg.d_model * cfg.vocab * B * (S - 1)
+    if counts["flash_attention"]:
+        flops += 3 * 2 * B * cfg.n_heads * S * S * cfg.hd * counts["flash_attention"] // 2
+    if counts["ssd"]:
+        flops += 3 * _scan_flops(cfg, B, S) * cfg.n_layers
+    return flops
 
 
 def _non_embedding(model: Model) -> int:
     return sum(p.numel() for n, p in model.named_parameters() if n != "embed.tok")
 
 
-def _train_time_steps(tag: str, model: Model) -> None:
+_KERNEL_WORDS = {"flash_attention": "attention", "fused_add_rmsnorm": "add + norm",
+                 "ssd": "scan"}
+
+
+def _train_time_steps(tag: str, model: Model, batch: int = TRAIN_BATCH) -> None:
     """(b) and the timings: one step through ``build_train_step`` with the
-    launch counters set to 0 just before it (exactly 2 x L flash and add +
-    norm calls: forward and remat's recompute; no decode attention, no
-    scan); then TRAIN_TIMED_STEPS steps split by CUDA events into forward,
-    backward and optimizer."""
+    launch counters set to 0 just before it (exactly ``_train_counts``:
+    forward and remat's recompute; no decode attention); then
+    TRAIN_TIMED_STEPS steps split by CUDA events into forward, backward and
+    optimizer."""
     cfg = model.cfg
     ocfg = train_opt.OptimizerConfig()
     params = model.params
     state = train_opt.init_state(params, ocfg)
-    step = build_train_step(model, ocfg)
-    batch = _train_batch(cfg)
+    step = build_train_step(model, ocfg).fn
+    data = _train_batch(cfg, batch=batch)
     for _ in range(2):                      # warm-up: cuBLAS handles, allocator
-        step(params, state, batch)
+        step(params, state, data)
     torch.cuda.synchronize()
     _reset_launches()
-    _, _, m = step(params, state, batch)
+    _, _, m = step(params, state, data)
     torch.cuda.synchronize()
     launches = _launch_counts()
-    need = {"flash_attention": 2 * cfg.n_layers, "fused_add_rmsnorm": 2 * cfg.n_layers,
-            "decode_attention": 0, "ssd": 0}
+    need = _train_counts(cfg)
     if launches != need:
         raise AssertionError(f"{tag}: one train step launched {launches}, not {need}")
     say(tag, f"(b) one train step launched {launches}: {cfg.n_layers} layers x (forward + "
@@ -2012,7 +2333,7 @@ def _train_time_steps(tag: str, model: Model) -> None:
     for _ in range(TRAIN_TIMED_STEPS):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
-        loss, _ = model.loss(batch)
+        loss, _ = model.loss(data)
         ev[1].record()
         grads = [g.to(gdt) for g in torch.autograd.grad(loss, leaves)]
         ev[2].record()
@@ -2025,40 +2346,44 @@ def _train_time_steps(tag: str, model: Model) -> None:
         times.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
         del grads, new
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state
     fwd, bwd, optim = (float(np.median(c)) for c in zip(*times))
     total = float(np.median([sum(t) for t in times]))
-    flops = _train_flops(model)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    plain = _plain_backward_ms(model)
-    attn_bwd = cfg.n_layers * plain["flash_attention"][0]
-    rms_bwd = cfg.n_layers * plain["fused_add_rmsnorm"][0]
+    flops = _train_flops(model, batch)
+    tokens = batch * TRAIN_SEQ
+    plain = _plain_backward_ms(model, batch)
+    parts = []
+    for name, r in plain.items():
+        n = need[name] // 2
+        parts.append(f"the plain {_KERNEL_WORDS[name]} backward {r['plain']:.4f} ms a call "
+                     f"alone, x {n} = {n * r['plain']:.3f} ms, {n * r['plain'] / bwd:.1%} of it")
     say(tag, f"step (median of {TRAIN_TIMED_STEPS}, CUDA events) {total:.3f} ms: forward "
-             f"{fwd:.3f}, backward {bwd:.3f} (remat's recompute included; the plain attention "
-             f"backward {plain['flash_attention'][0]:.4f} ms a call alone, x {cfg.n_layers} = "
-             f"{attn_bwd:.3f} ms, {attn_bwd / bwd:.1%} of it; SDPA's forward + backward "
-             f"{plain['flash_attention'][2]:.4f} ms a call; the plain add + norm backward "
-             f"{plain['fused_add_rmsnorm'][0]:.4f} ms a call, x {cfg.n_layers} = "
-             f"{rms_bwd:.3f}), optimizer {optim:.3f}")
+             f"{fwd:.3f}, backward {bwd:.3f} (remat's recompute included; "
+             + "; ".join(parts) + f"), optimizer {optim:.3f}")
     say(tag, f"{tokens / total * 1e3:.1f} tokens/s; model FLOPs {flops / 1e12:.3f} TFLOP a "
              f"step (6 x {_non_embedding(model) / 1e6:.1f} M non-embedding weights x "
-             f"{tokens} tokens + the tied unembedding + attention): "
+             f"{tokens} tokens + the tied unembedding + attention + the scan): "
              f"MFU {flops / (total / 1e3) / PEAK_FLOPS[torch.bfloat16]:.3%} of the bf16 dense "
              f"peak ({flops / PEAK_FLOPS[torch.bfloat16] * 1e3:.3f} ms at 989 TFLOP/s); peak "
-             f"allocated {peak:.3f} GiB; at the training shapes the flash kernel forward "
-             f"takes {plain['flash_attention'][1]:.4f} ms, the add + norm kernel "
-             f"{plain['fused_add_rmsnorm'][1]:.4f} ms")
+             f"allocated {peak:.3f} GiB")
+    for name, r in plain.items():
+        say(tag, f"{name} at the training shape: kernel forward {r['kernel']:.4f} ms against "
+                 f"its bound {r['bound'][0]:.5f} ms by {r['bound'][1]}; plain backward "
+                 f"{r['plain']:.4f} ms a call" + "".join(
+                     f"; {k} {v:.4f} ms" for k, v in r["library"].items()))
     if not np.isfinite(float(m["loss"])):
         raise AssertionError(f"{tag}: non-finite loss {m}")
 
 
-def _train_run(model: Model, ocfg, steps: int, ckpt_dir: str) -> tuple:
+def _train_run(model: Model, ocfg, steps: int, ckpt_dir, batch: int = TRAIN_BATCH) -> tuple:
     """A Trainer of ``steps`` steps whose steps run as functions through a
-    FunctionService (one endpoint, one worker); returns (history, seconds)."""
+    FunctionService (one endpoint, one worker), checkpointing into
+    ``ckpt_dir`` (None: no checkpoints); returns (start step, history, seconds)."""
     svc = FunctionService()
     svc.make_endpoint("train", n_executors=1, workers_per_executor=1)
     try:
         trainer = Trainer(model, ocfg, TrainConfig(
-            steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ, ckpt_every=TRAIN_CKPT_EVERY,
+            steps=steps, batch=batch, seq=TRAIN_SEQ, ckpt_every=TRAIN_CKPT_EVERY,
             ckpt_dir=ckpt_dir, log_every=5), service=svc)
         start = trainer.step
         t0 = time.perf_counter()
@@ -2148,6 +2473,353 @@ def phase_train() -> dict:
     return launches
 
 
+def _train_peak_batch(tag: str, model: Model) -> int:
+    """TRAIN_BATCH, unless one train step's peak there leaves under
+    TRAIN_MIN_FREE_GIB of the card free: then TRAIN_SMALL_BATCH (said on the
+    phase's line)."""
+    ocfg = train_opt.OptimizerConfig()
+    params = model.params
+    state = train_opt.init_state(params, ocfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build_train_step(model, ocfg).fn(params, state, _train_batch(model.cfg))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    del state
+    torch.cuda.empty_cache()
+    if total - peak >= TRAIN_MIN_FREE_GIB:
+        say(tag, f"B = {TRAIN_BATCH}: one step's peak {peak:.3f} GiB leaves "
+                 f"{total - peak:.3f} of {total:.3f} GiB free")
+        return TRAIN_BATCH
+    say(tag, f"B = {TRAIN_SMALL_BATCH}, not {TRAIN_BATCH}: one step's peak at B = "
+             f"{TRAIN_BATCH} is {peak:.3f} GiB, leaving {total - peak:.3f} of {total:.3f} GiB "
+             f"free (under {TRAIN_MIN_FREE_GIB} GiB)")
+    return TRAIN_SMALL_BATCH
+
+
+def phase_train_scan(arch: str, tag: str) -> dict:
+    """Full-width mamba2-2.7b or zamba2-2.7b trained on the card on its own
+    model (bf16, seed 0, remat on, the reference's synthetic tokens), as the
+    train phase trains qwen2: (a) kernel gradients against the plain path,
+    (b) the launches of one step and the step's time split, with each plain
+    backward's time a call; (c) TRAIN_SCAN_STEPS steps through a Trainer on
+    the fabric, the losses falling. Returns (c)'s launches."""
+    t0 = time.perf_counter()
+    model = _train_model("bfloat16", arch)
+    say(tag, f"{arch} bf16 at full width, S = {TRAIN_SEQ}, remat on, random weights from "
+             "seed 0, the reference's synthetic token stream")
+    batch = _train_peak_batch(tag, model)
+    _train_time_steps(tag, model, batch)
+    del model
+    torch.cuda.empty_cache()
+    _train_check_scan_grads(tag, arch, batch)
+    model = _train_model("bfloat16", arch)
+    ocfg = train_opt.OptimizerConfig(warmup_steps=2, total_steps=TRAIN_SCAN_STEPS)
+    _reset_launches()
+    _, history, wall = _train_run(model, ocfg, TRAIN_SCAN_STEPS, None, batch)
+    launches = _launch_counts()
+    losses = [h["loss"] for h in history]
+    early, late = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    say(tag, f"(c) {TRAIN_SCAN_STEPS} steps of {batch} x {TRAIN_SEQ} through a "
+             f"FunctionService (one endpoint, one worker), lr {ocfg.lr:g}: losses "
+             f"{' '.join(f'{x:.4f}' for x in losses)} in {wall:.1f} s; mean of the first 3 "
+             f"{early:.4f}, of the last 3 {late:.4f}; launches {launches}")
+    need = {k: n * TRAIN_SCAN_STEPS for k, n in _train_counts(model.cfg).items()}
+    if not (np.all(np.isfinite(losses)) and late < early) or launches != need:
+        raise AssertionError(f"{tag}: losses {losses} do not fall, or the trainer's steps "
+                             f"launched {launches}, not {need}")
+    del model
+    torch.cuda.empty_cache()
+    say(tag, f"wall {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ------------------------------------------------------------------ shapes
+def _cache_leaves(cache: dict, axes: dict, prefix: str = ""):
+    """(name, leaf, batch axis) of every cache leaf."""
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            yield from _cache_leaves(v, axes[k], f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v, axes[k]
+
+
+def _rows(cache: dict, axes: dict, n: int) -> dict:
+    """Views of the first ``n`` slots of every cache leaf (written through)."""
+    return {k: _rows(v, axes[k], n) if isinstance(v, dict) else v.narrow(axes[k], 0, n)
+            for k, v in cache.items()}
+
+
+def _state_leaves(cache: dict, axes: dict):
+    """The leaves a decode step changes for good: the SSM conv and state (a
+    K/V leaf is only written at pos, by each path with its own values)."""
+    return [leaf for name, leaf, _ in _cache_leaves(cache, axes)
+            if name.split(".")[-1] in ("conv", "ssm")]
+
+
+def _shape_decode(arch: str, rec: dict) -> dict:
+    """One decode cell at its assigned batch and length on full-width bf16
+    (seed 0): the cache filled with seeded normal values, pos = S - 1. The
+    first SHAPES_CHECK_SLOTS slots, from the same state: the step's tokens
+    through the kernels against the plain path's (near-tie rule); then the
+    step at every slot timed (median of SHAPES_DECODE_REPS, counters set to 0
+    just before them) against the analysis's bound, and the peak against the
+    modeled one. Returns the timed steps' launches."""
+    tag = "shapes"
+    cfg, shape = get_config(arch), dryrun.SHAPES[rec["shape"]]
+    B, S = shape.global_batch, shape.seq_len
+    tol = SHAPES_TOL.get(arch, SLICE_SSM_BF16_TOL)
+    torch.cuda.empty_cache()
+    model = Model(cfg, device=DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    cache = model.init_cache(B, S)
+    axes = model.cache_batch_axes()
+    for _, leaf, _ in _cache_leaves(cache, axes):
+        leaf.normal_(generator=gen)
+    token = torch.randint(0, cfg.vocab, (B, 1), generator=gen, device=DEVICE, dtype=torch.int32)
+    pos = torch.tensor(S - 1, device=DEVICE)
+    n = min(SHAPES_CHECK_SLOTS, B)
+    view = _rows(cache, axes, n)
+    kept = [t.clone() for t in _state_leaves(view, axes)]
+
+    def restore():
+        for dst, src in zip(_state_leaves(view, axes), kept):
+            dst.copy_(src)
+
+    step = build_decode_step(model).fn
+    params = model.params
+    got_tok, _ = step(params, token[:n], view, pos)
+    out = {}
+    for impl in ("auto", "ref"):
+        restore()
+        model.kernel_impl = impl
+        with torch.no_grad():
+            out[impl], _ = model.decode_step(token[:n], view, pos)
+    model.kernel_impl = "auto"
+    restore()
+    del kept
+    got, want = out["auto"].float(), out["ref"].float()
+    diff = (got - want).abs().max().item()
+    pick = got.argmax(-1)
+    gap = (want.amax(-1) - want.gather(-1, pick[:, None])[:, 0]).max().item()
+    agree = int((pick == want.argmax(-1)).sum())
+    if not torch.isfinite(got).all() or not torch.equal(got_tok[:, 0].long(), pick) \
+            or diff > tol or gap > tol:
+        raise AssertionError(f"{tag} {arch} {shape.name}: max|dlogit| {diff:.3e} or near-tie "
+                             f"gap {gap:.3e} > {tol}, or the step's tokens are not its logits'")
+
+    step(params, token, cache, pos)                     # warm-up at every slot
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()                # the step's peak, the cache held
+    _reset_launches()
+    times = []
+    for _ in range(SHAPES_DECODE_REPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        nxt, _ = step(params, token, cache, pos)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not (nxt.shape == (B, 1) and bool(((nxt >= 0) & (nxt < cfg.vocab)).all())):
+        raise AssertionError(f"{tag} {arch} {shape.name}: next tokens {nxt.shape} out of range")
+    per_step = _decode_counts(cfg)
+    need = {k: c * SHAPES_DECODE_REPS for k, c in per_step.items()}
+    if launches != need:
+        raise AssertionError(f"{tag} {arch} {shape.name}: {SHAPES_DECODE_REPS} steps "
+                             f"launched {launches}, not {need}")
+    ms = float(np.median(times))
+    _report_cell(arch, rec, B, ms, peak,
+                 f"{n} slots from the same state: the kernels' next tokens equal the plain "
+                 f"path's at {agree} of {n}, the rest near-ties (max|dlogit| {diff:.3e}, gap "
+                 f"{gap:.3e}, tolerance {tol:g}); launches {launches} in "
+                 f"{SHAPES_DECODE_REPS} steps")
+    del model, cache, view, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _decode_counts(cfg) -> dict:
+    """Kernel calls of one decode step: decode attention and the add + norm
+    once a dense layer or hybrid group; none for the ssm family."""
+    attn = _attention_layers(cfg)
+    return {"flash_attention": 0, "decode_attention": attn, "fused_add_rmsnorm": attn,
+            "ssd": 0}
+
+
+def _report_cell(arch: str, rec: dict, B: int, ms: float, peak: float, checks: str) -> None:
+    """One cell's line: device ms against the analysis's bound at the run's
+    batch (max(compute, memory) at 989 TFLOP/s and 3.35 TB/s), and the
+    measured peak against the modeled one, with the allocator's reserved
+    peak beside it."""
+    r = rec["analysis"]["roofline"]
+    scale = B / dryrun.SHAPES[rec["shape"]].global_batch
+    bound_ms = r["step_time_lower_bound_s"] * scale * 1e3
+    modeled = rec["run_fit"]["total"]
+    say("shapes", f"{arch} {rec['shape']} at B = {B}: {ms:.3f} ms on the device, bound "
+                  f"{bound_ms:.3f} ms by {r['bottleneck']} (compute "
+                  f"{r['compute_s'] * scale * 1e3:.3f}, memory {r['memory_s'] * scale * 1e3:.3f}"
+                  f" ms), {bound_ms / ms:.3f} of the bound; peak allocated "
+                  f"{peak / 2 ** 30:.3f} GiB against {modeled / 2 ** 30:.3f} GiB modeled "
+                  f"(reserved {torch.cuda.max_memory_reserved() / 2 ** 30:.3f} GiB); "
+                  + checks)
+
+
+def _shape_prefill(arch: str, rec: dict, B: int) -> dict:
+    """A prefill cell at ``B`` rows of S positions (seeded tokens) through
+    ``build_prefill_step`` on full-width bf16 (seed 0): a warm-up, then one
+    run timed with the counters set to 0 just before it. Checks: flash
+    attention against its plain version on one row and one query head at S;
+    each row's next token against a B = 1 prefill of that row (near-tie
+    rule). Returns the timed run's launches."""
+    tag = "shapes"
+    cfg, shape = get_config(arch), dryrun.SHAPES[rec["shape"]]
+    S = shape.seq_len
+    tol = SHAPES_TOL.get(arch, SLICE_SSM_BF16_TOL)
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    need = {k: n // 2 for k, n in _train_counts(cfg).items()}   # one forward's calls
+    flash = "no attention"
+    if need["flash_attention"]:
+        q, k, v = (randn(gen, (1, S, 1, cfg.hd), torch.bfloat16) for _ in range(3))
+        err = max_err(attn_kernel.flash_attention(q, k, v), attn_ref.mha_reference(q, k, v),
+                      TOL[torch.bfloat16], f"flash at S = {S}")
+        flash = (f"flash against plain at S = {S}, one row and one head: max_abs_err "
+                 f"{err:.3e} (tolerance {TOL[torch.bfloat16]:g})")
+        del q, k, v
+        torch.cuda.empty_cache()
+    model = Model(cfg, device=DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=DEVICE, dtype=torch.int32)
+    step = build_prefill_step(model).fn
+    params = model.params
+    step(params, {"tokens": tokens})                    # warm-up: its pages stay mapped
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    nxt, logits, cache = step(params, {"tokens": tokens})
+    end.record()
+    end.synchronize()
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ms = start.elapsed_time(end)
+    del cache
+    torch.cuda.empty_cache()
+    if launches != need:
+        raise AssertionError(f"{tag} {arch} prefill: launched {launches}, not {need}")
+    diff = gap = 0.0
+    agree = 0
+    for i in range(B):
+        one, one_logits, c1 = step(params, {"tokens": tokens[i:i + 1]})
+        del c1
+        diff = max(diff, (one_logits[0].float() - logits[i].float()).abs().max().item())
+        gap = max(gap, (one_logits[0].max() - one_logits[0, nxt[i]]).float().item())
+        agree += int(one[0] == nxt[i])
+    if not torch.isfinite(logits).all() or diff > tol or gap > tol:
+        raise AssertionError(f"{tag} {arch} prefill: max|dlogit| {diff:.3e} or near-tie gap "
+                             f"{gap:.3e} against B = 1 prefills > {tol}")
+    _report_cell(arch, rec, B, ms, peak,
+                 f"{flash}; next tokens equal a B = 1 "
+                 f"prefill of the same row at {agree} of {B}, the rest near-ties "
+                 f"(max|dlogit| {diff:.3e}, gap {gap:.3e}, tolerance {tol:g}); launches "
+                 f"{launches}")
+    del model, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def _expandable_segments():
+    """New segments of the caching allocator are expandable inside: a
+    prefill at S = 32768 frees and takes blocks from 1.6 to 16 GB a layer,
+    and fixed segments split by them once left 16.4 GiB reserved but unused
+    beside its 14.8 GiB fp32 SiLU intermediate on one H100 (an out of memory
+    at 46.7 GiB allocated). The setting is restored on the way out, before
+    the VLM's CUDA graphs are captured."""
+    setter = getattr(torch._C, "_accelerator_setAllocatorSettings", None) \
+        or torch._C._cuda_cudaCachingAllocator_set_allocator_settings
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    setter("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        setter("expandable_segments:False")
+
+
+def phase_shapes() -> dict:
+    """The reference's assigned shapes on one H100 (after the other families'
+    phases, before the VLM's, on an otherwise empty card): the dry run's
+    analysis of all 40 cells (FLOPs from the two calibration traces on the
+    meta device, the modeled bytes, the memory fit on this card, the binding
+    roofline term), one line each; then every cell that fits runs through
+    ``build_decode_step`` / ``build_prefill_step`` at full width, bf16, and
+    ARCH's prefill_32k at the largest batch that fits. Returns the runs'
+    launches."""
+    tag = "shapes"
+    t0 = time.perf_counter()
+    records = {}
+    for arch in dryrun.ARCH_IDS:
+        for name in dryrun.SHAPES:
+            rec = records[arch, name] = dryrun.run_cell(arch, name, verbose=False,
+                                                        full_depth=False)
+            if rec["status"] == "skipped":
+                say(tag, f"{arch} {name}: not applicable ({rec['reason']})")
+                continue
+            if rec["status"] != "ok":
+                raise AssertionError(f"{tag}: the analysis of {arch} {name} failed: "
+                                     f"{rec['error']}")
+            a = rec["analysis"]
+            r, fit = a["roofline"], a["fit"]
+            say(tag, f"{arch} {name}: applicable; {a['cost']['flops_per_device']:.4e} FLOP "
+                     f"(calibrated at two depths), {a['modeled_memory']['total']:.4e} B "
+                     f"modeled; fits {fit['fits']} ({fit['total'] / 1e9:.2f} GB of "
+                     f"{fit['usable'] / 1e9:.2f} usable, largest batch {fit['max_batch']}); "
+                     f"binds: {r['bottleneck']} ({r['step_time_lower_bound_s'] * 1e3:.4f} ms)")
+    say(tag, f"analysis of {len(records)} cells in {time.perf_counter() - t0:.1f} s")
+    launches = dict.fromkeys(SOURCES, 0)
+    with _expandable_segments():
+        for k, n in _shape_runs(records).items():
+            launches[k] += n
+    say(tag, f"launches {launches}; wall {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _shape_runs(records: dict) -> dict:
+    """Runs every analysed cell that fits (ARCH's prefill_32k at the largest
+    batch that fits) and returns their launches."""
+    tag = "shapes"
+    launches = dict.fromkeys(SOURCES, 0)
+    for (arch, name), rec in records.items():
+        if rec["status"] != "ok":
+            continue
+        fit, kind = rec["analysis"]["fit"], dryrun.SHAPES[name].kind
+        if kind == "decode" and fit["fits"]:
+            rec["run_fit"] = fit
+            counts = _shape_decode(arch, rec)
+        elif kind == "prefill" and (fit["fits"] or arch == ARCH) and fit["max_batch"]:
+            B = dryrun.SHAPES[name].global_batch if fit["fits"] else fit["max_batch"]
+            if not fit["fits"]:
+                say(tag, f"{arch} {name}: run at B = {B}, not {dryrun.SHAPES[name].global_batch}"
+                         f": at the assigned batch the modeled peak is "
+                         f"{fit['total'] / 1e9:.2f} GB of {fit['usable'] / 1e9:.2f} usable "
+                         f"(activations {fit['terms']['activations'] / 1e9:.2f}, the cache and "
+                         f"its stacked copy {fit['terms']['cache'] / 1e9:.2f}); {B} is the "
+                         "largest batch the analysis fits")
+            rec["run_fit"] = analysis.memory_fit(get_config(arch), dryrun.SHAPES[name],
+                                                 batch=B)
+            counts = _shape_prefill(arch, rec, B)
+        else:
+            continue
+        for k, n in counts.items():
+            launches[k] += n
+    return launches
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -2162,6 +2834,9 @@ def main() -> int:
                            (MLA_ARCH, "-mla", SLICE_MLA_BF16_TOL),
                            (ENCDEC_ARCH, "-encdec", SLICE_ENCDEC_BF16_TOL),
                            (VLM_ARCH, "-vlm", SLICE_VLM_BF16_TOL)):
+        if arch == VLM_ARCH:                    # the assigned shapes, on an empty card
+            for k, n in phase_shapes().items():
+                launches[k] += n
         t0 = time.perf_counter()
         f32_layers = {MOE_ARCH: MOE_F32_LAYERS, VLM_ARCH: VLM_F32_LAYERS}.get(arch, 0)
         model = phase_slice(arch, "slice" + tag, tol, f32_layers=f32_layers)
@@ -2194,8 +2869,10 @@ def main() -> int:
                     fabric_launches[k] += n
         del model                               # free the weights before the next family
         torch.cuda.empty_cache()
-        if arch == ARCH:                        # training, on its own model
-            for k, n in phase_train().items():
+        trained = {ARCH: phase_train, SSM_ARCH: lambda: phase_train_scan(arch, "train-ssm"),
+                   HYBRID_ARCH: lambda: phase_train_scan(arch, "train-hybrid")}.get(arch)
+        if trained is not None:                 # training, on its own model
+            for k, n in trained().items():
                 launches[k] += n
     if not all(fabric_launches.values()):
         raise AssertionError(f"the fabric phases launched {fabric_launches}: a kernel of the "

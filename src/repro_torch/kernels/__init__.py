@@ -2,12 +2,15 @@
 
 Every ``ops`` module dispatches with ``impl``: "auto" (the kernel for a CUDA
 tensor, the reference for a CPU tensor), "kernel" (the kernel; a CPU tensor is
-an error), "ref" (the plain PyTorch version on any device).
+an error), "ref" (the plain PyTorch version on any device). A kernel wrapper
+given a tensor on the CPU or on the meta device (a trace with no data, as
+``launch/analysis.py`` counts FLOPs) computes the plain version (``on_host``).
 
 Gradients: a kernel wrapper given CUDA inputs that autograd records (grad
 mode on and an input that requires grad) launches its kernel through
-``KernelWithPlainGrad``, whose backward is the plain version's gradient, or
-raises where the kernel is on no training path. It never returns an output
+``KernelWithPlainGrad``, whose backward is the plain version's gradient
+(flash attention, the add + norm, the SSD scan), or raises where the kernel
+is on no training path (decode attention). It never returns an output
 without a ``grad_fn`` there.
 """
 from __future__ import annotations
@@ -24,6 +27,12 @@ def use_ref(t, impl: str) -> bool:
     if impl == "kernel" and not t.is_cuda:
         raise ValueError(f"impl='kernel' needs CUDA tensors, got {t.device}")
     return impl == "ref"
+
+
+def on_host(t) -> bool:
+    """Whether a kernel wrapper computes its plain version for tensor ``t``:
+    it lies on the CPU, or on the meta device (shapes only, no launch)."""
+    return t.device.type in ("cpu", "meta")
 
 
 def records_grad(*tensors) -> bool:

@@ -6,11 +6,12 @@
   ``decode_attention_pallas`` (same file, :173). One call is two device
   launches (split-KV, then the combine); ``LAUNCHES`` counts calls.
 
-A wrapper given CPU tensors computes the plain version in ``ref.py``, and only
-then. Given CUDA tensors it checks them, allocates the output with
-``torch.empty``, launches on the current stream, raises if the launch failed,
-and adds one to ``LAUNCHES[name]``. It never falls back to the plain version
-on the card. The libraries are built by ``nvcc`` at first use (``build()``).
+A wrapper given CPU or meta tensors (meta: a trace with no data) computes the
+plain version in ``ref.py``, and only then. Given CUDA tensors it checks them,
+allocates the output with ``torch.empty``, launches on the current stream,
+raises if the launch failed, and adds one to ``LAUNCHES[name]``. It never
+falls back to the plain version on the card. The libraries are built by
+``nvcc`` at first use (``build()``).
 
 Under autograd (an input that requires grad, grad mode on) ``flash_attention``
 launches through ``KernelWithPlainGrad``: the kernel forward, the gradient of
@@ -27,7 +28,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .. import KernelWithPlainGrad, _build, records_grad, refuse_grad
+from .. import KernelWithPlainGrad, _build, on_host, records_grad, refuse_grad
 from . import ref
 
 CSRC = Path(__file__).parent / "csrc"
@@ -156,7 +157,7 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset=None, kv_len=None,
     (B,Sq,H,dv). ``q_offset`` is a scalar; ``kv_len`` a scalar or one length
     per row."""
     kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, scale=scale)
-    if q.device.type == "cpu":
+    if on_host(q):
         return ref.mha_reference(q, k, v, **kw)
     if records_grad(q, k, v):
         return KernelWithPlainGrad.apply(functools.partial(_flash_launch, **kw),
@@ -191,7 +192,7 @@ def decode_attention(q, k_cache, v_cache, pos, *, scale: Optional[float] = None)
     """Single-token attention: q (B,1,H,dqk) against caches (B,S,KV,dqk) and
     (B,S,KV,dv) whose entries <= pos are valid -> (B,1,H,dv); ``pos`` is a
     scalar or (B,) (continuous batching)."""
-    if q.device.type == "cpu":
+    if on_host(q):
         return ref.decode_attention_reference(q, k_cache, v_cache, pos, scale=scale)
     refuse_grad("decode_attention", q, k_cache, v_cache)
     _check(q, k_cache, v_cache, "decode_attention")

@@ -5,14 +5,15 @@
 ``block_rows``: one thread block per row needs no padding. ``empty_launch``
 times the path's floor.
 
-A wrapper given CPU tensors computes the plain version in ``ref.py``, and only
-then. Given CUDA tensors it checks them, allocates both outputs with
-``torch.empty``, launches on the current stream, raises if the launch failed,
-and adds one to ``LAUNCHES["fused_add_rmsnorm"]``. The library is built by
-``nvcc`` at first use (``build()``). Under autograd (an input that requires
-grad, grad mode on) it launches through ``KernelWithPlainGrad``: the kernel
-forward, the gradient of ``ref.fused_add_rmsnorm_reference`` for x, delta and
-the fp32 scale backward.
+A wrapper given CPU or meta tensors (meta: a trace with no data) computes the
+plain version in ``ref.py``, and only then. Given CUDA tensors it checks them,
+allocates both outputs with ``torch.empty``, launches on the current stream,
+raises if the launch failed, and adds one to
+``LAUNCHES["fused_add_rmsnorm"]``. The library is built by ``nvcc`` at first
+use (``build()``). Under autograd (an input that requires grad, grad mode on)
+it launches through ``KernelWithPlainGrad``: the kernel forward, the gradient
+of ``ref.fused_add_rmsnorm_reference`` for x, delta and the fp32 scale
+backward.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from .. import KernelWithPlainGrad, _build, records_grad
+from .. import KernelWithPlainGrad, _build, on_host, records_grad
 from . import ref
 
 CSRC = Path(__file__).parent / "csrc"
@@ -123,7 +124,7 @@ def fused_add_rmsnorm(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
                       eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
     """(x + delta, rmsnorm(x + delta) * scale) for x, delta (..., D) and scale
     (D,) fp32; both outputs contiguous in x's dtype."""
-    if x.device.type == "cpu":
+    if on_host(x):
         return ref.fused_add_rmsnorm_reference(x, delta, scale, eps)
     if records_grad(x, delta, scale):
         return KernelWithPlainGrad.apply(

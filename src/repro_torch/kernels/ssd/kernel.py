@@ -5,15 +5,18 @@ the TPU kernel it takes a nonzero ``initial_state``: on the card nothing falls
 back to the plain version, so the kernel has to take everything ``ops.ssd``
 accepts.
 
-A wrapper given CPU tensors computes the plain version in ``ref.py``, and only
-then. Given CUDA tensors it checks them, allocates ``y``, the final state and
-the bf16 passes' scratch with ``torch.empty``, launches on the current stream,
-raises if the launch failed, and adds one to ``LAUNCHES["ssd"]``. In bf16 one
-call is up to three device launches (chunk state, state passing, output; the
-launch decision lives in ``csrc/ssd.cu``); ``LAUNCHES`` counts calls. The
-library is built by ``nvcc`` at first use (``build()``). It has no gradient
-yet: under autograd (an input that requires grad, grad mode on) it raises, so
-the ssm and hybrid families do not train on the card.
+A wrapper given CPU or meta tensors (meta: a trace with no data) computes the
+plain version in ``ref.py``, and only then. Given CUDA tensors it checks them,
+allocates ``y``, the final state and the bf16 passes' scratch with
+``torch.empty``, launches on the current stream, raises if the launch failed,
+and adds one to ``LAUNCHES["ssd"]``. In bf16 one call is up to three device
+launches (chunk state, state passing, output; the launch decision lives in
+``csrc/ssd.cu``); ``LAUNCHES`` counts calls. The library is built by ``nvcc``
+at first use (``build()``). Under autograd (an input that requires grad, grad
+mode on) it launches through ``KernelWithPlainGrad``: the kernel forward, the
+gradient of ``ref.ssd_reference`` for x, dt, A, B, C and the initial state
+backward (the ssm and hybrid families' training; remat runs the forward twice
+a layer).
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .. import _build, refuse_grad
+from .. import KernelWithPlainGrad, _build, on_host, records_grad
 from . import ref
 
 CSRC = Path(__file__).parent / "csrc"
@@ -124,10 +127,31 @@ def ssd(x, dt, A, B_, C_, *, chunk: int = 256, initial_state: Optional[torch.Ten
         return_final_state: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Mamba2 SSD scan. x (B,S,H,P), dt (B,S,H) f32, A (H,) f32, B_/C_ (B,S,G,N)
     -> (y like x, final state (B,H,P,N) f32 or None)."""
-    if x.device.type == "cpu":
-        return ref.ssd_reference(x, dt, A, B_, C_, chunk=chunk, initial_state=initial_state,
-                                 return_final_state=return_final_state)
-    refuse_grad("ssd", x, dt, A, B_, C_, initial_state)
+    kw = dict(chunk=chunk, return_final_state=return_final_state)
+    if on_host(x):
+        return ref.ssd_reference(x, dt, A, B_, C_, initial_state=initial_state, **kw)
+    inputs = (x, dt, A, B_, C_) + (() if initial_state is None else (initial_state,))
+    if records_grad(*inputs):
+        # the Function's two callables return the same tensors: y alone when
+        # no final state is asked for; chunk and the flag travel in the closure
+        out = KernelWithPlainGrad.apply(_outputs(_launch, **kw),
+                                        _outputs(ref.ssd_reference, **kw), *inputs)
+        return out if return_final_state else (out, None)
+    return _launch(x, dt, A, B_, C_, initial_state=initial_state, **kw)
+
+
+def _outputs(fn, *, chunk: int, return_final_state: bool):
+    """``fn`` over (x, dt, A, B, C[, initial_state]) returning (y, state), or y
+    alone without the final state."""
+    def call(x, dt, A, B_, C_, initial_state=None):
+        y, state = fn(x, dt, A, B_, C_, chunk=chunk, initial_state=initial_state,
+                      return_final_state=return_final_state)
+        return (y, state) if return_final_state else y
+    return call
+
+
+def _launch(x, dt, A, B_, C_, *, chunk: int, initial_state: Optional[torch.Tensor],
+            return_final_state: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     _check(x, dt, A, B_, C_, chunk, initial_state)
     Bb, S, H, P = x.shape
     G, N = B_.shape[2], B_.shape[3]

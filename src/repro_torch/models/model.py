@@ -43,9 +43,9 @@ takes its per-layer weights by ``torch.unbind`` of the stacked parameters on
 each call, so their gradients reach the stacks (one stacking backward per
 stack), and with ``cfg.remat`` runs each layer call under
 ``torch.utils.checkpoint`` (non-reentrant): the reference's ``jax.checkpoint``
-with policy "nothing" around its scan body. The port checkpoints each block
-call (the hybrid's shared block and each Mamba2 layer apart, where the
-reference nests the group's). Other forwards use the per-layer views taken
+around its scan body, with its three policies (``_remat``). The port
+checkpoints each block call (the hybrid's shared block and each Mamba2 layer
+apart, where the reference nests the group's). Other forwards use the per-layer views taken
 once at construction, which the graphed decode step relies on.
 """
 from __future__ import annotations
@@ -56,13 +56,22 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..configs.base import ModelConfig
 from . import blocks, layers, mamba2
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 AUX_COEF = 0.01   # the MoE load-balance loss's weight (repro/models/model.py:29)
+_aten = torch.ops.aten
+# the products each remat policy saves (the rest is recomputed), as JAX's
+# checkpoint_dots and checkpoint_dots_with_no_batch_dims save every dot_general
+# or those without batch dimensions (repro/models/model.py:32-40)
+REMAT_SAVED_OPS = {
+    "nothing": (),
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default, _aten.baddbmm.default),
+    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
+}
 
 
 def _as_module(tree: dict, module: nn.Module) -> nn.Module:
@@ -229,16 +238,25 @@ class Model(nn.Module):
 
     def _remat(self, fn):
         """``fn`` under ``torch.utils.checkpoint`` when this forward is
-        recorded and ``cfg.remat`` is set (policy "nothing": only the call's
-        inputs are kept, the rest recomputed in the backward), else ``fn``."""
+        recorded and ``cfg.remat`` is set, else ``fn``. Policy "nothing" keeps
+        only the call's inputs and recomputes the rest in the backward;
+        "dots" also keeps the output of every matrix product (``mm``,
+        ``addmm``, ``bmm``, ``baddbmm``), "dots_no_batch" of those without a
+        batch dimension (``mm``, ``addmm``), through
+        ``create_selective_checkpoint_contexts``. The port's kernels launch
+        through ctypes, not as aten ops, so every policy recomputes them."""
         cfg = self.cfg
         if not (cfg.remat and self._records_grad()):
             return fn
-        if cfg.remat_policy != "nothing":
-            raise NotImplementedError(
-                f"remat_policy {cfg.remat_policy!r} is not ported (ROADMAP A5); "
-                "the port keeps 'nothing'")
-        return functools.partial(checkpoint, fn, use_reentrant=False)
+        if cfg.remat_policy not in REMAT_SAVED_OPS:
+            raise ValueError(f"remat_policy {cfg.remat_policy!r} is not one of "
+                             f"{tuple(REMAT_SAVED_OPS)}")
+        saved = REMAT_SAVED_OPS[cfg.remat_policy]
+        if not saved:
+            return functools.partial(checkpoint, fn, use_reentrant=False)
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, list(saved)))
 
     def _per_layer(self, name: str = "layers") -> list:
         """The per-layer weight trees of stack ``name`` (the hybrid's: one list

@@ -56,7 +56,7 @@ class Trainer:
         self.endpoint_id = endpoint_id
         self.history: List[Dict[str, float]] = []
 
-        self._step_fn = build_train_step(model, ocfg)
+        self._step_fn = build_train_step(model, ocfg).fn
 
         model.init(torch.Generator(device=model.device).manual_seed(seed))
         model.requires_grad_(True)

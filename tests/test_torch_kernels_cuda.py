@@ -822,16 +822,63 @@ def test_fused_add_rmsnorm_gradients_are_the_plain_versions(shape, dtype, cuda_d
 
 
 def test_decode_attention_and_ssd_raise_under_grad(cuda_device):
+    """Decode attention, on no training path, raises under autograd; the
+    scan launches through its Function there (a gradient since the ssm and
+    hybrid families train on the card)."""
     q, kc, vc = _inputs(cuda_device, torch.float32, 10, (2, 1, 4, 16), (2, 32, 2, 16),
                         (2, 32, 2, 16))
     with pytest.raises(RuntimeError, match="no gradient"):
         tkernel.decode_attention(q.requires_grad_(), kc, vc, 5)
     x, dt, A, B_, C_ = _ssd_inputs(cuda_device, torch.float32, 11, 1, 64, 2, 16, 1, 16)
-    with pytest.raises(RuntimeError, match="no gradient"):
-        ssd_kernel.ssd(x, dt, A.requires_grad_(), B_, C_, chunk=16)
+    y, _ = ssd_kernel.ssd(x, dt, A.requires_grad_(), B_, C_, chunk=16)
+    assert y.grad_fn is not None
     with torch.no_grad():   # the same calls outside autograd launch
         tkernel.decode_attention(q, kc, vc, 5)
         ssd_kernel.ssd(x, dt, A, B_, C_, chunk=16)
+
+
+# B, S, H, P, G, N, chunk: small (two chunks, two groups); mamba2-2.7b's and
+# zamba2-2.7b's training calls (B = 8, S = 1024: four chunks of 256)
+GRAD_SSD_SHAPES = [(2, 64, 4, 16, 2, 16, 32), (8, 1024, 80, 64, 1, 128, 256),
+                   (8, 1024, 80, 64, 1, 64, 256)]
+
+
+@pytest.mark.parametrize("final_state", [False, True])
+@pytest.mark.parametrize("dtype", list(SSD_DTYPES))
+@pytest.mark.parametrize("shape", GRAD_SSD_SHAPES, ids=str)
+def test_ssd_gradients_are_the_plain_versions(shape, dtype, final_state, cuda_device):
+    """Under autograd the scan launches its kernel forward once and its
+    backward is ``ssd_reference``'s gradient for x, dt, A, B, C (and, with a
+    final state asked for, an initial state) with no launch."""
+    B, S, H, P, G, N, chunk = shape
+    tdt, tol = SSD_DTYPES[dtype]
+    x, dt, A, B_, C_ = _ssd_inputs(cuda_device, tdt, 14, B, S, H, P, G, N)
+    inputs = [x, dt, A, B_, C_]
+    init = None
+    if final_state:
+        init = torch.from_numpy(np.random.default_rng(15).standard_normal(
+            (B, H, P, N)).astype(np.float32)).to(cuda_device)
+        inputs.append(init)
+    inputs = [t.requires_grad_() for t in inputs]
+    init = inputs[5] if final_state else None
+    kw = dict(chunk=chunk, initial_state=init, return_final_state=final_state)
+    gy = torch.randn(x.shape, generator=torch.Generator(cuda_device).manual_seed(16),
+                     device=cuda_device).to(tdt)
+    before = ssd_kernel.LAUNCHES["ssd"]
+    y, state = ssd_kernel.ssd(*inputs[:5], **kw)
+    assert ssd_kernel.LAUNCHES["ssd"] == before + 1
+    assert y.grad_fn is not None and (state is not None) == final_state
+    outs, grads = [y], [gy]
+    if final_state:
+        outs.append(state)
+        grads.append(torch.ones_like(state))
+    got = torch.autograd.grad(outs, inputs, grads)
+    assert ssd_kernel.LAUNCHES["ssd"] == before + 1       # the backward is plain
+    want_y, want_state = ssd_ref.ssd_reference(*inputs[:5], **kw)
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    want = torch.autograd.grad([want_y] + ([want_state] if final_state else []), inputs,
+                               grads)
+    _close_grads(got, want, dtype, tol)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen2-moe-a2.7b", "minicpm3-4b",
@@ -871,9 +918,62 @@ def test_model_loss_backward_reaches_every_weight(arch, cuda_device):
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
 def test_ssm_families_do_not_train_on_the_card_yet(arch, cuda_device):
+    """The ssm and hybrid families train on the card: a reduced model's loss
+    backward through the kernels (remat on) gives every weight a nonzero
+    gradient close to the plain path's (f32), and launches the scan twice a
+    Mamba2 layer (forward and recompute), the hybrid's shared block's flash
+    attention and add + norm twice a group."""
     cfg = get_reduced(arch).with_(dtype="float32")
     model = Model(cfg, device=cuda_device).init(torch.Generator(cuda_device).manual_seed(0))
     model.requires_grad_(True)
     tokens = torch.from_numpy(np.random.default_rng(13).integers(0, cfg.vocab, (2, 24)))
-    with pytest.raises(RuntimeError, match="ssd has no gradient"):
-        model.loss({"tokens": tokens.to(cuda_device)})
+    batch = {"tokens": tokens.to(cuda_device)}
+    names, leaves = zip(*model.named_parameters())
+    grads = {}
+    for impl in ("auto", "ref"):
+        model.kernel_impl = impl
+        for mod in (tkernel, rms_kernel, ssd_kernel):
+            mod.reset_launches()
+        loss, _ = model.loss(batch)
+        grads[impl] = torch.autograd.grad(loss, leaves)
+        if impl == "auto":
+            groups = cfg.n_layers // cfg.shared_attn_every if cfg.family == "hybrid" else 0
+            assert ssd_kernel.LAUNCHES["ssd"] == 2 * cfg.n_layers
+            assert tkernel.LAUNCHES["flash_attention"] == 2 * groups
+            assert rms_kernel.LAUNCHES["fused_add_rmsnorm"] == 2 * groups
+            assert tkernel.LAUNCHES["decode_attention"] == 0
+    for name, g, w in zip(names, grads["auto"], grads["ref"]):
+        assert g is not None and float(g.abs().max()) > 0, f"{name} has no gradient"
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3 * float(w.abs().max()))
+
+
+def test_one_decode_32k_step_at_8_slots(cuda_device):
+    """One step of the ``decode_32k`` cell through ``build_decode_step`` on
+    full-width bf16 qwen2-0.5b (random weights from seed 0), 8 slots of a
+    32768-position cache filled with seeded random values, at pos = 32767:
+    the kernels' next tokens equal the plain path's or part at a near-tie
+    (bf16 logits within 0.25, chip_smoke.py's SLICE_BF16_TOL)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.training.steps import build_decode_step
+
+    S, B, tol = SHAPES["decode_32k"].seq_len, 8, 0.25
+    model = Model(get_config("qwen2-0.5b"), device=cuda_device).init(
+        torch.Generator(cuda_device).manual_seed(0))
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    cache = model.init_cache(B, S)
+    for leaf in cache.values():
+        leaf.normal_(generator=gen)
+    token = torch.randint(0, model.cfg.vocab, (B, 1), generator=gen, device=cuda_device)
+    pos = torch.tensor(S - 1, device=cuda_device)
+    tkernel.reset_launches()
+    nxt, out = build_decode_step(model).fn(model.params, token, cache, pos)
+    assert out is cache and tkernel.LAUNCHES["decode_attention"] == model.cfg.n_layers
+    with torch.no_grad():
+        got, _ = model.decode_step(token, cache, pos)
+        model.kernel_impl = "ref"
+        want, _ = model.decode_step(token, cache, pos)
+    assert torch.isfinite(got).all() and nxt.shape == (B, 1)
+    torch.testing.assert_close(nxt[:, 0].long(), got.argmax(-1))
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    gap = want.amax(-1) - want.gather(-1, got.argmax(-1, keepdim=True))[:, 0]
+    assert gap.max().item() <= tol

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from conftest import make_batch  # noqa: E402
 from repro.configs import get_reduced as jax_reduced  # noqa: E402
@@ -39,8 +40,10 @@ from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.kernels import KernelWithPlainGrad, records_grad, refuse_grad  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as attn_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rms_ref  # noqa: E402
+from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
+from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
-from repro_torch.models.model import AUX_COEF, Model  # noqa: E402
+from repro_torch.models.model import AUX_COEF, REMAT_SAVED_OPS, Model  # noqa: E402
 from repro_torch.training import optimizer as opt  # noqa: E402
 from repro_torch.training.steps import build_train_step  # noqa: E402
 from repro_torch.training.train_loop import TrainConfig, Trainer  # noqa: E402
@@ -175,14 +178,90 @@ def test_remat_changes_no_gradient():
 
 
 def test_other_remat_policies_wait_for_the_sharding_slice():
-    model = Model(get_reduced("qwen2-0.5b").with_(dtype="float32", remat_policy="dots"),
-                  device="cpu")
-    batch = _tensors(make_batch(model.cfg, B, S))
-    with torch.no_grad():
-        model.loss(batch)          # a forward autograd does not record needs no policy
-    model.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="A5"):
-        model.loss(batch)
+    """The reference's three remat policies are taken (the sharding slice no
+    longer holds them back); a name outside them raises."""
+    batch = _tensors(make_batch(get_reduced("qwen2-0.5b"), B, S))
+    for policy in ("nothing", "dots", "dots_no_batch", "everything"):
+        model = Model(get_reduced("qwen2-0.5b").with_(dtype="float32", remat_policy=policy),
+                      device="cpu").init(torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            model.loss(batch)      # a forward autograd does not record needs no policy
+        model.requires_grad_(True)
+        if policy in REMAT_SAVED_OPS:
+            assert torch.isfinite(model.loss(batch)[0])
+        else:
+            with pytest.raises(ValueError, match="remat_policy"):
+                model.loss(batch)
+
+
+@functools.lru_cache(maxsize=None)
+def _policy_pair(arch: str, policy: str):
+    """(JAX model, JAX params, port model with the same weights), f32, remat
+    on under ``policy``."""
+    jmodel = JaxModel(jax_reduced(arch).with_(dtype="float32", remat_policy=policy))
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    model = Model(get_reduced(arch).with_(dtype="float32", remat_policy=policy), device="cpu")
+    model.load_state_dict(tparams.to_state_dict(jax.tree.map(np.asarray, jparams), "cpu"))
+    return jmodel, jparams, model
+
+
+@pytest.mark.parametrize("policy", ["dots", "dots_no_batch"])
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_remat_policies_give_the_same_gradients_as_jax(family, policy):
+    """Under "dots" and "dots_no_batch" every gradient leaf equals the one
+    under "nothing" (the same arithmetic, only what is kept differs) and
+    JAX's ``value_and_grad`` under the same policy."""
+    jmodel, jparams, model = _policy_pair(FAMILIES[family], policy)
+    _, _, plain = _pair(FAMILIES[family])
+    batch = make_batch(jmodel.cfg, B, S)
+    loss, _, grads = _port_loss_and_grads(model, batch)
+    loss0, _, grads0 = _port_loss_and_grads(plain, batch)
+    assert loss.item() == loss0.item()
+    for name, g in grads.items():
+        torch.testing.assert_close(g, grads0[name], rtol=0, atol=0)
+    jloss, _, jgrads = _jax_loss_and_grads(jmodel, jparams, batch)
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    for name, g in grads.items():
+        _assert_leaf_close(name, g.numpy(), jgrads[name])
+
+
+class _CountProducts(TorchDispatchMode):
+    """Counts the matrix products dispatched while it is on."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = {"mm": 0, "bmm": 0}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        if name in ("mm", "addmm"):
+            self.n["mm"] += 1
+        elif name in ("bmm", "baddbmm"):
+            self.n["bmm"] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _backward_products(arch: str, remat: bool, policy: str = "nothing") -> dict:
+    cfg = get_reduced(arch).with_(dtype="float32", remat=remat, remat_policy=policy)
+    model = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0)).requires_grad_(True)
+    loss, _ = model.loss(_tensors(make_batch(cfg, B, S)))
+    with _CountProducts() as counted:
+        torch.autograd.grad(loss, list(model.parameters()))
+    return counted.n
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-2.7b"])
+def test_dots_policies_recompute_what_they_should(arch):
+    """The backward's products beyond those of a backward without remat are
+    the recomputed ones: "nothing" recomputes products with and without a
+    batch dimension, "dots" none, "dots_no_batch" only the batched ones
+    (``bmm``: the plain attention's and scan's einsums), all of them."""
+    base = _backward_products(arch, remat=False)
+    extra = {p: {k: n - base[k] for k, n in _backward_products(arch, True, p).items()}
+             for p in ("nothing", "dots", "dots_no_batch")}
+    assert extra["nothing"]["mm"] > 0 and extra["nothing"]["bmm"] > 0
+    assert extra["dots"] == {"mm": 0, "bmm": 0}
+    assert extra["dots_no_batch"] == {"mm": 0, "bmm": extra["nothing"]["bmm"]}
 
 
 def test_serving_keeps_the_weights_frozen_and_the_cached_views():
@@ -229,6 +308,39 @@ def test_kernel_function_backward_is_the_plain_gradient():
     (gx,) = torch.autograd.grad(KernelWithPlainGrad.apply(fn, fn, x, d, scale)[1].sum(), x)
     (wx,) = torch.autograd.grad(fn(x, d, scale)[1].sum(), x)
     torch.testing.assert_close(gx, wx, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("final_state", [False, True])
+@pytest.mark.parametrize("initial_state", [False, True])
+def test_ssd_function_backward_is_the_plain_gradient(initial_state, final_state):
+    """``ssd``'s Function with the plain version as both callables (the
+    wrapper's ``_outputs``: y alone without the final state): the gradients
+    of x, dt, A, B, C and the initial state are autograd's of
+    ``ssd_reference``."""
+    r = np.random.default_rng(4)
+    t = lambda *s: torch.from_numpy(r.standard_normal(s).astype(np.float32)).requires_grad_()
+    Bb, S_, H, P, G, N, chunk = 2, 12, 4, 8, 2, 6, 4
+    x, Bm, Cm = t(Bb, S_, H, P), t(Bb, S_, G, N), t(Bb, S_, G, N)
+    dt = torch.from_numpy(0.1 + r.random((Bb, S_, H)).astype(np.float32)).requires_grad_()
+    A = torch.from_numpy(-0.5 - r.random(H).astype(np.float32)).requires_grad_()
+    inputs = [x, dt, A, Bm, Cm] + ([t(Bb, H, P, N)] if initial_state else [])
+    kw = dict(chunk=chunk, return_final_state=final_state)
+    fn = ssd_kernel._outputs(ssd_ref.ssd_reference, **kw)
+    got = KernelWithPlainGrad.apply(fn, fn, *inputs)
+    want = fn(*inputs)
+    outs = (got, want) if not final_state else (got[0], want[0])
+    assert isinstance(outs[0], torch.Tensor)
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
+    gy = torch.from_numpy(r.standard_normal((Bb, S_, H, P)).astype(np.float32))
+    if final_state:
+        gs = torch.from_numpy(r.standard_normal((Bb, H, P, N)).astype(np.float32))
+        g_got = torch.autograd.grad(got, inputs, (gy, gs))
+        g_want = torch.autograd.grad(want, inputs, (gy, gs))
+    else:
+        g_got = torch.autograd.grad(got, inputs, gy)
+        g_want = torch.autograd.grad(want, inputs, gy)
+    for g, w in zip(g_got, g_want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 def test_records_grad_and_refuse_grad():
@@ -350,7 +462,7 @@ def test_three_train_steps_match_jax(family):
     model.requires_grad_(True)
     jcfg, pcfg = _train_cfgs()
     jstep = jax.jit(jax_build_train_step(jmodel, jcfg).fn)
-    step = build_train_step(model, pcfg)
+    step = build_train_step(model, pcfg).fn
     jstate, params = jax_opt.init_state(jparams, jcfg), model.params
     state = opt.init_state(params, pcfg)
     for i in range(3):
@@ -379,7 +491,7 @@ def test_microbatches_average_to_one_batch():
             torch.Generator().manual_seed(0))
         model.requires_grad_(True)
         params = model.params
-        _, _, m = build_train_step(model, pcfg)(params, opt.init_state(params, pcfg), batch)
+        _, _, m = build_train_step(model, pcfg).fn(params, opt.init_state(params, pcfg), batch)
         out[M] = (m, model.state_dict())
     for k in ("loss", "ce", "grad_norm"):
         np.testing.assert_allclose(float(out[2][0][k]), float(out[1][0][k]), rtol=1e-5)
@@ -394,7 +506,7 @@ def test_microbatches_average_to_one_batch():
     _, _, jm = jax_build_train_step(jmodel, jcfg).fn(
         jparams, jax_opt.init_state(jparams, jcfg), jax.tree.map(np.asarray, batch))
     params = model.params
-    _, _, m = build_train_step(model, pcfg)(params, opt.init_state(params, pcfg), batch)
+    _, _, m = build_train_step(model, pcfg).fn(params, opt.init_state(params, pcfg), batch)
     for k in ("loss", "ce", "aux", "grad_norm", "lr"):
         np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-5, atol=1e-8, err_msg=k)
 
