@@ -246,16 +246,61 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      with their patches from the store. Held to serve-vlm's
                      graphed streams under the near-tie rule.
 
-The VLM phases run last, after every other model is freed: internvl2-26b's
-39.8 GB of bf16 weights leave about 38 GB for its engine and hosts.
+31. mesh-probe     - two ranks on the one card over gloo (child processes
+                     started with ``spawn``, meeting through a file in a
+                     temporary directory): which of all_reduce, broadcast,
+                     all_gather_into_tensor, reduce_scatter_tensor and
+                     all_to_all_single take CUDA tensors, f32 and bf16, each
+                     result checked, by the ``torch.distributed`` call and
+                     by the functional collective DTensor issues; a call
+                     that hangs (30 s) or crashes the ranks is named and
+                     ends the probe.
+32. mesh-moe       - full-width qwen2-moe-a2.7b's experts split over two ranks
+                     on the one card: the reference run (during the MoE
+                     family's turn, before its model is freed) keeps each
+                     layer's MoE input and output of the global path's prefill
+                     over 4 x 512 synthetic tokens; then two ranks on a
+                     (model = 2) mesh over gloo, each drawing the weights part
+                     by part from seed 0 and keeping the router, the shared
+                     expert and its 30 of 60 experts of every layer, run every
+                     layer's ``moe_ffn`` with ``moe_impl="local"`` on those
+                     inputs: y within the serve phases' bf16 bound of the
+                     global path's, aux equal (no data axis), one all-reduce a
+                     layer and no kernel launch; per layer the local experts'
+                     and the gloo all-reduce's times (CUDA events; the
+                     all-reduce also on the host's clock).
+33. mesh-steps     - on a 1-rank NCCL mesh (data 1, model 1): full-width
+                     qwen2-0.5b's ``build_train_step(mesh=)`` (3 steps, B = 8,
+                     S = 1024, remat on) and ``build_decode_step(mesh=)`` (32
+                     greedy tokens) against the unsharded builders' (losses
+                     and grad norms within 1e-6 relative, tokens equal), and
+                     mamba2-2.7b cut to 4 of 64 layers for one train step, so
+                     that all four kernels launch through the wrappers'
+                     ``local_map``; each step's wall beside the unsharded
+                     one's. Then the collectives a (data 1, model 2) step
+                     issues (traced under a fake group); where mesh-probe
+                     shows gloo takes them all on CUDA tensors as functional
+                     collectives, qwen2-0.5b's train step on two ranks at B =
+                     4 within 2e-2 of the unsharded loss; else the phase
+                     names the ones it does not take.
+34. mesh-dryrun    - ``python -m repro_torch.launch.dryrun --arch
+                     qwen3-moe-235b-a22b --shape train_4k --mesh 16,16
+                     --calibrated`` in a subprocess under a fake group of 256:
+                     the experts' placements, the per-device FLOPs and memory
+                     fit, the collectives' wire bytes and the roofline.
+
+The VLM phases run last of the families, after every other model is freed:
+internvl2-26b's 39.8 GB of bf16 weights leave about 38 GB for its engine and
+hosts; the mesh phases follow on a card they have freed.
 Each family's slice, serve and fabric phases print their wall time.
 
 Each serve, fabric, train and shapes run resets the launch counters just
 before it and reads them just after; a replay adds the calls its capture
 counted. The summary's ``launches`` of a kernel is its sum over the seven
 graphed serve runs, the fabric runs, the train phase's two trainer runs, the
-train-ssm and train-hybrid trainer runs and the shapes phase's timed runs;
-the fabric phases together must have launched every kernel.
+train-ssm and train-hybrid trainer runs, the shapes phase's timed runs and
+the mesh-moe and mesh-steps phases' runs on a mesh; the fabric phases
+together must have launched every kernel, and mesh-steps every kernel too.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.
@@ -265,6 +310,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -2820,6 +2866,621 @@ def _shape_runs(records: dict) -> dict:
     return launches
 
 
+# -------------------------------------------------------------------- the mesh
+# (b) mesh-moe: full-width qwen2-moe-a2.7b's experts split over two ranks that
+# share the card; the reference run is the global path's prefill over B x S
+MESH_MOE_BATCH, MESH_MOE_SEQ = 4, 512
+MESH_MOE_TIMED_REPS = 10
+# (c) mesh-steps: the sharded builders on a 1-rank NCCL mesh against the
+# unsharded ones (no collective runs: equal to float rounding of the same ops)
+MESH_TRAIN_STEPS, MESH_DECODE_TOKENS, MESH_DECODE_BATCH = 3, 32, 8
+MESH_SSM_LAYERS = 4            # mamba2-2.7b at full width, cut to 4 of 64 layers
+MESH_STEP_RTOL = 1e-6
+# two ranks over gloo on the one card: (data 1, model 2), B = 4; bf16 losses
+MESH_TWO_RANK_BATCH, MESH_TWO_RANK_TOL = 4, 2e-2
+MESH_RANK_TIMEOUT = 600        # seconds for a phase's child ranks
+# the collectives the probe tries on CUDA tensors over gloo, by their
+# torch.distributed names, and the dry run's names of those a step issues
+MESH_PROBE_OPS = ("all_reduce", "broadcast", "all_gather_into_tensor",
+                  "reduce_scatter_tensor", "all_to_all_single")
+MESH_OP_NAMES = {"all-reduce": "all_reduce", "all-gather": "all_gather_into_tensor",
+                 "reduce-scatter": "reduce_scatter_tensor", "all-to-all": "all_to_all_single"}
+
+
+def _rank_entry(rank: int, world: int, init_file: str, out, fn, args, timeout: float) -> None:
+    """A child rank: gloo on the one card, then ``fn(rank, *args)``. A rank
+    that crashes, or still runs near the parent's timeout, prints every
+    thread's stack."""
+    import datetime
+    import faulthandler
+    import traceback
+
+    import torch.distributed as dist
+
+    faulthandler.enable(all_threads=True)
+    faulthandler.dump_traceback_later(timeout - 30, exit=False)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=120))
+        out.put((rank, "ok", fn(rank, *args)))
+    except BaseException:  # noqa: BLE001
+        out.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _spawn_ranks(world: int, fn, *args) -> dict:
+    """``fn(rank, *args)`` on ``world`` child processes (``spawn``: this process
+    already holds a CUDA context) meeting through a file in a temporary
+    directory; returns each rank's result, raises on any rank's error."""
+    import queue
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    with tempfile.TemporaryDirectory() as d:
+        init = str(Path(d) / "rendezvous")
+        procs = [ctx.Process(target=_rank_entry,
+                             args=(r, world, init, out, fn, args, MESH_RANK_TIMEOUT))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        results = {}
+        deadline = time.monotonic() + MESH_RANK_TIMEOUT
+        try:
+            while len(results) < world:
+                try:
+                    rank, status, value = out.get(timeout=5)
+                except queue.Empty:
+                    dead = {i: p.exitcode for i, p in enumerate(procs)
+                            if p.exitcode not in (None, 0)}
+                    if dead:
+                        raise AssertionError(f"rank(s) exited with {dead} (a negative code is "
+                                             "the signal that ended it)") from None
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"the ranks did not finish within "
+                                             f"{MESH_RANK_TIMEOUT} s") from None
+                    continue
+                if status != "ok":
+                    raise AssertionError(f"rank {rank} failed:\n{value}")
+                results[rank] = value
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+    return results
+
+
+MESH_PROBE_WAIT = 30           # seconds a probed collective may take before it counts as hung
+
+
+def _probe_call(api: str, name: str, rank: int, dtype) -> str:
+    """One collective of two ranks on CUDA tensors, its result checked: by
+    the ``torch.distributed`` call (api "c10d") or by the functional
+    collective that DTensor issues (api "funcol")."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    x = torch.full((4,), float(rank + 1), dtype=dtype, device=DEVICE)
+    group = dist.group.WORLD
+    want = {"all_reduce": [3.0] * 4, "broadcast": [1.0] * 4,
+            "all_gather_into_tensor": [1.0] * 4 + [2.0] * 4,
+            "reduce_scatter_tensor": [3.0] * 2, "all_to_all_single": [1.0, 1.0, 2.0, 2.0]}[name]
+    if api == "c10d":
+        out = x if name in ("all_reduce", "broadcast") else torch.empty(
+            len(want), dtype=dtype, device=DEVICE)
+        {"all_reduce": lambda: dist.all_reduce(x),
+         "broadcast": lambda: dist.broadcast(x, src=0),
+         "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(out, x),
+         "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(out, x),
+         "all_to_all_single": lambda: dist.all_to_all_single(out, x)}[name]()
+    else:
+        out = {"all_reduce": lambda: funcol.all_reduce(x, "sum", group),
+               "broadcast": lambda: funcol.broadcast(x, 0, group),
+               "all_gather_into_tensor": lambda: funcol.all_gather_tensor(x, 0, group),
+               "reduce_scatter_tensor": lambda: funcol.reduce_scatter_tensor(x, "sum", 0, group),
+               "all_to_all_single": lambda: funcol.all_to_all_single(x, None, None, group),
+               }[name]()
+        out = funcol.wait_tensor(out)
+    torch.cuda.synchronize()
+    got = out.float().tolist()
+    return "ok" if got == want else f"wrong {got}"
+
+
+def _probe_rank(rank: int, directory: str) -> None:
+    """Each collective by each API in f32 and bf16, each under a watchdog: a
+    call that neither returns nor raises within MESH_PROBE_WAIT seconds
+    counts as hung, and the rest are not tried (the group may be wedged).
+    Each call is written to ``directory``/rank<r> as it starts and as it
+    ends, so a call that ends the process (a crash in the collective) is
+    known by the line it started."""
+    import threading
+
+    with open(Path(directory) / f"rank{rank}", "w") as log:
+        for api in ("c10d", "funcol"):
+            for name in MESH_PROBE_OPS:
+                for dtype in (torch.float32, torch.bfloat16):
+                    key = f"{api}.{name}[{str(dtype)[6:]}]"
+                    res = {}
+
+                    def call():
+                        try:
+                            res["v"] = _probe_call(api, name, rank, dtype)
+                        except Exception as e:  # noqa: BLE001
+                            res["v"] = (f"refused: {type(e).__name__}: "
+                                        f"{str(e).splitlines()[0][:140]}")
+
+                    log.write(f"start\t{key}\n")
+                    log.flush()
+                    t = threading.Thread(target=call, daemon=True)
+                    t.start()
+                    t.join(MESH_PROBE_WAIT)
+                    if t.is_alive():
+                        log.write(f"end\t{key}\thung: no answer within {MESH_PROBE_WAIT} s\n")
+                        return
+                    log.write(f"end\t{key}\t{res['v']}\n")
+                    log.flush()
+
+
+def phase_mesh_probe() -> dict:
+    """(a) Two ranks on the one card over gloo: which collectives take CUDA
+    tensors (f32 and bf16), by the ``torch.distributed`` call and by the
+    functional collective DTensor issues, each result checked; a call that
+    crashes the ranks is named by the last call they started. Returns
+    {"<api>.<name>[<dtype>]": "ok", or what happened on each rank}."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            _spawn_ranks(2, _probe_rank, d)
+            ended = None
+        except AssertionError as e:
+            ended = str(e).splitlines()[0]
+        views = {}
+        for r in range(2):
+            path = Path(d) / f"rank{r}"
+            for line in (path.read_text().splitlines() if path.exists() else []):
+                kind, key, *rest = line.split("\t")
+                views.setdefault(key, {})[r] = (rest[0] if kind == "end"
+                                                else f"crashed: {ended}")
+    status = {}
+    for key, v in views.items():
+        got = [v.get(r, "not tried") for r in range(2)]
+        status[key] = got[0] if got[0] == got[1] else " / ".join(got)
+        say("mesh-probe", f"gloo on CUDA tensors: {key}: {status[key]}")
+    say("mesh-probe", f"wall {time.perf_counter() - t0:.1f} s")
+    return status
+
+
+def _mesh_moe_reference(model: Model, directory: str) -> str:
+    """The reference run of (b), on the served qwen2-moe-a2.7b before it is
+    freed: the global path's prefill over MESH_MOE_BATCH x MESH_MOE_SEQ
+    synthetic tokens, each layer's ``moe_ffn`` input, output and aux kept
+    (saved under ``directory``), and each layer's global ``moe_ffn`` timed."""
+    cfg = model.cfg
+    captured, orig = [], moe.moe_ffn
+
+    def recording(x, p, c):
+        y, aux = orig(x, p, c)
+        captured.append((x.detach().clone(), y.detach().clone(), float(aux)))
+        return y, aux
+
+    tokens = torch.as_tensor(synthetic_batch(cfg, MESH_MOE_BATCH, MESH_MOE_SEQ, 0)["tokens"])
+    moe.moe_ffn = recording
+    try:
+        with torch.no_grad():
+            model.prefill({"tokens": tokens.to(DEVICE)})
+    finally:
+        moe.moe_ffn = orig
+    if len(captured) != cfg.n_layers:
+        raise AssertionError(f"mesh-moe: captured {len(captured)} MoE calls, "
+                             f"{cfg.n_layers} layers")
+    with torch.no_grad():
+        ms = [cuda_ms(lambda: orig(x, lp["ffn"], cfg), reps=MESH_MOE_TIMED_REPS)
+              for (x, _, _), lp in zip(captured, model._layer_params)]
+    path = str(Path(directory) / "moe_reference.pt")
+    torch.save({"x": [c[0].cpu() for c in captured], "y": [c[1].cpu() for c in captured],
+                "aux": [c[2] for c in captured], "global_ms": ms}, path)
+    say("mesh-moe", f"reference: the global path's prefill at {MESH_MOE_BATCH} x "
+                    f"{MESH_MOE_SEQ} tokens, {len(captured)} layers' MoE inputs and outputs "
+                    f"({captured[0][0].numel() * captured[0][0].element_size() / 1e6:.1f} MB "
+                    f"each) kept; the global moe_ffn takes {np.median(ms):.4f} ms a layer "
+                    f"(median of {len(ms)})")
+    return path
+
+
+def _moe_rank(rank: int, path: str) -> dict:
+    """One rank of (b): draws the weights as ``Model.init`` does, one part at a
+    time from seed 0, keeping the router, the shared expert and its half of
+    each layer's experts; then every layer's ``moe_ffn`` with
+    ``moe_impl="local"`` on the reference's inputs, and the local experts and
+    the all-reduce timed alone."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import partition
+
+    cfg = get_config(MOE_ARCH).with_(moe_impl="local")
+    E, world = cfg.moe.n_experts, dist.get_world_size()
+    n_local, lo = E // world, rank * (E // world)
+    meta = Model(cfg, device="meta", kernel_impl="ref")
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    kept = []
+    with torch.no_grad():
+        for where, part in meta._parts(gen, torch.device(DEVICE), per_layer=True):
+            if where[0] == "layers":
+                f = part["ffn"]
+                kept.append({"router": f["router"], "shared": f["shared"],
+                             "shared_gate": f["shared_gate"],
+                             **{k: f[k][lo:lo + n_local].clone() for k in ("wi", "wg", "wo")}})
+            del part
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    draw_peak = torch.cuda.max_memory_allocated()
+    ref = torch.load(path)
+    mesh = make_mesh((world,), ("model",), DEVICE)
+    calls, orig = [0], moe.all_reduce
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return orig(*a, **k)
+
+    _reset_launches()
+    errs, aux_errs = [], []
+    moe.all_reduce = counted
+    try:
+        with torch.no_grad(), partition.use_mesh(mesh, partition.rules_for(cfg)):
+            for i, lp in enumerate(kept):
+                p = dict(lp, **{k: DTensor.from_local(lp[k], mesh, [Shard(0)], run_check=False)
+                                for k in ("wi", "wg", "wo")})
+                y, aux = moe.moe_ffn(ref["x"][i].to(DEVICE), p, cfg)
+                y, aux = y.to_local(), aux.to_local()
+                if not torch.isfinite(y).all():
+                    raise AssertionError(f"mesh-moe rank {rank}: layer {i}: non-finite output")
+                errs.append(float((y.float() - ref["y"][i].to(DEVICE).float()).abs().max()))
+                aux_errs.append(abs(float(aux) - ref["aux"][i]) / abs(ref["aux"][i]))
+    finally:
+        moe.all_reduce = orig
+    launches = _launch_counts()
+    local_ms, reduce_ms, reduce_wall_ms = [], [], []
+    group = mesh.get_group("model")
+    with torch.no_grad():
+        for i, lp in enumerate(kept):
+            x2d = ref["x"][i].to(DEVICE).reshape(-1, cfg.d_model)
+            local_ms.append(cuda_ms(lambda: moe._local_expert_ffn(x2d, lp, cfg.moe, lo, n_local),
+                                    reps=MESH_MOE_TIMED_REPS))
+            y_part, _ = moe._local_expert_ffn(x2d, lp, cfg.moe, lo, n_local)
+            ev, wall = [], []
+            for _ in range(MESH_MOE_TIMED_REPS):
+                buf = y_part.clone()
+                torch.cuda.synchronize()
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                t0 = time.perf_counter()
+                start.record()
+                dist.all_reduce(buf, group=group)
+                end.record()
+                end.synchronize()
+                wall.append((time.perf_counter() - t0) * 1e3)
+                ev.append(start.elapsed_time(end))
+            reduce_ms.append(float(np.median(ev)))
+            reduce_wall_ms.append(float(np.median(wall)))
+    return {"errs": errs, "aux_errs": aux_errs, "all_reduce_calls": calls[0],
+            "launches": launches, "held": held, "draw_peak": draw_peak,
+            "local_ms": local_ms, "reduce_ms": reduce_ms, "reduce_wall_ms": reduce_wall_ms,
+            "bytes": int(y_part.numel() * y_part.element_size()), "n_local": n_local}
+
+
+def phase_mesh_moe(path: str) -> dict:
+    """(b) Full-width qwen2-moe-a2.7b's experts split over two ranks on the one
+    card (a (model = 2) mesh over gloo), each rank with its 30 of 60 experts of
+    every layer: every layer's output within the serve phases' bf16 bound of
+    the global path's, aux equal (no data axis), one all-reduce a layer and no
+    kernel launch (the expert path reaches none)."""
+    t0 = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    res = _spawn_ranks(2, _moe_rank, path)
+    ref = torch.load(path)
+    for rank, r in sorted(res.items()):
+        say("mesh-moe", f"rank {rank}: {r['n_local']} of {cfg.moe.n_experts} experts a layer, "
+                        f"{r['held'] / 2**30:.2f} GiB held after the draw (peak "
+                        f"{r['draw_peak'] / 2**30:.2f} GiB while drawing)")
+        if max(r["errs"]) > SLICE_MOE_BF16_TOL:
+            raise AssertionError(f"mesh-moe rank {rank}: max|dy| {max(r['errs'])} over "
+                                 f"{SLICE_MOE_BF16_TOL} (per layer {r['errs']})")
+        if max(r["aux_errs"]) > 1e-5:
+            raise AssertionError(f"mesh-moe rank {rank}: aux off by {max(r['aux_errs'])} "
+                                 "relative to the global path's")
+        if r["all_reduce_calls"] != cfg.n_layers or any(r["launches"].values()):
+            raise AssertionError(f"mesh-moe rank {rank}: {r['all_reduce_calls']} all-reduces for "
+                                 f"{cfg.n_layers} layers, launches {r['launches']}")
+    r = res[0]
+    say("mesh-moe", f"every layer's y against the global path's: max|dy| "
+                    f"{max(max(x['errs']) for x in res.values()):.4g} (bound "
+                    f"{SLICE_MOE_BF16_TOL}, bf16), aux within "
+                    f"{max(max(x['aux_errs']) for x in res.values()):.2e} relative; "
+                    f"{r['all_reduce_calls']} all-reduces ({cfg.n_layers} layers), "
+                    f"kernel launches {r['launches']}")
+    for i in range(cfg.n_layers):
+        say("mesh-moe", f"layer {i:2d}: local experts {res[0]['local_ms'][i]:.4f} / "
+                        f"{res[1]['local_ms'][i]:.4f} ms (rank 0 / 1), gloo all-reduce of "
+                        f"{r['bytes'] / 1e6:.1f} MB {r['reduce_ms'][i]:.3f} ms by events, "
+                        f"{r['reduce_wall_ms'][i]:.3f} ms on the host; the global moe_ffn "
+                        f"{ref['global_ms'][i]:.4f} ms")
+    say("mesh-moe", f"medians: local experts {np.median(r['local_ms']):.4f} ms, all-reduce "
+                    f"{np.median(r['reduce_ms']):.3f} ms (host {np.median(r['reduce_wall_ms']):.3f}"
+                    f"), global moe_ffn {np.median(ref['global_ms']):.4f} ms; "
+                    f"wall {time.perf_counter() - t0:.1f} s")
+    return r["launches"]
+
+
+_MESH_TRACE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.configs import ShapeSpec, get_config
+from repro_torch.launch import analysis
+from repro_torch.launch.mesh import fake_world, make_mesh
+from repro_torch.models.model import Model
+from repro_torch.training import optimizer as opt
+from repro_torch.training.steps import build_train_step
+with fake_world(2):
+    mesh = make_mesh((1, 2), ("data", "model"), sys.argv[2])
+    cfg = get_config(sys.argv[3]).with_(n_layers=2)
+    model = Model(cfg, device="meta", kernel_impl="ref").requires_grad_(True)
+    shape = ShapeSpec("mesh", "train", int(sys.argv[5]), int(sys.argv[4]))
+    built = build_train_step(model, opt.OptimizerConfig(), mesh, shape)
+    print(json.dumps(analysis.trace_collectives(built).to_dict()))
+"""
+
+
+def _step_collectives() -> dict:
+    """The collectives one train step of the (data 1, model 2) mesh issues
+    (two layers traced on meta DTensors under a fake group of 2, the mesh on
+    the card's device type so DTensor picks its CUDA collectives)."""
+    # the fake group takes no debug wrapper (TORCH_DISTRIBUTED_DEBUG=DETAIL)
+    env = {k: v for k, v in os.environ.items() if k != "TORCH_DISTRIBUTED_DEBUG"}
+    out = subprocess.run([sys.executable, "-c", _MESH_TRACE, str(ROOT / "src"), DEVICE, ARCH,
+                          str(MESH_TWO_RANK_BATCH), str(TRAIN_SEQ)],
+                         capture_output=True, text=True, timeout=600, env=env)
+    if out.returncode != 0:
+        raise AssertionError(f"mesh-steps: tracing the two-rank step failed:\n{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _two_rank_step(rank: int, batch: dict) -> tuple:
+    """(the first step's loss, the second step's wall in ms) of one rank."""
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1, 2), ("data", "model"), DEVICE)
+    model = _train_model("bfloat16")
+    ocfg = train_opt.OptimizerConfig()
+    fn = build_train_step(model, ocfg, mesh=mesh).fn
+    state = train_opt.init_state(model.params, ocfg)
+    batch = {k: v.to(DEVICE) for k, v in batch.items()}
+    if rank == 0:
+        say("mesh-steps", "two ranks: the mesh and the model are built; the first step")
+    _, state, m = fn(model.params, state, batch)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(model.params, state, batch)
+    torch.cuda.synchronize()
+    return loss, (time.perf_counter() - t0) * 1e3
+
+
+def _steps_pair(make, batches, mesh) -> tuple:
+    """(unsharded metrics, mesh metrics, the mesh run's launches) of train
+    steps on two fresh models; each step's wall (host clock, synchronised)
+    is in its metrics as "ms"."""
+    out = []
+    for where in (None, mesh):
+        model = make()
+        ocfg = train_opt.OptimizerConfig()
+        fn = build_train_step(model, ocfg, mesh=where).fn
+        state = train_opt.init_state(model.params, ocfg)
+        torch.cuda.synchronize()
+        _reset_launches()
+        got = []
+        for b in batches:
+            t0 = time.perf_counter()
+            _, state, m = fn(model.params, state, b)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got.append(dict({k: float(v) for k, v in m.items()}, ms=ms))
+        out.append(got)
+        del model, state, fn
+        torch.cuda.empty_cache()
+    return out[0], out[1], _launch_counts()
+
+
+def _check_pair(tag: str, want: list, got: list, rtol: float) -> float:
+    worst = 0.0
+    for i, (w, g) in enumerate(zip(want, got)):
+        for k in ("loss", "grad_norm"):
+            rel = abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+            worst = max(worst, rel)
+            if not np.isfinite(g[k]) or rel > rtol:
+                raise AssertionError(f"{tag}: step {i} {k} {g[k]} against {w[k]} "
+                                     f"(relative {rel:.2e} over {rtol})")
+    return worst
+
+
+def _mesh_ssm_step(mesh) -> dict:
+    """(c)'s scan: full-width mamba2-2.7b cut to MESH_SSM_LAYERS layers, one
+    train step on ``mesh`` against the unsharded builder's; its launches."""
+    scfg = get_config(SSM_ARCH).with_(n_layers=MESH_SSM_LAYERS)
+
+    def ssm_model():
+        m = Model(scfg, device=DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
+        return m.requires_grad_(True)
+
+    want, got, counts = _steps_pair(ssm_model, [_train_batch(scfg, 0)], mesh)
+    worst = _check_pair("mesh-steps mamba2 train", want, got, MESH_STEP_RTOL)
+    say("mesh-steps", f"{SSM_ARCH} ({MESH_SSM_LAYERS} of 64 layers) train, 1-rank "
+                      f"mesh: loss {got[0]['loss']:.6f}, worst relative difference "
+                      f"{worst:.2e}; launches {counts}")
+    return counts
+
+
+def _mesh_two_rank(probe: dict) -> None:
+    """(c)'s two ranks over gloo on the card, (data 1, model 2): qwen2-0.5b's
+    train step at B = 4 against the unsharded loss, run where mesh-probe
+    showed gloo takes every collective the step issues on CUDA tensors;
+    else the refused ones are named."""
+    needed = _step_collectives()
+    untried = "not tried: an earlier call ended the probe"
+
+    def taken(op):
+        """The op's bf16 status, else (not tried after a crash) its f32 one."""
+        name = MESH_OP_NAMES.get(op, op)
+        st = probe.get(f"funcol.{name}[bfloat16]", untried)
+        return probe.get(f"funcol.{name}[float32]", untried) if st == untried else st
+
+    refused = {op: taken(op) for op in needed["counts"] if taken(op) != "ok"}
+    say("mesh-steps", f"the (data 1, model 2) train step issues {needed['counts']} "
+                      f"({needed['total_wire_bytes'] / 1e6:.1f} MB on the wire a device, "
+                      "two layers traced)")
+    if refused:
+        say("mesh-steps", f"two ranks over gloo: not run: gloo does not take {sorted(refused)} "
+                          "as DTensor issues them (functional collectives) on CUDA tensors "
+                          f"(mesh-probe: {refused}); the two-rank step waits for four cards "
+                          "(ROADMAP)")
+    else:
+        cfg = get_config(ARCH)
+        batch = {k: v.cpu() for k, v in _train_batch(cfg, 0, MESH_TWO_RANK_BATCH).items()}
+        model = _train_model("bfloat16")
+        ocfg = train_opt.OptimizerConfig()
+        _, _, m = build_train_step(model, ocfg).fn(
+            model.params, train_opt.init_state(model.params, ocfg),
+            {k: v.to(DEVICE) for k, v in batch.items()})
+        want = float(m["loss"])
+        del model
+        torch.cuda.empty_cache()
+        got = _spawn_ranks(2, _two_rank_step, batch)
+        for rank, (loss, _) in got.items():
+            if not abs(loss - want) <= MESH_TWO_RANK_TOL:
+                raise AssertionError(f"mesh-steps: two-rank loss {loss} (rank {rank}) against "
+                                     f"the unsharded {want}")
+        say("mesh-steps", f"two ranks over gloo, (data 1, model 2), B = {MESH_TWO_RANK_BATCH}: "
+                          f"loss {got[0][0]:.6f} / {got[1][0]:.6f} against the unsharded "
+                          f"{want:.6f} (bound {MESH_TWO_RANK_TOL}); a second step's wall "
+                          f"{got[0][1]:.3f} / {got[1][1]:.3f} ms (host, synchronised)")
+
+
+def phase_mesh_steps(probe: dict) -> dict:
+    """(c) The sharded step builders with the port's kernels. On a 1-rank NCCL
+    mesh (data 1, model 1): full-width qwen2-0.5b's train step (3 steps, B =
+    8, S = 1024, remat on) and decode step (32 greedy tokens) against the
+    unsharded builders', and full-width mamba2-2.7b cut to 4 layers for one
+    train step; all four kernels launch through the wrappers' ``local_map``.
+    Then, where gloo takes every collective the step issues on CUDA tensors,
+    qwen2-0.5b's train step on two ranks, (data 1, model 2), at B = 4."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(_launch_counts(), 0)
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/rendezvous", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), DEVICE)
+            cfg = get_config(ARCH)
+            batches = [_train_batch(cfg, step) for step in range(MESH_TRAIN_STEPS)]
+            want, got, counts = _steps_pair(lambda: _train_model("bfloat16"), batches, mesh)
+            worst = _check_pair("mesh-steps qwen2 train", want, got, MESH_STEP_RTOL)
+            for k, n in counts.items():
+                launches[k] += n
+            say("mesh-steps", f"{ARCH} train, 1-rank mesh: {MESH_TRAIN_STEPS} steps at B = "
+                              f"{TRAIN_BATCH}, S = {TRAIN_SEQ}, losses "
+                              f"{[round(g['loss'], 6) for g in got]}, grad norms "
+                              f"{[round(g['grad_norm'], 6) for g in got]}, worst relative "
+                              f"difference from the unsharded builder's {worst:.2e} (bound "
+                              f"{MESH_STEP_RTOL}); launches {counts}")
+            say("mesh-steps", f"{ARCH} train step wall (host, synchronised; the first "
+                              f"warms up): mesh {[round(g['ms'], 3) for g in got]} ms, "
+                              f"unsharded {[round(w['ms'], 3) for w in want]} ms")
+            # the decode step: 32 greedy tokens from the same start
+            start = torch.as_tensor(synthetic_batch(cfg, MESH_DECODE_BATCH, 1, 7)["tokens"])
+            streams = []
+            for where in (None, mesh):
+                model = Model(cfg, device=DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
+                built = build_decode_step(model, mesh=where)
+                cache = model.init_cache(MESH_DECODE_BATCH, MESH_DECODE_TOKENS)
+                if where is not None:
+                    from repro_torch.training.steps import place_cache
+                    cache = place_cache(model, cache, mesh)
+                    _reset_launches()
+                token, out = start.to(DEVICE), []
+                for pos in range(MESH_DECODE_TOKENS):
+                    token, cache = built.fn(model.params, token, cache,
+                                            torch.tensor(pos, device=DEVICE))
+                    token = token.full_tensor() if hasattr(token, "full_tensor") else token
+                    out.append(token[:, 0].tolist())
+                if where is not None:
+                    counts = _launch_counts()
+                streams.append(out)
+                del model, built, cache
+                torch.cuda.empty_cache()
+            if streams[0] != streams[1]:
+                raise AssertionError("mesh-steps: the 1-rank mesh decode step's tokens differ "
+                                     "from the unsharded step's")
+            for k, n in counts.items():
+                launches[k] += n
+            say("mesh-steps", f"{ARCH} decode, 1-rank mesh: {MESH_DECODE_TOKENS} greedy tokens "
+                              f"x {MESH_DECODE_BATCH} rows equal to the unsharded step's; "
+                              f"launches {counts}")
+            for k, n in _mesh_ssm_step(mesh).items():
+                launches[k] += n
+        finally:
+            dist.destroy_process_group()
+    if not all(launches.values()):
+        raise AssertionError(f"mesh-steps: launches {launches}: a kernel of the port did not "
+                             "run through the sharded builders")
+    _mesh_two_rank(probe)
+    say("mesh-steps", f"wall {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_mesh_dryrun() -> None:
+    """(d) The production-mesh dry run of qwen3-moe-235b-a22b ``train_4k`` on
+    16 x 16 under a fake group of 256 (``launch/dryrun.py`` in a subprocess):
+    the experts' placements, the per-device FLOPs and memory fit, the
+    collectives' wire bytes."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        results = Path(d) / "dryrun.json"
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen3-moe-235b-a22b",
+             "--shape", "train_4k", "--mesh", "16,16", "--calibrated", "--results",
+             str(results)],
+            capture_output=True, text=True, timeout=900, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        if out.returncode != 0:
+            raise AssertionError(f"mesh-dryrun failed:\n{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+        (key, rec), = json.loads(results.read_text()).items()
+    a = rec["analysis"]
+    say("mesh-dryrun", out.stdout.strip().splitlines()[-1])
+    experts = {k: v for k, v in rec["shardings"].items() if "/ffn/" in k}
+    say("mesh-dryrun", f"{key}: mesh {rec['mesh']['axes']}; the experts' placements "
+                       f"{json.dumps(experts)}")
+    fit = a["fit"]
+    say("mesh-dryrun", f"per device: {a['cost']['flops_per_device']:.6e} FLOPs "
+                       f"({a['cost']['source']}), modeled HBM traffic "
+                       f"{a['modeled_memory']['total']:.6e} B, memory "
+                       f"{fit['total'] / 1e9:.2f} GB against {fit['usable'] / 1e9:.2f} usable: "
+                       f"fits={fit['fits']} (terms {json.dumps({k: round(v / 1e9, 3) for k, v in fit['terms'].items()})} GB)")
+    say("mesh-dryrun", f"collectives a step (calibrated): {a['cost']['wire_bytes_per_device']:.6e} "
+                       f"wire bytes a device; one layer's {json.dumps(a['calibrated']['collectives_delta'])}")
+    r = a["roofline"]
+    say("mesh-dryrun", f"roofline: compute {r['compute_s']:.4f} s, memory {r['memory_s']:.4f} s, "
+                       f"collective {r['collective_s']:.4f} s -> {r['bottleneck']}; useful FLOPs "
+                       f"{r['useful_flops_ratio']:.3f}; wall {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -2828,6 +3489,7 @@ def main() -> int:
     rows.update(phase_kernels_ssd())
     launches = dict.fromkeys(rows, 0)
     fabric_launches = dict.fromkeys(rows, 0)
+    mesh_dir = tempfile.TemporaryDirectory()    # the mesh-moe phase's reference run
     for arch, tag, tol in ((ARCH, "", SLICE_BF16_TOL), (SSM_ARCH, "-ssm", SLICE_SSM_BF16_TOL),
                            (HYBRID_ARCH, "-hybrid", SLICE_HYBRID_BF16_TOL),
                            (MOE_ARCH, "-moe", SLICE_MOE_BF16_TOL),
@@ -2854,6 +3516,7 @@ def main() -> int:
             phase_launches.append(phase_fabric_hybrid(model, served, tol))
         elif arch == MOE_ARCH:
             phase_launches.append(phase_fabric_moe(model, served, tol))
+            moe_reference = _mesh_moe_reference(model, mesh_dir.name)
         elif arch == MLA_ARCH:
             phase_launches.append(phase_fabric_mla(model, served, tol))
         elif arch == ENCDEC_ARCH:
@@ -2878,6 +3541,14 @@ def main() -> int:
         raise AssertionError(f"the fabric phases launched {fabric_launches}: a kernel of the "
                              "port ran in none of them")
     say("fabric", f"the port's kernels in the fabric phases: {fabric_launches}")
+    # the mesh phases, on a card the phases above have freed
+    probe = phase_mesh_probe()
+    for k, n in phase_mesh_moe(moe_reference).items():
+        launches[k] += n
+    mesh_dir.cleanup()
+    for k, n in phase_mesh_steps(probe).items():
+        launches[k] += n
+    phase_mesh_dryrun()
     kernels = []
     for kname, r in rows.items():
         kernels.append({

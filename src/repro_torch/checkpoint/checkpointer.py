@@ -18,6 +18,14 @@ gives each the manifest's dtype, so a bf16 leaf comes back as bf16 (the
 reference's gives it back as raw ``|V2`` bytes; ROADMAP F8), the reference's
 bf16 checkpoints included. A key missing on either side, or a shape that
 differs from the template's, raises ``ValueError``.
+
+On a mesh the files are the same: leaves are stored unsharded. ``save`` of a
+tree holding DTensors gathers each (``full_tensor()``, a collective every
+rank joins), writes from rank 0 alone, and returns once the files are there
+on every rank. ``restore(..., shardings=)`` places each leaf with
+``distribute_tensor`` on its target mesh and placements, so a checkpoint
+saved on one mesh restores onto another (the reference's elastic-rescale
+path) or onto one device (no ``shardings``).
 """
 from __future__ import annotations
 
@@ -29,8 +37,10 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import serializer
+from ..sharding.partition import is_dtensor
 
 _BF16_DESCR = "<V2"   # np.save's header descr of an ml_dtypes bfloat16 array
 
@@ -97,11 +107,23 @@ class Checkpointer:
     def save(self, step: int, tree: Any, blocking: bool = False) -> str:
         """Snapshot `tree` (a nested dict of tensors) at `step`. Device tensors
         are copied to the host first (cheap vs. the async write); the write
-        itself runs on a thread."""
-        leaves = [(key, _host(t), _dtype_name(t)) for key, t in _flatten_with_paths(tree)]
+        itself runs on a thread. A tree with DTensors is gathered on every rank,
+        written by rank 0 alone and synchronously, then all ranks meet."""
+        pairs = _flatten_with_paths(tree)
+        sharded = any(is_dtensor(t) for _, t in pairs)
+        pairs = [(key, t.full_tensor() if is_dtensor(t) else t) for key, t in pairs]
         path = os.path.join(self.directory, f"step_{step:08d}")
+        if sharded and dist.is_initialized():
+            if dist.get_rank() == 0:
+                self._write(step, path, pairs, blocking=True)
+            dist.barrier()
+            return path
+        return self._write(step, path, pairs, blocking)
 
-        def _write():
+    def _write(self, step: int, path: str, pairs, blocking: bool) -> str:
+        leaves = [(key, _host(t), _dtype_name(t)) for key, t in pairs]
+
+        def write():
             tmp = path + ".tmp"
             os.makedirs(tmp, exist_ok=True)
             manifest = {"step": step, "leaves": [], "time": time.time()}
@@ -120,10 +142,10 @@ class Checkpointer:
 
         self.wait()  # at most one in-flight save
         if self.async_save and not blocking:
-            self._thread = threading.Thread(target=_write, daemon=True)
+            self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
         else:
-            _write()
+            write()
         return path
 
     def wait(self) -> None:
@@ -151,10 +173,13 @@ class Checkpointer:
         steps = self.list_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like: Any, step: Optional[int] = None) -> Tuple[int, Any]:
+    def restore(self, like: Any, step: Optional[int] = None,
+                shardings: Optional[Any] = None) -> Tuple[int, Any]:
         """Restore into the structure of `like` (a nested dict whose leaves
         have ``.shape``): returns (step, a tree of CPU tensors in the
-        manifest's dtypes)."""
+        manifest's dtypes). With ``shardings`` (a tree of
+        ``partition.NamedSharding`` matching `like`), each leaf is placed on
+        its mesh as a DTensor (``distribute_tensor``, every rank joining)."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -176,4 +201,16 @@ class Checkpointer:
                 raise ValueError(f"{key}: the checkpoint's shape {tuple(leaf['shape'])} is "
                                  f"not the template's {shape}")
             values[key] = _load_leaf(os.path.join(path, leaf["file"]), leaf["dtype"])
-        return step, _unflatten(like, values)
+        tree = _unflatten(like, values)
+        if shardings is not None:
+            tree = _distribute(tree, shardings)
+        return step, tree
+
+
+def _distribute(tree, shardings):
+    from torch.distributed.tensor import distribute_tensor
+
+    if isinstance(tree, dict):
+        return {k: _distribute(v, shardings[k]) for k, v in tree.items()}
+    mesh = shardings.mesh
+    return distribute_tensor(tree.to(mesh.device_type), mesh, shardings.placements)

@@ -1,18 +1,30 @@
-"""Roofline terms, FLOP counts and the memory fit of one cell on one H100.
+"""Roofline terms, FLOP counts, collectives and the memory fit of one cell.
 
-Port of ``repro.launch.analysis`` for one device. Two terms, in seconds:
+Port of ``repro.launch.analysis``. Three terms, in per-device seconds:
 
-    compute = flops / peak_flops   (the bf16 dense tensor-core rate)
-    memory  = hbm_bytes / hbm_bw   (``modeled_hbm_bytes``: the fused traffic)
+    compute    = flops_per_device / peak_flops   (the bf16 dense tensor-core rate)
+    memory     = hbm_bytes / hbm_bw              (``modeled_hbm_bytes``: the fused traffic)
+    collective = wire_bytes / nvlink_bw + pod_wire_bytes / ib_bw
 
-The reference's third term, the collective wire bytes it parses out of XLA's
-HLO (``parse_collectives``), has no counterpart on one device; its torch
-counterpart, collective counts under a fake process group, comes with the
-sharding slice (ROADMAP A5b).
+On one device the collective term is 0. On a mesh the wire bytes come from
+the collectives the traced step issues (``trace_collectives``), summed with
+the reference's ring-algorithm factors (``parse_collectives``, which is
+also kept, reads them from XLA's HLO text):
+
+    all-reduce      2·S·(n-1)/n      (reduce-scatter + all-gather phases)
+    all-gather      R·(n-1)/n        (R = result bytes)
+    reduce-scatter  R·(n-1)          (input = n·R; each device moves (n-1)·R)
+    all-to-all      R·(n-1)/n
+    collective-permute  R
+
+A collective over a group that spans the ``pod`` axis crosses the
+InfiniBand fabric; every other one stays on NVLink within a node.
 
 FLOPs (the counterpart of ``extract_costs`` / ``analyze_compiled``):
 ``trace_costs`` runs a cell's ``BuiltStep.fn`` on its meta stand-ins under
-``torch.utils.flop_counter.FlopCounterMode``. The model is built on the meta
+``torch.utils.flop_counter.FlopCounterMode``; on a mesh (meta DTensors under
+a fake process group) it counts each rank's local ops instead, since
+``FlopCounterMode`` over a DTensor counts the global op. The model is built on the meta
 device with ``kernel_impl="ref"``, so every kernel call takes its plain
 version and nothing reaches a ctypes launch; shapes flow, no storage is
 allocated, so a full-size cell costs no memory. It counts the matrix
@@ -31,6 +43,8 @@ from __future__ import annotations
 
 import functools
 import math
+import re
+from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import torch
@@ -45,6 +59,13 @@ HW = {
     "peak_flops_bf16": 989e12,   # FLOP/s, the tensor cores' dense bf16 rate
     "hbm_bw": 3.35e12,           # B/s
     "hbm_bytes": 80e9,           # capacity without a card to ask
+    # NVLink 4 within a node: 900 GB/s per GPU, both directions together
+    # (NVIDIA's H100 SXM data sheet), so 450 GB/s each way; a device sends
+    # its wire bytes while it receives as many
+    "nvlink_bw": 450e9,          # B/s per direction
+    # across the pod axis: one NDR InfiniBand port of 400 Gb/s per GPU
+    # (NVIDIA's DGX H100 reference network), 50 GB/s each way
+    "ib_bw": 50e9,               # B/s per direction
 }
 # the share of the card's memory a cell may plan to use: the allocator's
 # rounding and fragmentation, cuBLAS workspaces and the CUDA context take the rest
@@ -56,6 +77,213 @@ def hbm_capacity() -> float:
     if torch.cuda.is_available():
         return float(torch.cuda.get_device_properties(0).total_memory)
     return HW["hbm_bytes"]
+
+
+_DTYPE_BYTES = {
+    "pred": 1, "s4": 1, "u4": 1, "s8": 1, "u8": 1, "f8e4m3fn": 1, "f8e5m2": 1,
+    "s16": 2, "u16": 2, "bf16": 2, "f16": 2,
+    "s32": 4, "u32": 4, "f32": 4,
+    "s64": 8, "u64": 8, "f64": 8, "c64": 8, "c128": 16,
+}
+
+_COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                "collective-permute")
+_OP_RE = re.compile(
+    r"=\s*(?P<result>.*?)\s+(?P<op>all-reduce-start|all-gather-start|"
+    r"reduce-scatter|all-to-all|collective-permute-start|collective-permute|"
+    r"all-reduce|all-gather)\("
+)
+_SHAPE_RE = re.compile(r"([a-z0-9]+)\[([0-9,]*)\]")
+_GROUPS_IOTA_RE = re.compile(r"replica_groups=\[(\d+),(\d+)\]")
+_GROUPS_LIST_RE = re.compile(r"replica_groups=\{\{([0-9, ]*)\}")
+
+
+def _shape_bytes(result: str) -> int:
+    total = 0
+    for dtype, dims in _SHAPE_RE.findall(result):
+        if dtype not in _DTYPE_BYTES:
+            continue
+        n = 1
+        for d in dims.split(","):
+            if d.strip():
+                n *= int(d)
+        total += n * _DTYPE_BYTES[dtype]
+    return total
+
+
+def _group_size(line: str) -> int:
+    m = _GROUPS_IOTA_RE.search(line)
+    if m:
+        return max(int(m.group(2)), 1)
+    m = _GROUPS_LIST_RE.search(line)
+    if m:
+        ids = [t for t in m.group(1).split(",") if t.strip()]
+        return max(len(ids), 1)
+    return 1
+
+
+def wire_bytes(op: str, result_bytes: float, n: int) -> float:
+    """Bytes each of the n devices of a group sends for one collective."""
+    if op == "all-reduce":
+        return 2 * result_bytes * (n - 1) / n
+    if op in ("all-gather", "all-to-all"):
+        return result_bytes * (n - 1) / n
+    if op == "reduce-scatter":
+        return result_bytes * (n - 1)
+    return result_bytes  # collective-permute
+
+
+@dataclass
+class CollectiveStats:
+    counts: Dict[str, int] = field(default_factory=dict)
+    result_bytes: Dict[str, int] = field(default_factory=dict)
+    wire_bytes: Dict[str, float] = field(default_factory=dict)
+    # the wire bytes of the collectives whose group spans the pod axis
+    pod_wire_bytes: float = 0.0
+
+    @property
+    def total_wire_bytes(self) -> float:
+        return sum(self.wire_bytes.values())
+
+    def add(self, op: str, rbytes: int, n: int, crosses_pod: bool = False) -> None:
+        if n <= 1:
+            return  # single-participant: no wire traffic
+        wire = wire_bytes(op, rbytes, n)
+        self.counts[op] = self.counts.get(op, 0) + 1
+        self.result_bytes[op] = self.result_bytes.get(op, 0) + rbytes
+        self.wire_bytes[op] = self.wire_bytes.get(op, 0) + wire
+        if crosses_pod:
+            self.pod_wire_bytes += wire
+
+    def to_dict(self) -> dict:
+        return {
+            "counts": dict(self.counts),
+            "result_bytes": dict(self.result_bytes),
+            "wire_bytes": {k: int(v) for k, v in self.wire_bytes.items()},
+            "total_wire_bytes": int(self.total_wire_bytes),
+            "pod_wire_bytes": int(self.pod_wire_bytes),
+        }
+
+
+def parse_collectives(hlo_text: str) -> CollectiveStats:
+    """The collectives of XLA's optimized HLO text, as the reference reads them."""
+    stats = CollectiveStats()
+    for line in hlo_text.splitlines():
+        if not any(c in line for c in _COLLECTIVES):
+            continue
+        m = _OP_RE.search(line)
+        if m is None:
+            continue
+        stats.add(m.group("op").replace("-start", ""), _shape_bytes(m.group("result")),
+                  _group_size(line))
+    return stats
+
+
+# torch's functional collectives -> the reference's HLO op names
+_FUNCOL = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_gather_into_tensor": "all-gather", "all_gather_into_tensor_out": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter", "all_to_all_single": "all-to-all",
+}
+
+
+def _group_of(name: str):
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return _resolve_process_group(name)
+
+
+class _DeviceCounter:
+    """A dispatch mode that sees each rank's local ops: it hands every op on
+    a DTensor back to DTensor (which then runs the local op, seen here) and
+    skips the fake tensors of DTensor's shape propagation. It counts the
+    local ops' FLOPs with ``FlopCounterMode``'s formulas and records each
+    functional collective with its group size and result bytes."""
+
+    def __init__(self, pod_groups=()):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                return counter._dispatch(func, types, args, kwargs or {})
+
+        self.mode = Mode()
+        self.flops = 0
+        self.by_op: Dict[str, int] = {}
+        self.stats = CollectiveStats()
+        self.pod_groups = set(pod_groups)
+
+    def _dispatch(self, func, types, args, kwargs):
+        import torch.utils._pytree as pytree
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+        from torch.utils.flop_counter import flop_registry
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **kwargs)
+        leaves = pytree.tree_leaves((args, kwargs))
+        if any(isinstance(a, FakeTensor) for a in leaves):
+            return out
+        packet = func._overloadpacket
+        if packet in flop_registry:
+            n = int(flop_registry[packet](*args, **kwargs, out_val=out))
+            self.flops += n
+            self.by_op[str(packet)] = self.by_op.get(str(packet), 0) + n
+        op = _FUNCOL.get(packet.__name__)
+        if op is not None and "c10d_functional" in str(packet):
+            # the group's name is the op's last string argument
+            group = [a for a in list(args) + list(kwargs.values()) if isinstance(a, str)][-1]
+            res = out if isinstance(out, torch.Tensor) else args[0]
+            rbytes = res.numel() * res.element_size()
+            self.stats.add(op, rbytes, _group_of(group).size(), group in self.pod_groups)
+        return out
+
+
+def _pod_groups(built) -> set:
+    """The names of the process groups of a built step's mesh whose ranks
+    span its pod axis."""
+    mesh = _mesh_of(built)
+    if mesh is None or "pod" not in (mesh.mesh_dim_names or ()):
+        return set()
+    return {mesh.get_group("pod").group_name}
+
+
+def _mesh_of(built):
+    from ..sharding.partition import NamedSharding
+    from ..training.optimizer import tree_leaves
+
+    for sh in built.in_shardings or ():
+        leaves = tree_leaves(sh) if isinstance(sh, dict) else [sh]
+        for leaf in leaves:
+            if isinstance(leaf, NamedSharding):
+                return leaf.mesh
+    return None
+
+
+def _trace(built) -> _DeviceCounter:
+    counter = _DeviceCounter(_pod_groups(built))
+    with counter.mode:
+        built.fn(*built.abstract_args)
+    return counter
+
+
+def trace_device(built) -> dict:
+    """One call of a mesh step on its meta DTensor stand-ins: each rank's
+    local FLOPs (total and by aten op) and its collectives."""
+    counter = _trace(built)
+    return {"flops_per_device": float(counter.flops), "flops_by_op": dict(counter.by_op),
+            "collectives": counter.stats.to_dict(),
+            "wire_bytes_per_device": float(counter.stats.total_wire_bytes),
+            "pod_wire_bytes_per_device": float(counter.stats.pod_wire_bytes)}
+
+
+def trace_collectives(built) -> CollectiveStats:
+    """The collectives that one call of a mesh step issues (each
+    ``c10d_functional`` op, with its group's size and its result's bytes),
+    in a ``CollectiveStats`` with the reference's wire formulas."""
+    return _trace(built).stats
 
 
 def modeled_hbm_bytes(cfg, shape, n_chips: int = 1, model_axis: int = 1) -> dict:
@@ -114,29 +342,38 @@ def modeled_hbm_bytes(cfg, shape, n_chips: int = 1, model_axis: int = 1) -> dict
 
 
 def roofline_terms(flops: float, hbm_bytes: float,
-                   model_flops_total: Optional[float] = None) -> dict:
-    """The two terms on one H100, the one that binds, the bound
-    ``max(compute, memory)`` and, given the model's useful FLOPs, their share
-    of the counted FLOPs and the roofline fraction (useful FLOP/s at the
-    bound over the card's peak)."""
-    terms = {"compute_s": flops / HW["peak_flops_bf16"], "memory_s": hbm_bytes / HW["hbm_bw"]}
+                   model_flops_total: Optional[float] = None, *, wire_bytes: float = 0.0,
+                   pod_wire_bytes: float = 0.0, n_chips: int = 1) -> dict:
+    """The three per-device terms on H100s (the collective term 0 on one
+    device; ``pod_wire_bytes``, the part of ``wire_bytes`` that crosses the
+    pod axis, at the InfiniBand rate), the one that binds, the bound (their
+    maximum) and, given the model's useful FLOPs, their share of the counted
+    FLOPs of all ``n_chips`` and the roofline fraction (useful FLOP/s at the
+    bound over the devices' peak)."""
+    terms = {"compute_s": flops / HW["peak_flops_bf16"], "memory_s": hbm_bytes / HW["hbm_bw"],
+             "collective_s": ((wire_bytes - pod_wire_bytes) / HW["nvlink_bw"]
+                              + pod_wire_bytes / HW["ib_bw"])}
     bottleneck = max(terms, key=terms.get)
     out = {**terms, "bottleneck": bottleneck.replace("_s", ""),
            "step_time_lower_bound_s": max(terms.values())}
     if model_flops_total is not None:
+        total = flops * n_chips
         out["model_flops_total"] = model_flops_total
-        out["useful_flops_ratio"] = model_flops_total / flops if flops else 0.0
+        out["useful_flops_ratio"] = model_flops_total / total if total else 0.0
         t = out["step_time_lower_bound_s"]
-        out["roofline_fraction"] = (model_flops_total / t / HW["peak_flops_bf16"]
+        out["roofline_fraction"] = (model_flops_total / t / (n_chips * HW["peak_flops_bf16"])
                                     if t > 0 else 0.0)
     return out
 
 
 def trace_costs(built) -> dict:
     """FLOPs of one call of ``built.fn`` on ``built.abstract_args`` (meta
-    tensors), counted by ``FlopCounterMode``: the total and by aten op."""
+    tensors), counted by ``FlopCounterMode``: the total and by aten op. A
+    step on a mesh is counted per device (``trace_device``)."""
     from torch.utils.flop_counter import FlopCounterMode
 
+    if built.in_shardings is not None:
+        return trace_device(built)
     counter = FlopCounterMode(display=False)
     with counter:
         built.fn(*built.abstract_args)
@@ -146,10 +383,14 @@ def trace_costs(built) -> dict:
 
 def extrapolate(base: dict, two_units: dict, units: int) -> dict:
     """Depth calibration: cost(L) = cost(L1) + (units-1) * (cost(L2)-cost(L1)).
-    Exact for layer-homogeneous stacks."""
-    delta = two_units["flops_per_device"] - base["flops_per_device"]
-    return {"flops_per_device": base["flops_per_device"] + (units - 1) * delta,
-            "flops_per_device_per_layer": delta, "units": units}
+    Exact for layer-homogeneous stacks; the wire bytes too, on a mesh."""
+    out = {"units": units}
+    for k in ("flops_per_device", "wire_bytes_per_device", "pod_wire_bytes_per_device"):
+        if k in base:
+            delta = two_units[k] - base[k]
+            out[k] = base[k] + (units - 1) * delta
+            out[k + "_per_layer"] = delta
+    return out
 
 
 # ------------------------------------------------------------ memory fit
@@ -267,6 +508,57 @@ def memory_fit(cfg, shape, batch: Optional[int] = None, capacity: Optional[float
     terms["logits"] = act["logits"]
     total = float(sum(terms.values()))
     return {"batch": B, "terms": terms, "total": total, "capacity": capacity,
+            "usable": FIT_SHARE * capacity, "fits": total <= FIT_SHARE * capacity}
+
+
+def memory_fit_mesh(cfg, shape, weight_specs: dict, axes: dict,
+                    ocfg: Optional[OptimizerConfig] = None,
+                    capacity: Optional[float] = None) -> dict:
+    """``memory_fit`` per device of a mesh: the weights, their fp32 master,
+    moments, gradients and new weights at each weight's local shard (its
+    resolved spec, ``weight_specs`` {key: spec}, over the mesh ``axes``
+    {name: size}); the batch, activations and cache at the device's share of
+    the batch (the data-parallel size: all devices over the model axis), the
+    logits also split over the model axis (vocab)."""
+    from ..models.model import Model
+
+    ocfg = ocfg or OptimizerConfig()
+    capacity = hbm_capacity() if capacity is None else capacity
+    n_chips = int(math.prod(axes.values()))
+    model_axis = axes.get("model", 1)
+    data_total = max(n_chips // model_axis, 1)
+    meta = Model(cfg, device="meta", kernel_impl="ref")
+    elems = nbytes = 0.0
+
+    def walk(t, prefix):
+        nonlocal elems, nbytes
+        for k, v in t.items():
+            key = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, dict):
+                walk(v, key)
+                continue
+            parts = 1
+            for entry in weight_specs.get(key, ()):
+                for a in (entry if isinstance(entry, list) else [entry]):
+                    parts *= axes.get(a, 1) if a else 1
+            elems += v.numel() / parts
+            nbytes += v.numel() * v.element_size() / parts
+
+    walk(meta.params, "")
+    B = max(-(-shape.global_batch // data_total), 1)
+    one = memory_fit(cfg, shape, batch=B, capacity=capacity, ocfg=ocfg)["terms"]
+    terms: Dict[str, float] = {"params": nbytes}
+    if shape.kind == "train":
+        terms["optimizer"] = elems * (4 + 2 * _itemsize(ocfg.moments_dtype))
+        terms["grads"] = elems * _itemsize(ocfg.grad_dtype)
+        terms["new_params"] = nbytes
+    terms["batch"] = one["batch"]
+    if "cache" in one:
+        terms["cache"] = one["cache"] * B * data_total / shape.global_batch / model_axis
+    terms["activations"] = one["activations"]
+    terms["logits"] = one["logits"] / model_axis
+    total = float(sum(terms.values()))
+    return {"batch_per_device": B, "terms": terms, "total": total, "capacity": capacity,
             "usable": FIT_SHARE * capacity, "fits": total <= FIT_SHARE * capacity}
 
 

@@ -1,10 +1,13 @@
-"""Dry run on one H100: FLOPs, memory fit and roofline of every (arch x shape) cell.
+"""Dry run: FLOPs, memory fit and roofline of every (arch x shape [x mesh]) cell.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape decode_32k
     python -m repro_torch.launch.dryrun --all                   # every cell, no card needed
     python -m repro_torch.launch.dryrun --arch X --shape Y --override remat_policy=dots
     python -m repro_torch.launch.dryrun --arch mamba2-2.7b --shape long_500k --run
+    python -m repro_torch.launch.dryrun --arch X --shape Y --mesh 16,16   # (data, model)
+    python -m repro_torch.launch.dryrun --all --multi-pod       # the 2x16x16 mesh
+    python -m repro_torch.launch.dryrun --all --both-meshes     # 16x16, then 2x16x16
 
 Port of ``repro.launch.dryrun`` over one device. For each cell it records
 whether the cell applies (``cell_applicable``); the FLOPs of one step,
@@ -18,27 +21,42 @@ default cuda): random weights from seed 0, the step timed with CUDA events
 (median of 5), the peak allocated memory and the fraction of the roofline
 bound; a cell that does not fit records why.
 
-``--mesh`` / ``--multi-pod`` / ``--both-meshes`` exit non-zero: sharding over a
-mesh is the next slice (ROADMAP A5b). Results accumulate in ``--results``
-(default ``build/dryrun.json``, git-ignored) keyed by arch|shape|device|
-overrides, so reruns are incremental; ``--force`` recomputes.
+A mesh cell (``--mesh "2,4"`` names the trailing axes of ("pod", "data",
+"model"); ``--multi-pod`` the (2, 16, 16) production mesh, the (16, 16) one
+otherwise; ``--both-meshes`` both) runs in a subprocess of its own under
+PyTorch's fake process group of that many ranks (``mesh.fake_world``), the
+counterpart of the reference's forced host devices: the model is built on
+the meta device and distributed onto the mesh, and the step is traced on
+meta DTensors. It records the resolved shardings of the weights, the
+per-device FLOPs (each rank's local ops) at full depth and at the
+calibration depths, the per-device modeled HBM traffic and memory fit, the
+collectives the step issues with their wire bytes, and the roofline with its
+collective term. ``--calibrated`` skips the full-depth trace.
+
+Results accumulate in ``--results`` (default ``build/dryrun.json``,
+git-ignored) keyed by arch|shape|device (or mesh)|overrides, so reruns are
+incremental; ``--force`` recomputes.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import subprocess
+import sys
 import time
 import traceback
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, SHAPES, ShapeSpec, cell_applicable, get_config
 from repro_torch.launch import analysis
+from repro_torch.launch.mesh import describe, fake_world, make_mesh
 from repro_torch.models.model import Model
+from repro_torch.sharding import partition
 from repro_torch.training import optimizer as opt
 from repro_torch.training import steps as steps_mod
 
@@ -91,19 +109,20 @@ def _config(arch: str, overrides: Optional[dict]):
 
 
 def build_cell(arch: str, shape_name: str, overrides: Optional[dict] = None,
-               device="meta", kernel_impl: str = "ref"):
+               device="meta", kernel_impl: str = "ref", mesh=None):
     """(cfg, shape, model, BuiltStep) of a cell: by default a meta model whose
-    kernels take their plain versions, and the step's meta stand-ins."""
+    kernels take their plain versions, and the step's meta stand-ins (on
+    ``mesh``: the model distributed there, meta DTensors)."""
     cfg, opt_kwargs = _config(arch, overrides)
     shape = SHAPES[shape_name]
     model = Model(cfg, device=device, kernel_impl=kernel_impl)
     if shape.kind == "train":
         model.requires_grad_(True)
-        built = steps_mod.build_train_step(model, opt.OptimizerConfig(**opt_kwargs), None, shape)
+        built = steps_mod.build_train_step(model, opt.OptimizerConfig(**opt_kwargs), mesh, shape)
     elif shape.kind == "prefill":
-        built = steps_mod.build_prefill_step(model, None, shape)
+        built = steps_mod.build_prefill_step(model, mesh, shape)
     else:
-        built = steps_mod.build_decode_step(model, None, shape)
+        built = steps_mod.build_decode_step(model, mesh, shape)
     return cfg, shape, model, built
 
 
@@ -250,9 +269,136 @@ def run_cell(arch: str, shape_name: str, overrides: Optional[dict] = None,
     return record
 
 
-def _key(arch, shape, overrides, run: bool = False) -> str:
+MESH_AXES = ("pod", "data", "model")
+
+
+def mesh_of(mesh_spec: Optional[str] = None, multi_pod: bool = False
+            ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """(dims, axis names) of ``--mesh "2,4"`` (the trailing axes of
+    ("pod", "data", "model")) or of the production mesh."""
+    if mesh_spec:
+        dims = tuple(int(x) for x in mesh_spec.split(","))
+        return dims, MESH_AXES[-len(dims):]
+    if multi_pod:
+        return (2, 16, 16), MESH_AXES
+    return (16, 16), MESH_AXES[1:]
+
+
+def _mesh_flops(arch, shape_name, overrides, mesh) -> dict:
+    return analysis.trace_device(build_cell(arch, shape_name, overrides, mesh=mesh)[3])
+
+
+def _weight_specs(model: Model, mesh) -> dict:
+    """{weight key: its resolved PartitionSpec} of a distributed model."""
+    sh = partition.named_shardings(model.specs(), model.abstract_params(), mesh,
+                                   partition.rules_for(model.cfg))
+    out = {}
+
+    def walk(t, prefix):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], f"{prefix}/{k}" if prefix else k)
+        else:
+            out[prefix] = [list(a) if isinstance(a, tuple) else a for a in t.spec]
+
+    walk(sh, "")
+    return out
+
+
+def run_mesh_cell(arch: str, shape_name: str, dims: Sequence[int], names: Sequence[str],
+                  overrides: Optional[dict] = None, verbose: bool = True,
+                  full_depth: bool = True) -> dict:
+    """One mesh cell's record, in this process, under a fake world that holds
+    the mesh (``fake_world``)."""
+    cfg, opt_kwargs = _config(arch, overrides)
+    shape = SHAPES[shape_name]
+    ok, reason = cell_applicable(cfg, shape)
+    if not ok:
+        return {"arch": arch, "shape": shape_name, "status": "skipped", "reason": reason}
+    mesh = make_mesh(tuple(dims), tuple(names), "cpu")
+    n_chips = int(np.prod(dims))
+    axes = dict(zip(names, dims))
+    record: dict = {"arch": arch, "shape": shape_name, "mesh": describe(mesh),
+                    "overrides": overrides or {}, "status": "ok"}
+    try:
+        t0 = time.monotonic()
+        _, _, model, built = build_cell(arch, shape_name, overrides, mesh=mesh)
+        record["shardings"] = _weight_specs(model, mesh)
+        full = analysis.trace_device(built) if full_depth else None
+        del model, built
+        L1, L2, units = _calibration_depths(cfg)
+        cal = [_mesh_flops(arch, shape_name, dict(overrides or {}, n_layers=depth,
+                                                 microbatches=1), mesh)
+               for depth in (L1, L2)]
+        total = analysis.extrapolate(cal[0], cal[1], units)
+        total["collectives_base"] = cal[0]["collectives"]
+        total["collectives_delta"] = cal[1]["collectives"]
+        if full is None:
+            full = {k: total[k] for k in ("flops_per_device", "wire_bytes_per_device",
+                                           "pod_wire_bytes_per_device")}
+            full["source"] = f"calibrated at L={L1},{L2}"
+        else:
+            total["matches_full_depth"] = bool(np.isclose(
+                total["flops_per_device"], full["flops_per_device"], rtol=CALIBRATION_RTOL))
+        record["trace_s"] = round(time.monotonic() - t0, 2)
+        a = record["analysis"] = {"cost": full, "calibrated": total}
+        mflops = model_flops(cfg, shape)
+        mm = a["modeled_memory"] = analysis.modeled_hbm_bytes(
+            cfg, shape, n_chips, model_axis=axes.get("model", 1))
+        a["fit"] = analysis.memory_fit_mesh(cfg, shape, record["shardings"], axes,
+                                            opt.OptimizerConfig(**opt_kwargs))
+        a["roofline"] = analysis.roofline_terms(
+            full["flops_per_device"], mm["total"], model_flops_total=mflops,
+            wire_bytes=full["wire_bytes_per_device"],
+            pod_wire_bytes=full["pod_wire_bytes_per_device"], n_chips=n_chips)
+        if verbose:
+            r, fit = a["roofline"], a["fit"]
+            print(f"[{arch} x {shape_name} x {'x'.join(map(str, dims))}] "
+                  f"flops/device={full['flops_per_device']:.4e} "
+                  f"wire/device={full['wire_bytes_per_device']:.4e} "
+                  f"fits={fit['fits']} ({fit['total'] / 1e9:.1f} of {fit['usable'] / 1e9:.1f} GB) "
+                  f"compute={r['compute_s']:.4g}s memory={r['memory_s']:.4g}s "
+                  f"collective={r['collective_s']:.4g}s -> {r['bottleneck']} "
+                  f"[trace {record['trace_s']}s]", flush=True)
+    except Exception as e:  # noqa: BLE001
+        record["status"] = "error"
+        record["error"] = f"{type(e).__name__}: {e}"
+        record["traceback"] = traceback.format_exc(limit=10)
+        if verbose:
+            print(f"[{arch} x {shape_name}] FAILED: {record['error']}", flush=True)
+    return record
+
+
+def run_mesh_cell_subprocess(arch: str, shape_name: str, dims: Sequence[int],
+                             overrides: Optional[dict] = None, full_depth: bool = True,
+                             timeout: float = 3600) -> dict:
+    """``run_mesh_cell`` in a subprocess of its own (a fake world per process),
+    its progress line passed through, its record read back as JSON."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--child", "--arch", arch,
+           "--shape", shape_name, "--mesh", ",".join(map(str, dims))]
+    for k, v in (overrides or {}).items():
+        cmd += ["--override", f"{k}={v}"]
+    if not full_depth:
+        cmd.append("--calibrated")
+    src = str(Path(__file__).resolve().parents[2])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=timeout)
+    lines = out.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    try:
+        return json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        return {"arch": arch, "shape": shape_name, "status": "error",
+                "error": f"the mesh cell's process exited {out.returncode}",
+                "stderr": out.stderr[-4000:]}
+
+
+def _key(arch, shape, overrides, run: bool = False, mesh: Optional[Sequence[int]] = None) -> str:
     ov = ",".join(f"{k}={v}" for k, v in sorted((overrides or {}).items()))
-    return f"{arch}|{shape}|{DEVICE_KEY}{'|run' if run else ''}|{ov}"
+    where = f"mesh={'x'.join(map(str, mesh))}" if mesh else DEVICE_KEY
+    return f"{arch}|{shape}|{where}{'|run' if run else ''}|{ov}"
 
 
 def load_results(path: str = RESULTS_PATH) -> dict:
@@ -276,9 +422,14 @@ def main() -> int:
     ap.add_argument("--arch", choices=list(ARCH_IDS))
     ap.add_argument("--shape", choices=list(SHAPES))
     ap.add_argument("--all", action="store_true", help="every cell")
-    ap.add_argument("--multi-pod", action="store_true", help="not ported (ROADMAP A5b)")
-    ap.add_argument("--both-meshes", action="store_true", help="not ported (ROADMAP A5b)")
-    ap.add_argument("--mesh", help="not ported (ROADMAP A5b)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the (2, 16, 16) pod x data x model mesh")
+    ap.add_argument("--both-meshes", action="store_true",
+                    help="the (16, 16) mesh, then the (2, 16, 16) one")
+    ap.add_argument("--mesh", help='explicit mesh dims, e.g. "2,4" (data, model)')
+    ap.add_argument("--calibrated", action="store_true",
+                    help="mesh cells: FLOPs from the calibration depths alone")
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--override", action="append", help="cfg field=value")
     ap.add_argument("--run", action="store_true", help="run each cell that fits on the card")
     ap.add_argument("--device", default="cuda")
@@ -286,9 +437,19 @@ def main() -> int:
     ap.add_argument("--results", default=RESULTS_PATH)
     args = ap.parse_args()
 
+    meshes = []
     if args.mesh or args.multi_pod or args.both_meshes:
-        ap.exit(2, "dryrun: a mesh is not ported yet: sharding over a DeviceMesh is the "
-                   "next slice (ROADMAP A5b); this dry run covers one H100\n")
+        if args.run:
+            ap.error("--run times cells on one card; a mesh cell is traced only")
+        pods = [False, True] if args.both_meshes else [args.multi_pod]
+        meshes = [mesh_of(None if args.both_meshes else args.mesh, pod) for pod in pods]
+    if args.child:
+        (dims, names), = meshes
+        with fake_world(int(np.prod(dims))):
+            rec = run_mesh_cell(args.arch, args.shape, dims, names,
+                                _parse_overrides(args.override), full_depth=not args.calibrated)
+        print(json.dumps(rec), flush=True)
+        return 1 if rec["status"] == "error" else 0
     if args.run and torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         ap.exit(2, "dryrun: --run needs a CUDA card (the analysis alone runs without one)\n")
     overrides = _parse_overrides(args.override)
@@ -302,12 +463,16 @@ def main() -> int:
         cells = [(args.arch, args.shape)]
 
     failures = 0
-    for arch, shape in cells:
-        key = _key(arch, shape, overrides, args.run)
+    for (arch, shape), (dims, _) in ((c, m) for m in meshes or [((), ())] for c in cells):
+        key = _key(arch, shape, overrides, args.run, dims)
         if key in results and not args.force and results[key].get("status") != "error":
             print(f"[cached] {key}", flush=True)
             continue
-        rec = run_cell(arch, shape, overrides=overrides, run=args.run, device=args.device)
+        if dims:
+            rec = run_mesh_cell_subprocess(arch, shape, dims, overrides,
+                                           full_depth=not args.calibrated)
+        else:
+            rec = run_cell(arch, shape, overrides=overrides, run=args.run, device=args.device)
         results[key] = rec
         save_results(results, args.results)
         if rec["status"] == "error":

@@ -13,6 +13,8 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention import ops as attn_ops
+from ..sharding import partition
+from ..sharding.local import as_replicated, flatten2, unflatten
 from . import layers
 
 
@@ -35,6 +37,17 @@ def init_attention(gen, cfg: ModelConfig, device, lead: Tuple[int, ...] = ()):
     return p
 
 
+def attention_specs(cfg: ModelConfig) -> dict:
+    """Logical axes of ``init_attention``'s tree (self or cross)."""
+    s = {"wq": ("embed", "heads", None), "wk": ("embed", "kv_heads", None),
+         "wv": ("embed", "kv_heads", None), "wo": ("heads", None, "embed")}
+    if cfg.qkv_bias:
+        s.update(bq=("heads", None), bk=("kv_heads", None), bv=("kv_heads", None))
+    if cfg.qk_norm:
+        s.update(q_norm=(None,), k_norm=(None,))
+    return s
+
+
 def _headwise_rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
@@ -44,7 +57,7 @@ def _headwise_rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """'bsd,dhk->bshk' as one matrix product."""
     D, Hn, hd = w.shape
-    return (x @ w.reshape(D, Hn * hd)).unflatten(-1, (Hn, hd))
+    return unflatten(x @ flatten2(w, 1), -1, (Hn, hd))
 
 
 def _qkv(p, x, cfg: ModelConfig, positions: Optional[torch.Tensor], rope: bool):
@@ -63,7 +76,7 @@ def _qkv(p, x, cfg: ModelConfig, positions: Optional[torch.Tensor], rope: bool):
 def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """'bshk,hkd->bsd' as one matrix product."""
     H, hd, D = wo.shape
-    return o.flatten(-2) @ wo.reshape(H * hd, D)
+    return flatten2(o, -2) @ flatten2(wo, 0)
 
 
 def self_attention(
@@ -78,7 +91,15 @@ def self_attention(
 ):
     rope = cfg.rope_theta > 0
     q, k, v = _qkv(p, x, cfg, positions, rope)
+    # context-parallel fallback: when heads don't divide the model axis, the
+    # reference shards q's sequence over `model` instead (attn_seq_shard)
+    q_seq = "seq_shard" if cfg.attn_seq_shard else "seq"
+    q = partition.shard_act(q, "batch", q_seq, "heads", None)
+    k = partition.shard_act(k, "batch", "seq", "kv_heads", None)
+    v = partition.shard_act(v, "batch", "seq", "kv_heads", None)
     o = attn_ops.flash_attention(q, k, v, causal=causal, impl=impl)
+    if cfg.attn_seq_shard:
+        o = partition.shard_act(o, "batch", "seq_shard", "heads", None)
     out = _out(o, p["wo"])
     return (out, (k, v)) if return_kv else (out, None)
 
@@ -99,7 +120,10 @@ def self_attention_decode(
     vec = pos.ndim == 1
     positions = (pos[:, None] if vec else pos[None]) if rope else None
     q, k, v = _qkv(p, x, cfg, positions, rope)
-    if vec:  # per-sequence positions (continuous batching)
+    if partition.is_dtensor(k_cache):
+        write_position(k_cache, k, pos)
+        write_position(v_cache, v, pos)
+    elif vec:  # per-sequence positions (continuous batching)
         rows = torch.arange(k_cache.shape[0], device=k_cache.device)
         idx = (rows, pos.long())
         k_cache.index_put_(idx, k[:, 0].to(k_cache.dtype))
@@ -111,6 +135,54 @@ def self_attention_decode(
     o = attn_ops.decode_attention(q, k_cache, v_cache, pos, impl=impl)
     out = _out(o, p["wo"])
     return out, (k_cache, v_cache)
+
+
+def _write_shard(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                 offset: int) -> None:
+    """cache[b, pos - offset] = new[b, 0] in place (a scalar ``pos``: every
+    row at one position; (B,): each row at its own), on a shard that holds
+    positions [offset, offset + S): a row whose position lies outside keeps
+    its entry."""
+    S = cache.shape[1]
+    at = pos.long() - offset
+    inside = (at >= 0) & (at < S)
+    at = at.clamp(0, S - 1)
+    if pos.ndim == 1:
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        old = cache[rows, at]
+        mask = inside.reshape(-1, *([1] * (old.ndim - 1)))
+        cache.index_put_((rows, at), torch.where(mask, new[:, 0].to(cache.dtype), old))
+    else:
+        at = at.reshape(1)
+        old = cache.index_select(1, at)
+        cache.index_copy_(1, at, torch.where(inside, new.to(cache.dtype), old))
+
+
+def write_position(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
+    """Write one token's ``new`` (B, 1, ...) into ``cache`` (B, S, ...) at
+    ``pos`` (a scalar or (B,) int tensor), in place. On a mesh each rank writes
+    its shard: its rows and, for a sequence-sharded cache, only the positions
+    its slice of S holds."""
+    if not partition.is_dtensor(cache):
+        _write_shard(cache, new, pos, 0)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, pl = cache.device_mesh, tuple(cache.placements)
+    coord = mesh.get_coordinate()
+    rank_in_seq = 0
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim == 1:
+            rank_in_seq = rank_in_seq * mesh.size(i) + coord[i]
+    # the token follows the cache's row and head split, replicated over S;
+    # per-row positions follow its row split
+    new_pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p for p in pl)
+    pos_pl = tuple(p if isinstance(p, Shard) and p.dim == 0 and pos.ndim == 1 else Replicate()
+                   for p in pl)
+    new = as_replicated(new, mesh).redistribute(mesh, new_pl).to_local()
+    pos = as_replicated(pos, mesh).redistribute(mesh, pos_pl).to_local()
+    local = cache.to_local()
+    _write_shard(local, new, pos, rank_in_seq * local.shape[1])
 
 
 def cross_attention(

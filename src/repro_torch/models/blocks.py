@@ -6,8 +6,10 @@ family: + the routed-expert FFN, ``moe.moe_ffn``); RMSNorm + Mamba2 mixer;
 and the encoder-decoder family's encoder layer (non-causal self-attention +
 GELU MLP) and decoder layer (causal self-attention + cross-attention + GELU
 MLP), each norm a LayerNorm. A "layer" is the unit the model stack loops
-over (the hybrid family runs both of the first two). The JAX
-``partition.shard_act`` calls are dropped: the port runs on one device.
+over (the hybrid family runs both of the first two). Each layer's input
+takes the reference's ``partition.shard_act`` (``_residual_enter``), a no-op
+with no mesh active; the ``*_specs`` functions give each ``init_*`` tree's
+logical axes, and ``decoder_cache_specs`` the cache's.
 
 The dense layer's residual add and second RMSNorm are one call,
 ``kernels.rmsnorm.ops.fused_add_rmsnorm`` (the Hopper kernel on CUDA tensors).
@@ -24,7 +26,14 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.rmsnorm import ops as rmsnorm_ops
+from ..sharding import partition
 from . import attention, layers, mamba2, mla, moe
+
+
+def _residual_enter(h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.sequence_parallel:
+        return partition.shard_act(h, "batch", "seq_shard", None)
+    return partition.shard_act(h, "batch", "seq", None)
 
 
 def init_decoder_layer(gen, cfg: ModelConfig, device, lead: Tuple[int, ...] = ()):
@@ -44,6 +53,13 @@ def init_decoder_layer(gen, cfg: ModelConfig, device, lead: Tuple[int, ...] = ()
     }
 
 
+def decoder_layer_specs(cfg: ModelConfig) -> dict:
+    attn = mla.mla_specs(cfg) if cfg.mla is not None else attention.attention_specs(cfg)
+    ffn = moe.moe_specs(cfg) if cfg.family == "moe" else layers.swiglu_specs()
+    return {"attn": attn, "ffn": ffn, "ln1": layers.rmsnorm_specs(),
+            "ln2": layers.rmsnorm_specs()}
+
+
 def _ffn(p, hn: torch.Tensor, cfg: ModelConfig):
     """(ffn output, aux loss): the routed experts for the moe family, else SwiGLU and 0.0."""
     if cfg.family == "moe":
@@ -55,6 +71,7 @@ def decoder_layer(p, h: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
                   impl: str = "auto"):
     """Train/prefill. Returns (h, aux_loss, kv_for_cache): (k, v), or for MLA
     (c_kv, k_rope)."""
+    h = _residual_enter(h, cfg)
     hn = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
         a, kv = mla.mla_attention(p["attn"], hn, cfg, positions=positions, impl=impl)
@@ -105,6 +122,24 @@ def init_decoder_cache(cfg: ModelConfig, batch: int, cache_len: int, device,
     }
 
 
+def decoder_cache_specs(cfg: ModelConfig) -> dict:
+    """Logical axes of one layer's ``init_decoder_cache``. KV heads shard over
+    `model` when divisible; otherwise the sequence dim takes the model axis
+    (a seq-sharded cache; the decode kernel reads it replicated)."""
+    if cfg.mla is not None:
+        return {"ckv": ("batch", "seq_shard", None), "krope": ("batch", "seq_shard", None)}
+    seq_name = "seq" if _kv_heads_shardable(cfg) else "seq_shard"
+    return {"k": ("batch", seq_name, "kv_heads", None), "v": ("batch", seq_name, "kv_heads", None)}
+
+
+def _kv_heads_shardable(cfg: ModelConfig) -> bool:
+    ctx = partition.current()
+    if ctx is None or ctx.mesh is None:
+        return True
+    size = ctx.shape.get("model", 1)
+    return size <= 1 or cfg.n_kv_heads % size == 0
+
+
 # ------------------------------------------------------------------------ ssm
 def init_ssm_layer(gen, cfg: ModelConfig, device, lead: Tuple[int, ...] = ()):
     return {
@@ -113,9 +148,14 @@ def init_ssm_layer(gen, cfg: ModelConfig, device, lead: Tuple[int, ...] = ()):
     }
 
 
+def ssm_layer_specs(cfg: ModelConfig) -> dict:
+    return {"mamba": mamba2.mamba2_specs(cfg), "ln": layers.rmsnorm_specs()}
+
+
 def ssm_layer(p, h: torch.Tensor, cfg: ModelConfig, *, return_state: bool = False,
               impl: str = "auto"):
     """Train/prefill. Returns (h, state or None)."""
+    h = _residual_enter(h, cfg)
     hn = layers.rmsnorm(h, p["ln"], cfg.norm_eps)
     y, state = mamba2.mamba2_block(p["mamba"], hn, cfg, return_state=return_state, impl=impl)
     return h + y, state
@@ -139,9 +179,15 @@ def init_encoder_layer(gen, cfg: ModelConfig, device, lead: Tuple[int, ...] = ()
     }
 
 
+def encoder_layer_specs(cfg: ModelConfig) -> dict:
+    return {"attn": attention.attention_specs(cfg), "mlp": layers.gelu_mlp_specs(),
+            "ln1": layers.layernorm_specs(), "ln2": layers.layernorm_specs()}
+
+
 def encoder_layer(p, h: torch.Tensor, cfg: ModelConfig, impl: str = "auto") -> torch.Tensor:
     """LayerNorm -> non-causal self-attention (no positions) -> residual ->
     LayerNorm -> GELU MLP -> residual."""
+    h = _residual_enter(h, cfg)
     hn = layers.layernorm(h, p["ln1"], cfg.norm_eps)
     a, _ = attention.self_attention(p["attn"], hn, cfg, positions=None, causal=False,
                                     impl=impl)
@@ -162,9 +208,16 @@ def init_cross_decoder_layer(gen, cfg: ModelConfig, device, lead: Tuple[int, ...
     }
 
 
+def cross_decoder_layer_specs(cfg: ModelConfig) -> dict:
+    return {"self": attention.attention_specs(cfg), "cross": attention.attention_specs(cfg),
+            "mlp": layers.gelu_mlp_specs(), "ln1": layers.layernorm_specs(),
+            "ln2": layers.layernorm_specs(), "ln3": layers.layernorm_specs()}
+
+
 def cross_decoder_layer(p, h: torch.Tensor, enc_out: torch.Tensor, cfg: ModelConfig,
                         impl: str = "auto"):
     """Train/prefill decoder layer. Returns (h, ((self_k, self_v), (cross_k, cross_v)))."""
+    h = _residual_enter(h, cfg)
     hn = layers.layernorm(h, p["ln1"], cfg.norm_eps)
     a, self_kv = attention.self_attention(p["self"], hn, cfg, positions=None, causal=True,
                                           return_kv=True, impl=impl)

@@ -19,6 +19,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.ssd import ops as ssd_ops
+from ..sharding import partition
+from ..sharding.local import local_call, unflatten
 from . import layers
 
 
@@ -57,6 +59,22 @@ def init_mamba2(gen, cfg: ModelConfig, device, lead: Tuple[int, ...] = ()):
         "norm": torch.ones((*lead, d_in), dtype=f32, device=device),
         "out_proj": layers.dense_init(gen, (*lead, d_in, D), d_in, dt, device),
     }
+
+
+def mamba2_specs(cfg: ModelConfig) -> dict:
+    """Logical axes of ``init_mamba2``'s tree (\"ssm_inner\" and \"ssm_conv\"
+    have no rule: replicated)."""
+    return {
+        "wz": ("embed", "ssm_inner"), "wx": ("embed", "ssm_inner"), "wB": ("embed", None),
+        "wC": ("embed", None), "wdt": ("embed", "ssm_heads"), "conv_w": ("ssm_conv", None),
+        "conv_b": ("ssm_conv",), "A_log": ("ssm_heads",), "D": ("ssm_heads",),
+        "dt_bias": ("ssm_heads",), "norm": ("ssm_inner",), "out_proj": ("ssm_inner", "embed"),
+    }
+
+
+def decode_state_specs(cfg: ModelConfig) -> dict:
+    """Logical axes of one layer's ``init_decode_state``."""
+    return {"conv": ("batch", None, "ssm_conv"), "ssm": ("batch", "ssm_heads", None, None)}
 
 
 def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -99,13 +117,23 @@ def mamba2_block(p, x: torch.Tensor, cfg: ModelConfig, *, return_state: bool = F
     dt = x @ p["wdt"]
 
     xbc = torch.cat([xin, Bm, Cm], dim=-1)
-    xbc = _causal_depthwise_conv(xbc, p["conv_w"], p["conv_b"])
-    xbc = F.silu(xbc.float()).to(x.dtype)
-    xin, Bm, Cm = torch.split(xbc, [d_in, gn, gn], dim=-1)
 
-    xh = xin.unflatten(-1, (H, s.head_dim))
-    Bg = Bm.unflatten(-1, (s.n_groups, s.d_state))
-    Cg = Cm.unflatten(-1, (s.n_groups, s.d_state))
+    def conv_silu_split(xbc, w, b):
+        xbc = F.silu(_causal_depthwise_conv(xbc, w, b).float()).to(x.dtype)
+        return torch.split(xbc, [d_in, gn, gn], dim=-1)
+
+    if partition.is_dtensor(xbc):
+        # on a mesh: on each rank's rows (the conv's pad and shifted slices
+        # mix the sequence and the split the channels)
+        xin, Bm, Cm = local_call(conv_silu_split, [xbc, p["conv_w"], p["conv_b"]],
+                                 ["b..", "..", "."], ("b..", "b..", "b.."))
+    else:
+        xin, Bm, Cm = conv_silu_split(xbc, p["conv_w"], p["conv_b"])
+
+    xh = unflatten(xin, -1, (H, s.head_dim))
+    xh = partition.shard_act(xh, "batch", "seq", "ssm_heads", None)
+    Bg = unflatten(Bm, -1, (s.n_groups, s.d_state))
+    Cg = unflatten(Cm, -1, (s.n_groups, s.d_state))
     dt_act, A = _dt_and_A(dt, p)
 
     # pad S to a chunk multiple; dt = 0 at pads -> decay 1, contribution 0, so
@@ -181,7 +209,8 @@ def mamba2_decode(p, x: torch.Tensor, state: dict, cfg: ModelConfig) -> Tuple[to
 def init_decode_state(cfg: ModelConfig, batch: int, device,
                       lead: Tuple[int, ...] = ()) -> dict:
     """Zero state for one mamba2 layer; ``lead`` stacks it (the model passes
-    ``(n_layers,)``). The JAX version also returns logical sharding specs."""
+    ``(n_layers,)``). The JAX version also returns its logical specs:
+    ``decode_state_specs``."""
     s, d_in, H, conv_dim = dims(cfg)
     return {
         "conv": torch.zeros((*lead, batch, s.conv_kernel - 1, conv_dim),

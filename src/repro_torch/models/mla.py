@@ -23,6 +23,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention import ops as attn_ops
+from ..sharding import partition
 from . import attention, layers
 
 
@@ -43,6 +44,16 @@ def init_mla(gen, cfg: ModelConfig, device, lead: Tuple[int, ...] = ()):
         "wuv": layers.dense_init(gen, (*lead, m.kv_lora_rank, H, m.v_head_dim),
                                  m.kv_lora_rank, dt, device),
         "wo": layers.dense_init(gen, (*lead, H, m.v_head_dim, D), H * m.v_head_dim, dt, device),
+    }
+
+
+def mla_specs(cfg: ModelConfig) -> dict:
+    """Logical axes of ``init_mla``'s tree (\"latent\" has no rule: replicated)."""
+    return {
+        "wdq": ("embed", "latent"), "q_norm": (None,), "wuq": ("latent", "heads", None),
+        "wdkv": ("embed", "latent"), "wkr": ("embed", None), "kv_norm": (None,),
+        "wuk": ("latent", "heads", None), "wuv": ("latent", "heads", None),
+        "wo": ("heads", None, "embed"),
     }
 
 
@@ -76,8 +87,12 @@ def mla_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
     B, S, H = k_nope.shape[:3]
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_dim)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
+    q_seq = "seq_shard" if cfg.attn_seq_shard else "seq"
+    q = partition.shard_act(q, "batch", q_seq, "heads", None)
     o = attn_ops.flash_attention(q, k, v, causal=True,
                                  scale=(m.qk_nope_dim + m.qk_rope_dim) ** -0.5, impl=impl)
+    if cfg.attn_seq_shard:
+        o = partition.shard_act(o, "batch", "seq_shard", "heads", None)
     return attention._out(o, p["wo"]), (c_kv, k_rope)
 
 
@@ -92,7 +107,10 @@ def mla_attention_decode(p, x: torch.Tensor, ckv_cache: torch.Tensor,
     positions = pos[:, None] if vec else pos[None]
     q_nope, q_rope = _queries(p, x, cfg, positions)
     c_kv, k_rope = _latent_kv(p, x, cfg, positions)
-    if vec:  # per-sequence positions (continuous batching)
+    if partition.is_dtensor(ckv_cache):
+        attention.write_position(ckv_cache, c_kv, pos)
+        attention.write_position(krope_cache, k_rope, pos)
+    elif vec:  # per-sequence positions (continuous batching)
         idx = (torch.arange(ckv_cache.shape[0], device=ckv_cache.device), pos.long())
         ckv_cache.index_put_(idx, c_kv[:, 0].to(ckv_cache.dtype))
         krope_cache.index_put_(idx, k_rope[:, 0].to(krope_cache.dtype))

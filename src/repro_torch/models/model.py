@@ -34,7 +34,18 @@ API (the JAX one without the ``params`` argument, which the module holds):
                (L, B, enc_seq, KV, hd), the encoder's keys and values;
         vlm    the dense tree, S counting the patches
     cache_batch_axes()                   -> the batch axis of each cache leaf
+    specs() / abstract_params()          -> the weights' logical axis names / meta stand-ins
+    cache_specs(batch, cache_len)        -> the cache's logical axis names (the
+                                            second value of the reference's init_cache)
+    distribute(mesh)                     -> self, every weight a DTensor on the mesh
 cache_len_of(cache) and build_model(cfg) are the reference's serving helpers.
+
+On a mesh (``distribute``, then calls inside ``partition.use_mesh``) every
+weight is a DTensor placed as its logical names resolve under
+``rules_for(cfg)``; the activations take the reference's ``shard_act``
+constraints (the embedding, each layer's input, the logits), and the kernel
+wrappers run on each rank's shard (``sharding.local``). With no mesh the
+constraints are no-ops and nothing on the one-device path changes.
 
 Training: the weights are registered with ``requires_grad=False``, so serving
 records no graph; ``model.requires_grad_(True)`` makes them trainable. A
@@ -59,6 +70,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..configs.base import ModelConfig
+from ..sharding import partition
+from ..sharding.local import as_replicated, local_shard
 from . import blocks, layers, mamba2
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
@@ -123,13 +136,21 @@ class Model(nn.Module):
         self.cfg = cfg
         self.device = torch.device(device)
         self.kernel_impl = kernel_impl
+        self.mesh = None
         shapes = {path[0]: part for path, part in self._parts(None, torch.device("meta"),
                                                               per_layer=False)}
         empty = _map(shapes, lambda t: torch.empty_like(t, device=self.device))
         _as_module(empty, self)
-        # per-layer views of the stacked weights, taken once: init() and
-        # load_state_dict() write the parameters in place, so they stay valid
-        # (the hybrid's: one list of PG per-layer views per group, and the shared block)
+        self._take_views()
+        # the decode step's sinusoidal tables, one per cache length (encdec)
+        self._pos_tables: Dict[int, torch.Tensor] = {}
+
+    def _take_views(self) -> None:
+        """Per-layer views of the stacked weights, taken once: init() and
+        load_state_dict() write the parameters in place, so they stay valid
+        (the hybrid's: one list of PG per-layer views per group, and the
+        shared block). ``distribute`` takes them again."""
+        cfg = self.cfg
         stacked = self.params["layers"]
         if cfg.family == "hybrid":
             G, PG = self._hybrid_groups()
@@ -141,8 +162,6 @@ class Model(nn.Module):
         if cfg.family == "encdec":
             self._enc_layer_params = [_index(self.params["enc_layers"], i)
                                       for i in range(cfg.n_enc_layers)]
-        # the decode step's sinusoidal tables, one per cache length (encdec)
-        self._pos_tables: Dict[int, torch.Tensor] = {}
 
     def _hybrid_groups(self) -> Tuple[int, int]:
         cfg = self.cfg
@@ -151,6 +170,100 @@ class Model(nn.Module):
             raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not split into groups of "
                              f"shared_attn_every={PG}")
         return cfg.n_layers // PG, PG
+
+    # ============================================================ sharding
+    def specs(self) -> dict:
+        """The weights' logical axis names, a tree like ``params``: the spec
+        trees of the reference's ``init_*`` functions, with one leading
+        "layers" per stacked axis (the hybrid's Mamba2 stack has two)."""
+        cfg = self.cfg
+        s = {"embed": layers.embedding_specs()}
+        if not cfg.tie_embeddings:
+            s["unembed"] = layers.unembed_specs()
+        s["final_norm"] = (layers.layernorm_specs() if cfg.family == "encdec"
+                           else layers.rmsnorm_specs())
+        layer_specs = {blocks.init_decoder_layer: blocks.decoder_layer_specs,
+                       blocks.init_ssm_layer: blocks.ssm_layer_specs,
+                       blocks.init_encoder_layer: blocks.encoder_layer_specs,
+                       blocks.init_cross_decoder_layer: blocks.cross_decoder_layer_specs}
+        for name, init_layer, lead in self._stacks():
+            prefix = ("layers",) * len(lead)
+            s[name] = _map(layer_specs[init_layer](cfg), lambda t: (*prefix, *t), is_leaf=tuple)
+        if cfg.family == "hybrid":
+            s["shared"] = blocks.decoder_layer_specs(cfg)
+        if cfg.family == "encdec":
+            s["enc_norm"] = layers.layernorm_specs()
+        if cfg.family == "vlm":
+            s["patch_proj"] = ("embed", "mlp")
+        return s
+
+    def abstract_params(self) -> dict:
+        """Meta stand-ins of the weights at their global shapes and dtypes."""
+        return _map(self.params, lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"))
+
+    def cache_specs(self, batch: int, cache_len: int) -> dict:
+        """The logical axis names of ``init_cache(batch, cache_len)``'s tree
+        under the active mesh (the reference's ``init_cache`` returns them
+        beside the cache): a sequence-sharded K/V cache where the KV heads do
+        not divide the model axis."""
+        cfg = self.cfg
+
+        def stacked(specs, n_lead=1):
+            return _map(specs, lambda t: ("layers",) * n_lead + tuple(t), is_leaf=tuple)
+
+        if cfg.family == "hybrid":
+            return {"attn": stacked(blocks.decoder_cache_specs(cfg)),
+                    "mamba": stacked(mamba2.decode_state_specs(cfg), 2)}
+        if cfg.family == "ssm":
+            return stacked(mamba2.decode_state_specs(cfg))
+        s = blocks.decoder_cache_specs(cfg)
+        if cfg.family == "encdec":
+            s["cross_k"] = s["cross_v"] = ("batch", None, "kv_heads", None)
+        return stacked(s)
+
+    @torch.no_grad()
+    def distribute(self, mesh, rules: Optional[dict] = None) -> "Model":
+        """Re-place every weight as a DTensor on ``mesh`` with the placements
+        its logical names resolve to under ``rules`` (default
+        ``rules_for(cfg)``), keeping its ``requires_grad``; then retake the
+        per-layer views, so they view the distributed weights. Every rank
+        holds the same full weights (drawn from one seed or loaded), so each
+        keeps its own slice of them: no communication."""
+        from torch.distributed.tensor import DTensor
+
+        rules = rules or partition.rules_for(self.cfg)
+        shardings = partition.named_shardings(self.specs(), self.params, mesh, rules)
+
+        def place(module: nn.Module, sh: dict) -> None:
+            for name, p in list(module.named_parameters(recurse=False)):
+                pl = sh[name].placements
+                local = as_replicated(p.detach(), mesh).redistribute(mesh, pl).to_local()
+                d = DTensor.from_local(local.clone(), mesh, pl, run_check=False)
+                module.register_parameter(name, nn.Parameter(d, requires_grad=p.requires_grad))
+            for name, child in module.named_children():
+                place(child, sh[name])
+
+        place(self, shardings)
+        self.mesh = mesh
+        self._take_views()
+        return self
+
+    def _gather(self, tree):
+        """A weight tree as its compute uses it: on a mesh each weight with
+        its batch axes' (FSDP) shards gathered, as XLA gathers FSDP weights
+        before their products (the gradient comes back reduce-scattered);
+        with no mesh, the tree itself."""
+        if self.mesh is None:
+            return tree
+        return _map(tree, partition.gather_fsdp)
+
+    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
+        """``nn.Module.load_state_dict``; on a mesh each plain tensor is taken
+        as the full value and written into its weight's local shard."""
+        if self.mesh is None:
+            return super().load_state_dict(state_dict, strict=strict, assign=assign)
+        with partition.use_mesh(self.mesh, partition.rules_for(self.cfg)):
+            return super().load_state_dict(state_dict, strict=strict, assign=assign)
 
     # ================================================================ init
     def _stacks(self) -> List[Tuple[str, object, Tuple[int, ...]]]:
@@ -206,7 +319,7 @@ class Model(nn.Module):
             dst = params[path[0]]
             if len(path) == 2:
                 dst = _index(dst, path[1])
-            _map2(dst, part, lambda p, t: p.copy_(t))
+            _map2(dst, part, _write)
             del part
         return self
 
@@ -224,11 +337,11 @@ class Model(nn.Module):
         h = layers.embed(tokens, p["embed"])
         if self.cfg.family == "vlm":
             patches = torch.as_tensor(batch["patches"], device=self.device).to(h.dtype)
-            h = torch.cat([patches @ p["patch_proj"], h], dim=1)
+            h = torch.cat([patches @ self._gather(p["patch_proj"]), h], dim=1)
         if self.cfg.family == "encdec":
             pos = layers.sinusoidal_positions(h.shape[1], self.cfg.d_model, self.device)
             h = h + pos.to(h.dtype)[None]
-        return h
+        return partition.shard_act(h, "batch", "seq", None)
 
     # ============================================================= training
     def _records_grad(self) -> bool:
@@ -279,12 +392,12 @@ class Model(nn.Module):
         h = frames + pos.to(frames.dtype)[None]
         layer = self._remat(blocks.encoder_layer)
         for lp in self._per_layer("enc_layers"):
-            h = layer(lp, h, cfg, self.kernel_impl)
-        return layers.layernorm(h, self.params["enc_norm"], cfg.norm_eps)
+            h = layer(self._gather(lp), h, cfg, self.kernel_impl)
+        return layers.layernorm(h, self._gather(self.params["enc_norm"]), cfg.norm_eps)
 
     def _final_norm(self, h: torch.Tensor) -> torch.Tensor:
         norm = layers.layernorm if self.cfg.family == "encdec" else layers.rmsnorm
-        return norm(h, self.params["final_norm"], self.cfg.norm_eps)
+        return norm(h, self._gather(self.params["final_norm"]), self.cfg.norm_eps)
 
     def _decode_positions(self, cache_len: int) -> torch.Tensor:
         """The sinusoidal table of a cache of ``cache_len`` positions in the
@@ -313,22 +426,23 @@ class Model(nn.Module):
         ssm_layer = self._remat(functools.partial(blocks.ssm_layer, return_state=return_state,
                                                   impl=impl))
         if cfg.family == "hybrid":
+            shared = self._gather(self._shared)
             for group in self._per_layer():
-                h, _, (k, v) = decoder_layer(self._shared, h, cfg, positions, impl)
+                h, _, (k, v) = decoder_layer(shared, h, cfg, positions, impl)
                 states = []
                 for lp in group:
-                    h, state = ssm_layer(lp, h, cfg)
+                    h, state = ssm_layer(self._gather(lp), h, cfg)
                     states.append(state)
                 if return_state:
                     per_layer.append({"attn": {"k": k, "v": v}, "mamba": _stack(states)})
         elif cfg.family == "encdec":
             cross_decoder_layer = self._remat(blocks.cross_decoder_layer)
             for lp in self._per_layer():
-                h, ((k, v), (ck, cv)) = cross_decoder_layer(lp, h, enc, cfg, impl)
+                h, ((k, v), (ck, cv)) = cross_decoder_layer(self._gather(lp), h, enc, cfg, impl)
                 if return_state:
                     per_layer.append({"k": k, "v": v, "cross_k": ck, "cross_v": cv})
         else:
-            for lp in self._per_layer():
+            for lp in map(self._gather, self._per_layer()):
                 if cfg.family == "ssm":
                     h, state = ssm_layer(lp, h, cfg)
                 else:
@@ -354,11 +468,20 @@ class Model(nn.Module):
         h, aux, _ = self._layers(self._embed_inputs(batch), return_state=False,
                                  enc=self._encoder_output(batch))
         h = self._final_norm(h)
-        return h, torch.as_tensor(aux, dtype=torch.float32, device=self.device)
+        if partition.is_dtensor(aux):
+            return h, aux
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=self.device)
+        if partition.is_dtensor(h):
+            aux = as_replicated(aux, h.device_mesh)
+        return h, aux
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
-        p = self.params
-        return layers.logits_from(h, p.get("unembed"), p["embed"])
+        p = self._gather(self.params)
+        # on a mesh the product would keep a sequence split of h that DTensor
+        # may have chosen; the logits' constraint below wants the vocab split
+        h = partition.shard_act(h, "batch", "seq", None)
+        logits = layers.logits_from(h, p.get("unembed"), p["embed"])
+        return partition.shard_act(logits, "batch", "seq", "vocab")
 
     # ================================================================= loss
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -408,16 +531,18 @@ class Model(nn.Module):
             rows = self._decode_positions(cache["k"].shape[2]).index_select(
                 0, pos.reshape(-1).long())
             h = h + (rows[:, None] if pos.ndim == 1 else rows[None])
+        h = partition.shard_act(h, "batch", "seq", None)
         # each layer gets views of its slices of the stacked cache, updated in place
         if cfg.family == "hybrid":
+            shared = self._gather(self._shared)
             for g, group in enumerate(self._layer_params):
                 ac = _index(cache["attn"], g)
-                h, _ = blocks.decoder_layer_decode(self._shared, h, ac, pos, cfg,
-                                                   self.kernel_impl)
+                h, _ = blocks.decoder_layer_decode(shared, h, ac, pos, cfg, self.kernel_impl)
                 for j, lp in enumerate(group):
-                    h, _ = blocks.ssm_layer_decode(lp, h, _index(cache["mamba"], (g, j)), cfg)
+                    h, _ = blocks.ssm_layer_decode(self._gather(lp), h,
+                                                   _index(cache["mamba"], (g, j)), cfg)
         else:
-            for i, lp in enumerate(self._layer_params):
+            for i, lp in enumerate(map(self._gather, self._layer_params)):
                 lc = _index(cache, i)
                 if cfg.family == "ssm":
                     h, _ = blocks.ssm_layer_decode(lp, h, lc, cfg)
@@ -431,9 +556,10 @@ class Model(nn.Module):
 
     # ================================================================ cache
     def init_cache(self, batch: int, cache_len: int) -> dict:
-        """Zero decode cache stacked over layers (the JAX version also returns
-        logical sharding specs, which one device does not need). The ssm
-        state does not grow with the sequence: ``cache_len`` is not used."""
+        """Zero decode cache stacked over layers, on the model's device (the
+        JAX version also returns its logical specs: ``cache_specs``; on a mesh
+        ``training.steps.place_cache`` places it). The ssm state does not grow
+        with the sequence: ``cache_len`` is not used."""
         cfg = self.cfg
         if cfg.family == "hybrid":
             G, PG = self._hybrid_groups()
@@ -467,8 +593,21 @@ class Model(nn.Module):
         return {name: 1 for name in (("ckv", "krope") if self.cfg.mla is not None else ("k", "v"))}
 
 
-def _map(tree: dict, fn) -> dict:
-    return {k: _map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+def _map(tree, fn, is_leaf=None):
+    """``fn`` over a tree's leaves (a bare leaf is a tree; ``is_leaf``: a
+    type whose instances are leaves, for spec trees of tuples)."""
+    if not isinstance(tree, dict) or (is_leaf is not None and isinstance(tree, is_leaf)):
+        return fn(tree)
+    return {k: _map(v, fn, is_leaf) for k, v in tree.items()}
+
+
+def _write(p: torch.Tensor, t: torch.Tensor) -> None:
+    """Copy the full value ``t`` into weight ``p`` in place: into its local
+    shard when ``p`` is a DTensor."""
+    if partition.is_dtensor(p):
+        p.to_local().copy_(local_shard(t, p))
+    else:
+        p.copy_(t)
 
 
 def _map2(a, b, fn) -> None:

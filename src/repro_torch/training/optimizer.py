@@ -2,8 +2,10 @@
 schedule, and bf16 gradients ("compression"); an optional stochastic-rounding
 cast guards the master update.
 
-Port of ``repro.training.optimizer`` on one device (no state sharding). A
-tree is a nested dict of tensors, such as ``Model.params``; its leaves are
+Port of ``repro.training.optimizer``. On a mesh the weights are DTensors and
+the state follows them: the masters and moments take each weight's
+placements (``state_specs`` gives their logical names, as the reference's
+does). A tree is a nested dict of tensors, such as ``Model.params``; its leaves are
 taken in the reference's flatten order (dict keys sorted at every level).
 ``apply_updates`` updates the state's tensors in place, a PyTorch optimizer's
 way (the reference returns new buffers and donates the old ones to XLA), and
@@ -79,10 +81,16 @@ def init_state(params, cfg: Optional[OptimizerConfig] = None) -> Dict[str, Any]:
     device = tree_leaves(params)[0].device
     return {
         "master": tree_map(lambda p: p.detach().to(torch.float32, copy=True), params),
-        "mu": tree_map(lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device), params),
-        "nu": tree_map(lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device), params),
+        "mu": tree_map(lambda p: torch.zeros_like(p, dtype=mdt), params),
+        "nu": tree_map(lambda p: torch.zeros_like(p, dtype=mdt), params),
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
+
+
+def state_specs(param_specs) -> Dict[str, Any]:
+    """Optimizer-state logical specs mirror the params'."""
+    return {"master": tree_map(tuple, param_specs), "mu": tree_map(tuple, param_specs),
+            "nu": tree_map(tuple, param_specs), "step": ()}
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -27,7 +27,9 @@ mod = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(mod)  # defines main() without running it
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "repro", "msgpack"))
-print(len(names), "modules;", "leaked:", leaked)
+import torch.distributed as dist
+print(len(names), "modules;", "leaked:", leaked, "group:", dist.is_initialized())
+print("names:", ",".join(names))
 sys.exit(1 if leaked else 0)
 """
 
@@ -46,6 +48,12 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "leaked: []" in proc.stdout
+    # the mesh modules are among those imported, and importing them starts no
+    # process group (the mesh is a function of an initialized world)
+    assert "group: False" in proc.stdout
+    names = proc.stdout.split("names:", 1)[1].strip().split(",")
+    assert {"repro_torch.sharding.partition", "repro_torch.sharding.local",
+            "repro_torch.launch.mesh"} <= set(names)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -512,8 +512,11 @@ def test_microbatches_average_to_one_batch():
 
 
 def test_train_step_refuses_a_mesh():
+    """The train step on a mesh is tests/test_torch_mesh.py's; it refuses a
+    mesh other than the one the model's weights are distributed on."""
     model = Model(get_reduced("qwen2-0.5b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
+    model.mesh = object()
+    with pytest.raises(ValueError, match="another mesh"):
         build_train_step(model, opt.OptimizerConfig(), mesh=object())
 
 
