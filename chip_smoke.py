@@ -33,7 +33,16 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      decode attention at the shapes phase's lengths (B 128
                      over 32768 positions at qwen2's heads, B 1 over 524288 at
                      zamba2's) against its plain version on 8 rows, timed
-                     whole and by pass (split, combine).
+                     whole and by pass (split, combine); and
+                     ``decode_attention_partials`` (a sequence shard's max,
+                     sum and accumulator) at qwen2-0.5b's decode_32k row
+                     shape and minicpm3-4b's MLA decode, f32 and bf16: the
+                     cache cut into 2 and 4 shards, each shard at its offset,
+                     merged by log-sum-exp and held against the plain decode
+                     on the whole cache, with a row that ends in the first
+                     shard and a row of length 0 (-inf, 0, 0 where a shard
+                     holds none of a row); the partials over one of two
+                     shards timed beside the whole call.
 4. kernels-rmsnorm - hold the fused add + RMSNorm kernel against its plain
                      version at 1e-6 (f32) / 1e-2 (bf16) on the reference's sweep
                      and the slices' rows (d_model 896, 2560 and 2048, 512-token
@@ -60,6 +69,17 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      N = 64); time kernel and plain version there (no single
                      PyTorch call computes the scan, so there is no library time),
                      and each bf16 pass's device time (torch.profiler).
+5b. warming        - the worker's compiled-function path: the torch twins of
+                     benchmarks/bench_warming.py's three functions (tanh x 2
+                     of a 64x64, the sum of a 512x512 product, the port's
+                     reduced qwen1.5-0.5b's loss at tokens (2, 32) through
+                     the port's kernels) registered with
+                     ``torch_compile=True`` on a FunctionService endpoint:
+                     the cold task (the compile, in the warm pool) and the
+                     mean of 20 warm ones, Inductor's and Triton's caches in
+                     a fresh temporary directory; warm < cold, one cold
+                     start, each result equal to the eager call's, the LM's
+                     graph breaks (one a kernel launch) printed.
 6. slice           - full-width qwen2-0.5b, random weights from seed 0: prefill
                      4 x 384 tokens then 16 teacher-forced decode steps with vector
                      positions, kernel path against the plain path on the same
@@ -255,6 +275,15 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      by the functional collective DTensor issues; a call
                      that hangs (30 s) or crashes the ranks is named and
                      ends the probe.
+31b. mesh-decode   - decode over a cache split by sequence across two ranks
+                     on the one card (gloo, a (model = 2) mesh): at the
+                     partials' two shapes, bf16, each rank's
+                     ``decode_attention_partials`` over its half and the
+                     combine's two all-reduces (max, then the rescaled sums),
+                     through ``ops.decode_attention`` as a model's decode
+                     calls it, held to the plain decode on the whole cache;
+                     one partials launch a call and nothing else; the call
+                     timed on each rank.
 32. mesh-moe       - full-width qwen2-moe-a2.7b's experts split over two ranks
                      on the one card: the reference run (during the MoE
                      family's turn, before its model is freed) keeps each
@@ -287,7 +316,11 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      qwen3-moe-235b-a22b --shape train_4k --mesh 16,16
                      --calibrated`` in a subprocess under a fake group of 256:
                      the experts' placements, the per-device FLOPs and memory
-                     fit, the collectives' wire bytes and the roofline.
+                     fit, the collectives' wire bytes and the roofline; then
+                     the F14 cell, qwen2-0.5b ``decode_32k`` on 2 x 4 (its
+                     cache sequence-sharded): its wire bytes a device within
+                     twice the reference's 3.1070e8 and its bound not the
+                     collective term.
 
 The VLM phases run last of the families, after every other model is freed:
 internvl2-26b's 39.8 GB of bf16 weights leave about 38 GB for its engine and
@@ -298,9 +331,12 @@ Each serve, fabric, train and shapes run resets the launch counters just
 before it and reads them just after; a replay adds the calls its capture
 counted. The summary's ``launches`` of a kernel is its sum over the seven
 graphed serve runs, the fabric runs, the train phase's two trainer runs, the
-train-ssm and train-hybrid trainer runs, the shapes phase's timed runs and
-the mesh-moe and mesh-steps phases' runs on a mesh; the fabric phases
-together must have launched every kernel, and mesh-steps every kernel too.
+train-ssm and train-hybrid trainer runs, the shapes phase's timed runs, the
+warming phase's compiled LM loss and the mesh-decode, mesh-moe and
+mesh-steps phases' runs on a mesh; the fabric phases together must have
+launched every kernel of a single card's paths, mesh-steps those too, and
+mesh-decode ``decode_attention_partials`` (which only a cache split by
+sequence over ranks runs).
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.
@@ -360,16 +396,31 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SOURCES = {
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/kernels/flash_attention/csrc/decode_attention.cu",
+    "decode_attention_partials":
+        "src/repro_torch/kernels/flash_attention/csrc/decode_attention.cu",
     "fused_add_rmsnorm": "src/repro_torch/kernels/rmsnorm/csrc/fused_add_rmsnorm.cu",
     "ssd": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
 }
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:107",
     "decode_attention": "src/repro/kernels/flash_attention/kernel.py:173",
+    # the same TPU kernel, over one sequence shard of a mesh's cache
+    "decode_attention_partials": "src/repro/kernels/flash_attention/kernel.py:173",
     "fused_add_rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:30",
     "ssd": "src/repro/kernels/ssd/kernel.py:93",
 }
 KERNEL_MODULES = (attn_kernel, rms_kernel, ssd_kernel)
+# kernels that run only where a decode cache is split by sequence over more
+# than one rank (a mesh whose `model` axis the KV heads do not divide, or
+# MLA's latent cache): no single-card path and no 1-rank mesh launches them
+MESH_SEQ_KERNELS = ("decode_attention_partials",)
+# decode over a sequence-sharded cache (F14): qwen2-0.5b's decode_32k row shape
+# and minicpm3-4b's absorbed MLA decode at its served shape, each cut into 2
+# and 4 shards; the first is the summary's row (bf16, a shard of 2).
+# B, S, H, KV, dqk, dv
+PARTIALS_SHAPES = {"qwen2-0.5b decode_32k": (128, 32768, 14, 2, 64, 64),
+                   "minicpm3-4b MLA decode": (8, 1024, 40, 1, 288, 256)}
+PARTIALS_SHARDS = (2, 4)
 # slice shapes: prefill of one 512-token prompt; decode over B=8 slots of a
 # 1024-long cache (qwen2-0.5b: H=14 query heads over KV=2, hd=64)
 PREFILL_SHAPE = (1, 512, 14, 2, 64, 64)      # B, S, H, KV, dqk, dv
@@ -614,6 +665,164 @@ def phase_build() -> None:
                  "(one nvcc per source, in parallel)")
 
 
+# the warming phase: warm calls timed after the cold one, as
+# benchmarks/bench_warming.py times them
+WARM_CALLS = 20
+# the period of the thread that reads how long the cold compile held the GIL
+WARM_STALL_PERIOD_S = 0.005
+
+
+class _StallMeter:
+    """A thread that sleeps WARM_STALL_PERIOD_S at a time and keeps the
+    longest gap between two wake-ups: how long another thread (the worker's
+    compile) kept it from the GIL. The endpoint's heartbeat thread waits as
+    it does, and its liveness allows 2 beats of 0.25 s."""
+
+    def __enter__(self):
+        self.longest, self._stop = 0.0, threading.Event()
+
+        def run():
+            last = time.perf_counter()
+            while not self._stop.wait(WARM_STALL_PERIOD_S):
+                now = time.perf_counter()
+                self.longest, last = max(self.longest, now - last), now
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def _warming_functions() -> dict:
+    """The torch twins of ``benchmarks/bench_warming.py``'s three functions:
+    name -> (function, payload, rtol of its result against the eager call's).
+    A payload travels as CPU tensors; each function moves its input to the
+    card. The LM's loss is the port's reduced qwen1.5-0.5b in f32, random
+    weights from seed 0, through the port's kernels: Inductor fuses its
+    elementwise ops and sums in another order than the eager ops, so it is
+    held within 1e-5; the products of ones are exact; tanh is held within
+    one f32 ulp."""
+    from repro_torch.configs import get_reduced
+
+    cfg = get_reduced("qwen1.5-0.5b").with_(dtype="float32")
+    model = Model(cfg, device=DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
+
+    def small(doc):  # elementwise
+        return {"y": torch.tanh(doc["x"].to(DEVICE)) * 2}
+
+    def medium(doc):  # one product
+        x = doc["x"].to(DEVICE)
+        return {"y": (x @ x).sum()}
+
+    def lm_step(doc):  # a whole reduced-LM loss
+        return {"loss": model.loss({"tokens": doc["tokens"].to(DEVICE)})[0]}
+
+    return {"small_elementwise": (small, {"x": torch.ones((64, 64))}, 2 ** -23),
+            "medium_matmul": (medium, {"x": torch.ones((512, 512))}, 0.0),
+            "reduced_lm_loss": (lm_step, {"tokens": torch.ones((2, 32), dtype=torch.int32)},
+                                1e-5)}
+
+
+def phase_warming() -> dict:
+    """The worker's compiled-function path (``torch_compile=True``), the
+    reference's ``jax_jit=True`` (``benchmarks/bench_warming.py``): each of
+    ``_warming_functions`` registered on a fresh FunctionService (one
+    endpoint, one worker); the first task pays the compile in the warm pool
+    (Dynamo's trace, Inductor's and Triton's code generation: the paper's
+    container instantiation, Table 4), then WARM_CALLS warm tasks. Inductor's
+    and Triton's caches point at a fresh temporary directory, so no earlier
+    run's cache passes for a cold start; Inductor's compile workers are shut
+    down after the phase. The endpoint keeps its default liveness (2 beats
+    of 0.25 s): its heartbeat watchdog does not count a stall of the
+    process against the executor, and the longest time the cold task kept
+    another thread from the GIL is printed. Held: warm < cold, one cold start and
+    WARM_CALLS warm hits, no executor lost, each result equal to the eager
+    call's (within its function's rtol), and the LM's loss through the
+    port's kernels (the counters set to 0 before its first task and read
+    after its last; Dynamo breaks its graph around each ctypes launch, and
+    the breaks are printed)."""
+    import torch._dynamo
+    from torch._dynamo.utils import counters
+    from torch._inductor import async_compile
+
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(_launch_counts(), 0)
+    env = {k: os.environ.get(k) for k in ("TORCHINDUCTOR_CACHE_DIR", "TRITON_CACHE_DIR")}
+    with tempfile.TemporaryDirectory() as d:
+        os.environ["TORCHINDUCTOR_CACHE_DIR"] = str(Path(d) / "inductor")
+        os.environ["TRITON_CACHE_DIR"] = str(Path(d) / "triton")
+        try:
+            for name, (fn, payload, rtol) in _warming_functions().items():
+                torch._dynamo.reset()
+                counters.clear()
+                svc = FunctionService()
+                svc.make_endpoint("warm", n_executors=1, workers_per_executor=1)
+                fid = svc.register_function(fn, name=name, torch_compile=True)
+                try:
+                    _reset_launches()
+                    with _StallMeter() as stall:
+                        t1 = time.perf_counter()
+                        cold_out = svc.run(fid, payload).result(600)
+                        cold = time.perf_counter() - t1
+                    t1 = time.perf_counter()
+                    for _ in range(WARM_CALLS):
+                        warm_out = svc.run(fid, payload).result(60)
+                    warm = (time.perf_counter() - t1) / WARM_CALLS
+                    counts = _launch_counts()
+                    starts = (svc.metrics.counter("warming.cold_starts").value,
+                              svc.metrics.counter("warming.warm_hits").value)
+                    lost = svc.metrics.counter("endpoint.executors_lost").value
+                finally:
+                    svc.shutdown()
+                breaks = sum(counters["graph_break"].values())
+                graphs = counters["stats"]["unique_graphs"]
+                with torch.no_grad():
+                    eager = fn(payload)
+                errs = []
+                for out in (cold_out, warm_out):
+                    for key, want in eager.items():
+                        got, want = out[key].float(), want.float().cpu()
+                        errs.append(float(((got - want).abs() / want.abs()).max()))
+                say("warming", f"{name}: cold {cold * 1e3:.3f} ms (compile in the warm pool), "
+                               f"warm {warm * 1e3:.3f} ms (mean of {WARM_CALLS}), cold/warm "
+                               f"{cold / warm:.0f}x; {graphs} graph(s), {breaks} graph break(s); "
+                               f"cold starts / warm hits {starts}, executors lost {lost} "
+                               f"(the endpoint's default liveness; the cold task kept a "
+                               f"{WARM_STALL_PERIOD_S * 1e3:g} ms sleeper from the GIL for "
+                               f"{stall.longest * 1e3:.1f} ms at most); "
+                               f"result against the eager "
+                               f"call's: max relative difference {max(errs):.3e} (rtol {rtol:g}); "
+                               f"launches {counts}")
+                if not warm < cold:
+                    raise AssertionError(f"warming {name}: warm {warm} s is not below cold {cold} s")
+                if starts != (1, WARM_CALLS):
+                    raise AssertionError(f"warming {name}: cold starts / warm hits {starts}")
+                if lost:
+                    raise AssertionError(f"warming {name}: the endpoint lost {lost} executor(s)")
+                if max(errs) > rtol:
+                    raise AssertionError(f"warming {name}: the compiled result differs from the "
+                                         f"eager call's by {max(errs):.3e} (rtol {rtol:g})")
+                if name == "reduced_lm_loss":
+                    if not (counts["flash_attention"] and counts["fused_add_rmsnorm"]):
+                        raise AssertionError(f"warming {name}: launches {counts}: the compiled "
+                                             "loss did not run through the port's kernels")
+                    for k, n in counts.items():
+                        launches[k] += n
+        finally:
+            async_compile.shutdown_compile_workers()
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            torch._dynamo.reset()
+    say("warming", f"wall {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _prefill_case(gen, B, Sq, Skv, H, KV, hd, dtype, causal, dv=None, **kw):
     """hd is q's and k's head dim, dv v's (hd when None)."""
     q = randn(gen, (B, Sq, H, hd), dtype)
@@ -689,7 +898,88 @@ def phase_kernels() -> dict:
     _whisper_attn_rows(gen)
     _attn_slice_rows(gen, VLM_PREFILL_SHAPE, VLM_DECODE_SHAPE, pos_np, VLM_ARCH)
     _long_decode_rows(gen)
+    rows.update(_partials_rows(gen))
     return rows
+
+
+def _partials_positions(rng, B: int, S: int) -> torch.Tensor:
+    """Per-row positions for the sequence-shard checks: a row that ends in the
+    first of 4 shards (the later shards hold none of it), a row of length 0,
+    a full row, a row that ends on the first position of the second half,
+    the rest at random."""
+    pos = rng.integers(0, S, B).astype(np.int64)
+    pos[:4] = (S // 4 - 7, -1, S - 1, S // 2)
+    return torch.from_numpy(pos).to(DEVICE)
+
+
+def _partials_rows(gen) -> dict:
+    """``decode_attention_partials`` at PARTIALS_SHAPES, f32 and bf16: the
+    cache cut into 2 and 4 shards, the kernel on each shard at its offset,
+    the shards merged by log-sum-exp (``ref.combine_partials``, as the mesh's
+    two all-reduces merge them) and held against the plain decode on the
+    whole cache; each later shard of the rows that end in the first, and
+    every shard of the row of length 0, must give m = -inf, l = 0, acc = 0.
+    Then at the summary's shape, bf16, every row full: the partials over the
+    first of two shards against the whole ``decode_attention`` call, the
+    plain partials, and the shard's byte bound (its K and V, q, the fp32
+    outputs). No PyTorch call returns a shard's (max, sum, accumulator), so
+    there is no library time."""
+    rng = np.random.default_rng(5)
+    row = None
+    for name, (B, S, H, KV, dqk, dv) in PARTIALS_SHAPES.items():
+        scale = MLA_SCALE if dqk == MLA_DECODE_SHAPE[4] else None
+        pos = _partials_positions(rng, B, S)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn(gen, (B, 1, H, dqk), dtype)
+            k, v = randn(gen, (B, S, KV, dqk), dtype), randn(gen, (B, S, KV, dv), dtype)
+            want = attn_ref.decode_attention_reference(q, k, v, pos, scale=scale)
+            errs = []
+            for shards in PARTIALS_SHARDS:
+                L = S // shards
+                parts = [attn_kernel.decode_attention_partials(
+                    q, k[:, i * L:(i + 1) * L], v[:, i * L:(i + 1) * L], pos, pos_offset=i * L,
+                    scale=scale) for i in range(shards)]
+                torch.cuda.synchronize()
+                for i, (m, l, acc) in enumerate(parts):
+                    empty = [1] + ([0] if i else [])      # rows with no position in shard i
+                    if not (torch.isneginf(m[empty]).all() and (l[empty] == 0).all()
+                            and (acc[empty] == 0).all()):
+                        raise AssertionError(f"partials {name} {dtype} shard {i} of {shards}: "
+                                             "a row with no valid position here is not "
+                                             "(-inf, 0, 0)")
+                errs.append(max_err(attn_ref.combine_partials(parts, dtype), want, TOL[dtype],
+                                    f"partials {name} {shards} shards {dtype}"))
+            say("kernels", f"decode_attention_partials at {name} (B {B}, S {S}, {H}/{KV} heads, "
+                           f"dqk {dqk}, dv {dv}) {dtype}: merged over "
+                           f"{' and '.join(map(str, PARTIALS_SHARDS))} shards, max_abs_err "
+                           f"{max(errs):.3e} against the whole cache (tol {TOL[dtype]:g}); rows "
+                           f"ending in the first shard and of length 0 give (-inf, 0, 0) "
+                           "where they hold no position")
+            del q, k, v, want
+            torch.cuda.empty_cache()
+            if row is None and dtype == torch.bfloat16:
+                row = {"max_abs_err": max(errs)}
+    B, S, H, KV, dqk, dv = next(iter(PARTIALS_SHAPES.values()))
+    L = S // 2
+    q = randn(gen, (B, 1, H, dqk), torch.bfloat16)
+    k, v = randn(gen, (B, S, KV, dqk), torch.bfloat16), randn(gen, (B, S, KV, dv), torch.bfloat16)
+    full = torch.tensor(S - 1, device=DEVICE)
+    ks, vs = k[:, :L], v[:, :L]
+    ms = cuda_ms(lambda: attn_kernel.decode_attention_partials(q, ks, vs, full))
+    whole_ms = cuda_ms(lambda: attn_kernel.decode_attention(q, k, v, full))
+    plain_ms = cuda_ms(lambda: attn_ref.decode_attention_partials_reference(q, ks, vs, full),
+                       reps=5)
+    b = bound(2 * B * L * KV * dqk * 2 + q.numel() * 2 + B * H * (dv + 2) * 4,
+              2 * B * H * L * (dqk + dv), torch.bfloat16)
+    say("kernels", f"decode_attention_partials over one of 2 shards of "
+                   f"{next(iter(PARTIALS_SHAPES))} (B {B}, {L} of {S} positions, bf16): "
+                   f"{ms:.4f} ms against its bound {b[0]:.5f} ms by {b[1]} (the shard's K and "
+                   f"V); the whole cache's decode_attention {whole_ms:.4f} ms; plain partials "
+                   f"{plain_ms:.4f} ms; library: none")
+    del q, k, v, ks, vs
+    torch.cuda.empty_cache()
+    return {"decode_attention_partials": dict(row, ms=ms, plain_ms=plain_ms, bound=b,
+                                              library_ms=None)}
 
 
 def _long_decode_rows(gen) -> None:
@@ -1723,8 +2013,14 @@ def _fabric_service(model: Model, name: str, n_endpoints: int, journal_dir: str,
     # each endpoint builds its host (for a batched host, the graph capture)
     # with its first task: one short session per endpoint, outside the timing
     for ep in eps:
-        with client.session(np.arange(8) % model.cfg.vocab, endpoint_id=ep.endpoint_id) as s:
-            list(s.stream(3))
+        try:
+            with client.session(np.arange(8) % model.cfg.vocab,
+                                endpoint_id=ep.endpoint_id) as s:
+                list(s.stream(3))
+        except Exception:
+            say("fabric", f"{name}: the warm-up session on {ep.name} failed; the service's "
+                          f"counters {_counters(svc)}")
+            raise
     return svc, eps, client
 
 
@@ -2231,9 +2527,10 @@ def _train_counts(cfg) -> dict:
     scan = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     if cfg.family == "encdec":   # encoder self, decoder self + cross; LayerNorms
         return {"flash_attention": 2 * (cfg.n_enc_layers + 2 * cfg.n_layers),
-                "fused_add_rmsnorm": 0, "decode_attention": 0, "ssd": 0}
+                "fused_add_rmsnorm": 0, "decode_attention": 0, "ssd": 0,
+                "decode_attention_partials": 0}
     return {"flash_attention": 2 * attn, "fused_add_rmsnorm": 2 * attn,
-            "decode_attention": 0, "ssd": 2 * scan}
+            "decode_attention": 0, "ssd": 2 * scan, "decode_attention_partials": 0}
 
 
 def _plain_backward_ms(model: Model, batch: int = TRAIN_BATCH) -> dict:
@@ -2482,7 +2779,8 @@ def _train_resume(tag: str, model: Model) -> dict:
             raise AssertionError(f"{tag}: resume |dloss| {diff:.3e}, first 5 {early}, last 5 "
                                  f"{late}, or a non-finite loss")
         need = {"flash_attention": 2 * model.cfg.n_layers, "fused_add_rmsnorm":
-                2 * model.cfg.n_layers, "decode_attention": 0, "ssd": 0}
+                2 * model.cfg.n_layers, "decode_attention": 0, "ssd": 0,
+                "decode_attention_partials": 0}
         ran = len(first) + len(second)
         if launches != {k: n * ran for k, n in need.items()}:
             raise AssertionError(f"{tag}: {ran} trainer steps launched {launches}")
@@ -2692,7 +2990,7 @@ def _decode_counts(cfg) -> dict:
     once a dense layer or hybrid group; none for the ssm family."""
     attn = _attention_layers(cfg)
     return {"flash_attention": 0, "decode_attention": attn, "fused_add_rmsnorm": attn,
-            "ssd": 0}
+            "ssd": 0, "decode_attention_partials": 0}
 
 
 def _report_cell(arch: str, rec: dict, B: int, ms: float, peak: float, checks: str) -> None:
@@ -3052,6 +3350,113 @@ def phase_mesh_probe() -> dict:
         say("mesh-probe", f"gloo on CUDA tensors: {key}: {status[key]}")
     say("mesh-probe", f"wall {time.perf_counter() - t0:.1f} s")
     return status
+
+
+MESH_DECODE_WORLD, MESH_DECODE_REPS = 2, 10
+# rows of the plain decode at a time in mesh-decode: the plain attention
+# expands the KV heads to the query heads, 15 GB a tensor at decode_32k in
+# f32 for all 128 rows, on each of the two ranks sharing the card
+MESH_DECODE_REF_ROWS = 16
+
+
+def _seqshard_rank(rank: int) -> dict:
+    """One rank of mesh-decode: at each of PARTIALS_SHAPES, f32 then bf16,
+    the same seeded q, cache and per-row positions on every rank; this rank
+    keeps its half of the cache's sequence as a DTensor ``Shard(1)`` over a
+    (model = 2) mesh, q replicated, and calls ``ops.decode_attention``, the
+    main path's decode over a sequence-sharded cache: the partials kernel
+    over its own positions, then gloo's all-reduces of the max and of the
+    rescaled sums. The counters are set to 0 just before the call and read
+    just after; the output, replicated, is held against the plain decode on
+    the whole cache (MESH_DECODE_REF_ROWS rows at a time) at the dtype's
+    tolerance, so the f32 call holds the cross-rank rescale and sums at 2e-5.
+    Then the bf16 call timed (CUDA events on this rank, and the host's
+    clock)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.launch.mesh import make_mesh
+
+    world = dist.get_world_size()
+    mesh = make_mesh((world,), ("model",), DEVICE)
+    rng = np.random.default_rng(5)
+    rows, launches = {}, dict.fromkeys(_launch_counts(), 0)
+    for name, (B, S, H, KV, dqk, dv) in PARTIALS_SHAPES.items():
+        scale = MLA_SCALE if dqk == MLA_DECODE_SHAPE[4] else None
+        pos = _partials_positions(rng, B, S)
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=DEVICE).manual_seed(7)
+            q = randn(gen, (B, 1, H, dqk), dtype)
+            k, v = (randn(gen, (B, S, KV, d), dtype) for d in (dqk, dv))
+            L = S // world
+            kd, vd = (DTensor.from_local(t[:, rank * L:(rank + 1) * L].contiguous(), mesh,
+                                         [Shard(1)], run_check=False) for t in (k, v))
+            qd = DTensor.from_local(q, mesh, [Replicate()], run_check=False)
+            with torch.no_grad():
+                _reset_launches()
+                o = attn_ops.decode_attention(qd, kd, vd, pos, scale=scale)
+                torch.cuda.synchronize()
+                counts = _launch_counts()
+            what = f"mesh-decode rank {rank} {name} {dtype}"
+            if counts["decode_attention_partials"] != 1 or sum(counts.values()) != 1:
+                raise AssertionError(f"{what}: launches {counts}, want one "
+                                     "decode_attention_partials and nothing else")
+            if tuple(o.placements) != (Replicate(),):
+                raise AssertionError(f"{what}: output placed {o.placements}")
+            for kk, n in counts.items():
+                launches[kk] += n
+            want = torch.cat([attn_ref.decode_attention_reference(
+                q[r:r + MESH_DECODE_REF_ROWS], k[r:r + MESH_DECODE_REF_ROWS],
+                v[r:r + MESH_DECODE_REF_ROWS], pos[r:r + MESH_DECODE_REF_ROWS], scale=scale)
+                for r in range(0, B, MESH_DECODE_REF_ROWS)])
+            row = rows[(name, str(dtype))] = {
+                "err": max_err(o.to_local(), want, TOL[dtype], what), "tol": TOL[dtype],
+                "partial_bytes": B * H * (dv + 1) * 4}
+            if dtype == torch.bfloat16:
+                ev, wall = [], []
+                with torch.no_grad():
+                    for _ in range(MESH_DECODE_REPS):
+                        torch.cuda.synchronize()
+                        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                        t0 = time.perf_counter()
+                        start.record()
+                        attn_ops.decode_attention(qd, kd, vd, pos, scale=scale)
+                        end.record()
+                        end.synchronize()
+                        wall.append((time.perf_counter() - t0) * 1e3)
+                        ev.append(start.elapsed_time(end))
+                row.update(ms=float(np.median(ev)), wall_ms=float(np.median(wall)))
+            del q, k, v, kd, vd, qd, o, want
+            torch.cuda.empty_cache()
+    return {"rows": rows, "launches": launches}
+
+
+def phase_mesh_decode() -> dict:
+    """(a2) Decode over a cache split by sequence across two ranks on the one
+    card (gloo, a (model = 2) mesh): at qwen2-0.5b's decode_32k row shape and
+    minicpm3-4b's MLA decode shape, f32 and bf16, each rank's partials
+    kernel over its half and the cross-rank combine's two all-reduces, held
+    to the plain decode on the whole cache at 2e-5 (f32) and 2e-2 (bf16),
+    with a row that ends in the first shard and a row of length 0. Returns
+    the launches of the main-path calls."""
+    t0 = time.perf_counter()
+    results = _spawn_ranks(MESH_DECODE_WORLD, _seqshard_rank)
+    launches = dict.fromkeys(_launch_counts(), 0)
+    for rank, res in sorted(results.items()):
+        for k, n in res["launches"].items():
+            launches[k] += n
+        for (name, dtype), r in res["rows"].items():
+            timed = (f"; the call (partials + two gloo all-reduces of {r['partial_bytes']} B "
+                     f"at most) {r['ms']:.4f} ms by CUDA events, {r['wall_ms']:.3f} ms host "
+                     f"wall (median of {MESH_DECODE_REPS})" if "ms" in r else "")
+            say("mesh-decode", f"rank {rank}, {name} {dtype}: max_abs_err {r['err']:.3e} "
+                               f"against the whole cache (tol {r['tol']:g}){timed}")
+    want = MESH_DECODE_WORLD * len(PARTIALS_SHAPES) * 2
+    if launches["decode_attention_partials"] != want:
+        raise AssertionError(f"mesh-decode: launches {launches}, want {want} partials")
+    say("mesh-decode", f"launches {launches}; wall {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def _mesh_moe_reference(model: Model, directory: str) -> str:
@@ -3437,7 +3842,7 @@ def phase_mesh_steps(probe: dict) -> dict:
                 launches[k] += n
         finally:
             dist.destroy_process_group()
-    if not all(launches.values()):
+    if not all(n for k, n in launches.items() if k not in MESH_SEQ_KERNELS):
         raise AssertionError(f"mesh-steps: launches {launches}: a kernel of the port did not "
                              "run through the sharded builders")
     _mesh_two_rank(probe)
@@ -3445,25 +3850,53 @@ def phase_mesh_steps(probe: dict) -> dict:
     return launches
 
 
+def _dryrun_cells(cells) -> list:
+    """``python -m repro_torch.launch.dryrun --calibrated`` of each (arch, shape,
+    mesh) cell, each in a subprocess of its own, all started together: per
+    cell (its progress line, its key, its record)."""
+    with tempfile.TemporaryDirectory() as d:
+        runs = []
+        for i, (arch, shape, mesh) in enumerate(cells):
+            results = Path(d) / f"dryrun{i}.json"
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                 shape, "--mesh", mesh, "--calibrated", "--results", str(results)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+                env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+            runs.append((arch, shape, results, proc))
+        out = []
+        for arch, shape, results, proc in runs:
+            try:
+                stdout, stderr = proc.communicate(timeout=900)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+            if proc.returncode != 0:
+                raise AssertionError(f"mesh-dryrun {arch} {shape} failed:\n{stdout[-2000:]}\n"
+                                     f"{stderr[-3000:]}")
+            (key, rec), = json.loads(results.read_text()).items()
+            out.append((stdout.strip().splitlines()[-1], key, rec))
+    return out
+
+
+# the F14 cell's wire bytes a device: at most twice the reference's (3.1070e8,
+# ``python -m repro.launch.dryrun --arch qwen2-0.5b --shape decode_32k --mesh 2,4``)
+F14_WIRE_BOUND = 2 * 3.1070e8
+
+
 def phase_mesh_dryrun() -> None:
     """(d) The production-mesh dry run of qwen3-moe-235b-a22b ``train_4k`` on
     16 x 16 under a fake group of 256 (``launch/dryrun.py`` in a subprocess):
     the experts' placements, the per-device FLOPs and memory fit, the
-    collectives' wire bytes."""
+    collectives' wire bytes. Beside it the F14 cell, qwen2-0.5b ``decode_32k``
+    on 2 x 4, whose cache is sequence-sharded: its wire bytes a device within
+    F14_WIRE_BOUND, its bound not the collective term, no all-gather of its
+    cache."""
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as d:
-        results = Path(d) / "dryrun.json"
-        out = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen3-moe-235b-a22b",
-             "--shape", "train_4k", "--mesh", "16,16", "--calibrated", "--results",
-             str(results)],
-            capture_output=True, text=True, timeout=900, cwd=ROOT,
-            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-        if out.returncode != 0:
-            raise AssertionError(f"mesh-dryrun failed:\n{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
-        (key, rec), = json.loads(results.read_text()).items()
+    (line, key, rec), f14 = _dryrun_cells([("qwen3-moe-235b-a22b", "train_4k", "16,16"),
+                                           ("qwen2-0.5b", "decode_32k", "2,4")])
     a = rec["analysis"]
-    say("mesh-dryrun", out.stdout.strip().splitlines()[-1])
+    say("mesh-dryrun", line)
     experts = {k: v for k, v in rec["shardings"].items() if "/ffn/" in k}
     say("mesh-dryrun", f"{key}: mesh {rec['mesh']['axes']}; the experts' placements "
                        f"{json.dumps(experts)}")
@@ -3478,7 +3911,22 @@ def phase_mesh_dryrun() -> None:
     r = a["roofline"]
     say("mesh-dryrun", f"roofline: compute {r['compute_s']:.4f} s, memory {r['memory_s']:.4f} s, "
                        f"collective {r['collective_s']:.4f} s -> {r['bottleneck']}; useful FLOPs "
-                       f"{r['useful_flops_ratio']:.3f}; wall {time.perf_counter() - t0:.1f} s")
+                       f"{r['useful_flops_ratio']:.3f}")
+    line, key, rec = f14
+    a, r = rec["analysis"], rec["analysis"]["roofline"]
+    say("mesh-dryrun", line)
+    cal = a["calibrated"]
+    layer = {op: cal["collectives_delta"]["result_bytes"].get(op, 0)
+             - cal["collectives_base"]["result_bytes"].get(op, 0)
+             for op in cal["collectives_delta"]["result_bytes"]}
+    wire = a["cost"]["wire_bytes_per_device"]
+    say("mesh-dryrun", f"{key} (F14): {wire:.6e} wire bytes a device (bound {F14_WIRE_BOUND:.4e}); "
+                       f"one layer's result bytes by collective {json.dumps(layer)}; {r['bottleneck']}"
+                       f"-bound (compute {r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s, "
+                       f"collective {r['collective_s']:.4g} s); wall {time.perf_counter() - t0:.1f} s")
+    if wire > F14_WIRE_BOUND or r["bottleneck"] == "collective":
+        raise AssertionError(f"mesh-dryrun: the F14 cell reads {wire:.4e} wire bytes a device, "
+                             f"bound by {r['bottleneck']}: the sequence-sharded cache is gathered")
 
 
 def main() -> int:
@@ -3488,7 +3936,9 @@ def main() -> int:
     rows.update(phase_kernels_rmsnorm())
     rows.update(phase_kernels_ssd())
     launches = dict.fromkeys(rows, 0)
-    fabric_launches = dict.fromkeys(rows, 0)
+    fabric_launches = {k: 0 for k in rows if k not in MESH_SEQ_KERNELS}
+    for k, n in phase_warming().items():
+        launches[k] += n
     mesh_dir = tempfile.TemporaryDirectory()    # the mesh-moe phase's reference run
     for arch, tag, tol in ((ARCH, "", SLICE_BF16_TOL), (SSM_ARCH, "-ssm", SLICE_SSM_BF16_TOL),
                            (HYBRID_ARCH, "-hybrid", SLICE_HYBRID_BF16_TOL),
@@ -3528,7 +3978,7 @@ def main() -> int:
         for i, counts in enumerate(phase_launches):
             for k, n in counts.items():
                 launches[k] += n
-                if i:
+                if i and k in fabric_launches:
                     fabric_launches[k] += n
         del model                               # free the weights before the next family
         torch.cuda.empty_cache()
@@ -3543,12 +3993,16 @@ def main() -> int:
     say("fabric", f"the port's kernels in the fabric phases: {fabric_launches}")
     # the mesh phases, on a card the phases above have freed
     probe = phase_mesh_probe()
+    for k, n in phase_mesh_decode().items():
+        launches[k] += n
     for k, n in phase_mesh_moe(moe_reference).items():
         launches[k] += n
     mesh_dir.cleanup()
     for k, n in phase_mesh_steps(probe).items():
         launches[k] += n
     phase_mesh_dryrun()
+    if not all(launches.values()):
+        raise AssertionError(f"launches {launches}: a kernel of the port ran on no main path")
     kernels = []
     for kname, r in rows.items():
         kernels.append({

@@ -12,8 +12,14 @@ mode on and an input that requires grad) launches its kernel through
 (flash attention, the add + norm, the SSD scan), or raises where the kernel
 is on no training path (decode attention). It never returns an output
 without a ``grad_fn`` there.
+
+Compiled code: each kernel's launch on CUDA tensors (its pointer checks, the
+ctypes call, the launch counter) is a ``launcher``, which ``torch.compile``
+calls as it is, between the graphs it compiles around it.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -33,6 +39,28 @@ def on_host(t) -> bool:
     """Whether a kernel wrapper computes its plain version for tensor ``t``:
     it lies on the CPU, or on the meta device (shapes only, no launch)."""
     return t.device.type in ("cpu", "meta")
+
+
+def launcher(fn):
+    """``fn``, a kernel's launch on CUDA tensors, run as it is under
+    ``torch.compile``: Dynamo breaks the graph around the call and does not
+    trace into it. Traced, its pointer arithmetic on fake tensors would make
+    Dynamo drop the whole calling frame to eager, and its launch counter (an
+    int it would guard on) would recompile the code after it at every call.
+
+    An eager call (``torch.compiler.is_compiling()`` false) calls ``fn``
+    itself, with no eval-frame switch. Under a trace the call goes through
+    ``torch._disable_dynamo(fn)``, which Dynamo skips, and which imports
+    ``torch._dynamo`` only when first called: importing the kernels does not."""
+    traced = torch._disable_dynamo(fn)
+
+    @functools.wraps(fn)
+    def launch(*args, **kwargs):
+        if torch.compiler.is_compiling():
+            return traced(*args, **kwargs)
+        return fn(*args, **kwargs)
+
+    return launch
 
 
 def records_grad(*tensors) -> bool:

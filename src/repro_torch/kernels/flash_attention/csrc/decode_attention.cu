@@ -36,7 +36,18 @@
 //   partials of its row by log-sum-exp and writes the output in the input's
 //   dtype. Splits past the length are never read, so the scratch needs no
 //   initialisation.
-// A row of length 0 gives zeros. Any G, any dqk that is a multiple of 8 up to
+// A row of length 0 gives zeros.
+//
+// A second entry point, decode_attention_partials_launch, serves a cache whose
+// sequence is sharded over ranks (a mesh): the caller's shard holds global
+// positions pos_offset .. pos_offset + S - 1, and a row attends to those <= pos.
+// Pass 1 is the same; pass 2 writes the shard's max m, sum l and unnormalised
+// fp32 accumulator acc[dv] per (row, head) instead of acc / l, for the caller's
+// cross-rank log-sum-exp combine. A row with no valid position in the shard
+// (pos < pos_offset, or length 0) writes m = -inf, l = 0 and acc = 0, and reads
+// no scratch: its splits are never live.
+//
+// Any G, any dqk that is a multiple of 8 up to
 // 288 and any dv that is a multiple of 8 up to 256 take the same code: q and k
 // are dqk wide, v and o dv wide (MLA's absorbed decode attends with the latent
 // and rope parts, 256 + 32, and reads back the latent alone, 256).
@@ -105,20 +116,22 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The row's valid length, pos + 1, from the caller's positions: an int32 or
-// int64 tensor read at b * stride (stride 0: one position for every row).
+// The row's valid length in this cache (or shard), pos + 1 - offset clamped
+// to 0 .. S, from the caller's positions: an int32 or int64 tensor read at
+// b * stride (stride 0: one position for every row). offset is the global
+// position of the cache's first row (0 but for a sequence shard).
 __device__ __forceinline__ int row_length(const void* pos, int pos_i64, int64_t stride, int b,
-                                          int S) {
+                                          int S, int64_t offset) {
   const int64_t p = pos_i64 ? static_cast<const int64_t*>(pos)[b * stride]
                             : static_cast<const int*>(pos)[b * stride];
-  return static_cast<int>(min(max(p + 1, int64_t(0)), int64_t(S)));
+  return static_cast<int>(min(max(p + 1 - offset, int64_t(0)), int64_t(S)));
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                     const T* __restrict__ vc, const void* __restrict__ pos, int pos_i64,
-                    int64_t pos_stride,
+                    int64_t pos_stride, int64_t pos_offset,
                     float* __restrict__ part_o,   // (B, n_split, H, dv)
                     float* __restrict__ part_ml,  // (B, n_split, H, 2): max, sum
                     int S, int H, int KV, int dqk, int dv, int one_buffer, int n_split,
@@ -127,7 +140,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                     int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale) {
   constexpr int V = kVec<T>;
   const int split = blockIdx.x % n_split, kvh = blockIdx.x / n_split, b = blockIdx.y;
-  const int L = row_length(pos, pos_i64, pos_stride, b, S);
+  const int L = row_length(pos, pos_i64, pos_stride, b, S, pos_offset);
   const int s0 = split * kSplit;
   if (s0 >= L) return;  // past the row's length: pass 2 never reads this split
   const int nk = min(kSplit, L - s0);
@@ -278,14 +291,20 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
+// Merges a row's live splits for one head. With o set it writes acc / l in
+// the input's dtype (zeros at length 0); otherwise (a sequence shard's
+// partials) the merged max, sum and unnormalised accumulator, fp32, with
+// m = -inf, l = 0, acc = 0 where the row has no live split.
 template <typename T>
 __global__ void decode_combine_kernel(const float* __restrict__ part_o,
                                       const float* __restrict__ part_ml,
                                       const void* __restrict__ pos, int pos_i64,
-                                      int64_t pos_stride, T* __restrict__ o, int S, int H,
-                                      int dv, int n_split) {
+                                      int64_t pos_stride, int64_t pos_offset, T* __restrict__ o,
+                                      float* __restrict__ m_out, float* __restrict__ l_out,
+                                      float* __restrict__ acc_out, int S, int H, int dv,
+                                      int n_split) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const int L = row_length(pos, pos_i64, pos_stride, b, S);
+  const int L = row_length(pos, pos_i64, pos_stride, b, S, pos_offset);
   const int live = (L + kSplit - 1) / kSplit;
   const float* ml = part_ml + (int64_t(b) * n_split * H + h) * 2;  // split i at + i * H * 2
   const float* po = part_o + (int64_t(b) * n_split * H + h) * dv;  // split i at + i * H * dv
@@ -297,14 +316,31 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_o,
     den = fmaf(w, ml[int64_t(i) * H * 2 + 1], den);
     if (d < dv) num = fmaf(w, po[int64_t(i) * H * dv + d], num);
   }
-  if (d < dv)
-    o[(int64_t(b) * H + h) * dv + d] = from_f32<T>(den > 0.f ? num / den : 0.f);  // len 0: zeros
+  const int64_t row = int64_t(b) * H + h;
+  if (o == nullptr) {
+    if (d < dv) acc_out[row * dv + d] = num;
+    if (d == 0) {
+      m_out[row] = live > 0 ? M : __int_as_float(0xff800000);  // -inf
+      l_out[row] = den;
+    }
+  } else if (d < dv) {
+    o[row * dv + d] = from_f32<T>(den > 0.f ? num / den : 0.f);  // len 0: zeros
+  }
 }
 
+// Where the combine writes: the output o (B, H, dv) in the input's dtype, or,
+// with o null, a sequence shard's partials m, l (B, H) and acc (B, H, dv).
+struct Outputs {
+  void* o;
+  float* m;
+  float* l;
+  float* acc;
+};
+
 template <typename T>
-cudaError_t launch(const void* q, const void* kc, const void* vc, void* o, const void* pos,
-                   int pos_i64, int64_t pos_stride, float* scratch, int B, int S, int H,
-                   int KV, int dqk, int dv, const int64_t* qs, const int64_t* ks,
+cudaError_t launch(const void* q, const void* kc, const void* vc, Outputs out, const void* pos,
+                   int pos_i64, int64_t pos_stride, int64_t pos_offset, float* scratch, int B,
+                   int S, int H, int KV, int dqk, int dv, const int64_t* qs, const int64_t* ks,
                    const int64_t* vs, float scale, cudaStream_t stream) {
   static size_t granted = 48 * 1024;
   static int optin = 0;  // the card's shared memory a block may opt in to
@@ -327,14 +363,36 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, void* o, const
   if (n_split > 0) {  // an empty cache has no split: pass 2 alone writes zeros
     decode_split_kernel<T><<<dim3(n_split * KV, B), kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), pos,
-        pos_i64, pos_stride, part_o, part_ml, S, H, KV, dqk, dv, one_buffer, n_split, qs[0],
-        qs[1], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale);
+        pos_i64, pos_stride, pos_offset, part_o, part_ml, S, H, KV, dqk, dv, one_buffer,
+        n_split, qs[0], qs[1], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   decode_combine_kernel<T><<<dim3(H, B), (dv + 31) / 32 * 32, 0, stream>>>(
-      part_o, part_ml, pos, pos_i64, pos_stride, static_cast<T*>(o), S, H, dv, n_split);
+      part_o, part_ml, pos, pos_i64, pos_stride, pos_offset, static_cast<T*>(out.o), out.m,
+      out.l, out.acc, S, H, dv, n_split);
   return cudaGetLastError();
+}
+
+// Checks the head dims and launches the dtype's instantiation.
+int launch_dtype(const void* q, const void* k_cache, const void* v_cache, Outputs out,
+                 const void* pos, int pos_i64, int64_t pos_stride, int64_t pos_offset,
+                 void* scratch, int dtype, int B, int S, int H, int KV, int dqk, int dv,
+                 const int64_t* q_strides, const int64_t* k_strides, const int64_t* v_strides,
+                 float scale, void* stream) {
+  if (dqk <= 0 || dqk > kMaxDqk || dqk % 8 != 0 || dv <= 0 || dv > kMaxDv || dv % 8 != 0 ||
+      KV <= 0 || H % KV != 0)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(scratch);
+  if (dtype == kFloat32)
+    return launch<float>(q, k_cache, v_cache, out, pos, pos_i64, pos_stride, pos_offset, part,
+                         B, S, H, KV, dqk, dv, q_strides, k_strides, v_strides, scale, s);
+  if (dtype == kBFloat16)
+    return launch<__nv_bfloat16>(q, k_cache, v_cache, out, pos, pos_i64, pos_stride,
+                                 pos_offset, part, B, S, H, KV, dqk, dv, q_strides, k_strides,
+                                 v_strides, scale, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -357,17 +415,22 @@ extern "C" int decode_attention_launch(const void* q, const void* k_cache,
                                        int dv, const int64_t* q_strides,
                                        const int64_t* k_strides, const int64_t* v_strides,
                                        float scale, void* stream) {
-  using namespace repro_torch;
-  if (dqk <= 0 || dqk > kMaxDqk || dqk % 8 != 0 || dv <= 0 || dv > kMaxDv || dv % 8 != 0 ||
-      KV <= 0 || H % KV != 0)
-    return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(scratch);
-  if (dtype == kFloat32)
-    return launch<float>(q, k_cache, v_cache, o, pos, pos_i64, pos_stride, part, B, S, H, KV,
-                         dqk, dv, q_strides, k_strides, v_strides, scale, s);
-  if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(q, k_cache, v_cache, o, pos, pos_i64, pos_stride, part, B, S,
-                                 H, KV, dqk, dv, q_strides, k_strides, v_strides, scale, s);
-  return cudaErrorInvalidValue;
+  return repro_torch::launch_dtype(q, k_cache, v_cache, {o, nullptr, nullptr, nullptr}, pos,
+                                   pos_i64, pos_stride, 0, scratch, dtype, B, S, H, KV, dqk,
+                                   dv, q_strides, k_strides, v_strides, scale, stream);
+}
+
+// The same passes over one sequence shard of a cache, whose entry s holds
+// global position pos_offset + s: row b attends to the entries with
+// pos_offset + s <= pos[b]. Writes m and l (B, H) and acc (B, H, dv), fp32
+// and contiguous, for a combine across shards (m = -inf, l = 0, acc = 0 for a
+// row with no valid entry here).
+extern "C" int decode_attention_partials_launch(
+    const void* q, const void* k_cache, const void* v_cache, float* m, float* l, float* acc,
+    const void* pos, int pos_i64, int64_t pos_stride, int64_t pos_offset, void* scratch,
+    int dtype, int B, int S, int H, int KV, int dqk, int dv, const int64_t* q_strides,
+    const int64_t* k_strides, const int64_t* v_strides, float scale, void* stream) {
+  return repro_torch::launch_dtype(q, k_cache, v_cache, {nullptr, m, l, acc}, pos, pos_i64,
+                                   pos_stride, pos_offset, scratch, dtype, B, S, H, KV, dqk, dv,
+                                   q_strides, k_strides, v_strides, scale, stream);
 }

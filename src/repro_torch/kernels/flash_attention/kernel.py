@@ -5,6 +5,11 @@
 - ``decode_attention``: one token against the cache, replaces
   ``decode_attention_pallas`` (same file, :173). One call is two device
   launches (split-KV, then the combine); ``LAUNCHES`` counts calls.
+- ``decode_attention_partials``: the same two passes over one sequence shard
+  of a cache (a mesh whose cache is split over ranks by position), returning
+  the shard's max, sum and unnormalised accumulator per (row, head) for a
+  combine across ranks (``ops.decode_attention``). Counted in ``LAUNCHES``
+  under its own name.
 
 A wrapper given CPU or meta tensors (meta: a trace with no data) computes the
 plain version in ``ref.py``, and only then. Given CUDA tensors it checks them,
@@ -28,7 +33,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .. import KernelWithPlainGrad, _build, on_host, records_grad, refuse_grad
+from .. import KernelWithPlainGrad, _build, launcher, on_host, records_grad, refuse_grad
 from . import ref
 
 CSRC = Path(__file__).parent / "csrc"
@@ -36,9 +41,12 @@ SOURCES = {
     "flash_attention": CSRC / "flash_attention.cu",
     "decode_attention": CSRC / "decode_attention.cu",
 }
+# entry points of each library beyond the one named after it
+EXTRA_ENTRY_POINTS = {"decode_attention": ("decode_attention_partials",)}
 # launches per kernel since the last reset_launches(): the proof that a run
 # went through the kernels
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in
+                            (*SOURCES, *(e for es in EXTRA_ENTRY_POINTS.values() for e in es))}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh kFloat32/kBFloat16
 # the widest (dqk, dv) each kernel takes: flash_attention.cu kMaxHd (the f32
@@ -62,6 +70,11 @@ _ARGTYPES = {
     # KV, dqk, dv, q/k/v strides, scale, stream
     "decode_attention": [_P, _P, _P, _P, _P, _I, ctypes.c_int64, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I64P, _I64P, _I64P, _F, _P],
+    # q, k_cache, v_cache, m, l, acc, pos, pos is int64, pos stride, pos offset,
+    # scratch, dtype, B, S, H, KV, dqk, dv, q/k/v strides, scale, stream
+    "decode_attention_partials": [_P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_int64,
+                                  ctypes.c_int64, _P, _I, _I, _I, _I, _I, _I, _I, _I64P,
+                                  _I64P, _I64P, _F, _P],
 }
 
 
@@ -78,9 +91,10 @@ def build() -> Dict[str, dict]:
         for name, src in SOURCES.items():
             if name not in _libs:
                 lib = ctypes.CDLL(str(results[src]["path"]))
-                fn = getattr(lib, f"{name}_launch")
-                fn.argtypes = _ARGTYPES[name]
-                fn.restype = ctypes.c_int
+                for entry in (name, *EXTRA_ENTRY_POINTS.get(name, ())):
+                    fn = getattr(lib, f"{entry}_launch")
+                    fn.argtypes = _ARGTYPES[entry]
+                    fn.restype = ctypes.c_int
                 lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
                 lib.repro_cuda_error_string.restype = ctypes.c_char_p
                 if name == "decode_attention" and lib.decode_attention_split() != DECODE_SPLIT:
@@ -165,6 +179,7 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset=None, kv_len=None,
     return _flash_launch(q, k, v, **kw)
 
 
+@launcher
 def _flash_launch(q, k, v, *, causal: bool, q_offset, kv_len, scale) -> torch.Tensor:
     _check(q, k, v, "flash_attention")
     B, Sq, H, dqk = q.shape
@@ -195,6 +210,11 @@ def decode_attention(q, k_cache, v_cache, pos, *, scale: Optional[float] = None)
     if on_host(q):
         return ref.decode_attention_reference(q, k_cache, v_cache, pos, scale=scale)
     refuse_grad("decode_attention", q, k_cache, v_cache)
+    return _decode_launch(q, k_cache, v_cache, pos, scale)
+
+
+@launcher
+def _decode_launch(q, k_cache, v_cache, pos, scale) -> torch.Tensor:
     _check(q, k_cache, v_cache, "decode_attention")
     B, Sq, H, dqk = q.shape
     if Sq != 1:
@@ -204,15 +224,8 @@ def decode_attention(q, k_cache, v_cache, pos, *, scale: Optional[float] = None)
     o = torch.empty((B, 1, H, dv), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
-    # the kernels read pos (int32 or int64) themselves: no host sync, no extra launch
-    pos = torch.as_tensor(pos, device=q.device)
-    if pos.dtype not in (torch.int32, torch.int64):
-        pos = pos.to(torch.int64)
-    if pos.shape not in ((), (B,)):
-        raise ValueError(f"pos must be a scalar or ({B},), got {tuple(pos.shape)}")
-    # per (row, split, head): the split's accumulator (dv), max and sum, fp32
-    n_split = -(-S // DECODE_SPLIT)
-    scratch = torch.empty(B * n_split * H * (dv + 2), dtype=torch.float32, device=q.device)
+    pos = _positions(pos, B, q.device)
+    scratch = _decode_scratch(B, S, H, dv, q.device)
     lib = _lib("decode_attention")
     err = lib.decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(), pos.data_ptr(),
@@ -224,3 +237,64 @@ def decode_attention(q, k_cache, v_cache, pos, *, scale: Optional[float] = None)
     _raise_on(err, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return o
+
+
+def _positions(pos, batch: int, device) -> torch.Tensor:
+    """A scalar or (B,) position as an int32 or int64 tensor on the device:
+    the kernels read it themselves (no host sync, no extra launch)."""
+    pos = torch.as_tensor(pos, device=device)
+    if pos.dtype not in (torch.int32, torch.int64):
+        pos = pos.to(torch.int64)
+    if pos.shape not in ((), (batch,)):
+        raise ValueError(f"pos must be a scalar or ({batch},), got {tuple(pos.shape)}")
+    return pos
+
+
+def _decode_scratch(B: int, S: int, H: int, dv: int, device) -> torch.Tensor:
+    """Per (row, split, head): the split's accumulator (dv), max and sum, fp32."""
+    n_split = -(-S // DECODE_SPLIT)
+    return torch.empty(B * n_split * H * (dv + 2), dtype=torch.float32, device=device)
+
+
+def decode_attention_partials(q, k_cache, v_cache, pos, *, pos_offset: int = 0,
+                              scale: Optional[float] = None):
+    """The decode over one sequence shard of a cache: q (B,1,H,dqk), shards
+    (B,S,KV,dqk) and (B,S,KV,dv) whose entry s holds global position
+    ``pos_offset + s``; row b attends to the entries at or before ``pos[b]``.
+    Returns fp32 (m, l, acc): the shard's max score (B,1,H), its sum of
+    exp(score - m) (B,1,H) and the unnormalised accumulator (B,1,H,dv); a row
+    with no valid entry here gives m = -inf, l = 0, acc = 0."""
+    if on_host(q):
+        return ref.decode_attention_partials_reference(q, k_cache, v_cache, pos,
+                                                       pos_offset=pos_offset, scale=scale)
+    refuse_grad("decode_attention_partials", q, k_cache, v_cache)
+    return _partials_launch(q, k_cache, v_cache, pos, pos_offset, scale)
+
+
+@launcher
+def _partials_launch(q, k_cache, v_cache, pos, pos_offset: int, scale):
+    _check(q, k_cache, v_cache, "decode_attention")
+    B, Sq, H, dqk = q.shape
+    if Sq != 1:
+        raise ValueError(f"decode attention takes one query token per row, got {Sq}")
+    S, KV, dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[-1]
+    scale = scale if scale is not None else dqk ** -0.5
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m, l = torch.empty((B, 1, H), **f32), torch.empty((B, 1, H), **f32)
+    acc = torch.empty((B, 1, H, dv), **f32)
+    if acc.numel() == 0:
+        return m, l, acc
+    pos = _positions(pos, B, q.device)
+    scratch = _decode_scratch(B, S, H, dv, q.device)
+    lib = _lib("decode_attention")
+    err = lib.decode_attention_partials_launch(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), m.data_ptr(), l.data_ptr(),
+        acc.data_ptr(), pos.data_ptr(), int(pos.dtype == torch.int64),
+        pos.stride(0) if pos.ndim else 0, int(pos_offset), scratch.data_ptr(),
+        _DTYPE_CODES[q.dtype], B, S, H, KV, dqk, dv,
+        _strides(q, (0, 2)), _strides(k_cache, (0, 1, 2)), _strides(v_cache, (0, 1, 2)),
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(err, "decode_attention")
+    LAUNCHES["decode_attention_partials"] += 1
+    return m, l, acc

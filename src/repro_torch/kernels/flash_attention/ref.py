@@ -81,3 +81,65 @@ def decode_attention_reference(
         q, k_cache, v_cache, causal=False,
         kv_len=torch.as_tensor(pos, device=q.device) + 1, scale=scale,
     )
+
+
+def decode_attention_partials_reference(
+    q: torch.Tensor,            # (B, 1, H, dqk)
+    k_cache: torch.Tensor,      # (B, S, KV, dqk): one sequence shard
+    v_cache: torch.Tensor,      # (B, S, KV, dv)
+    pos,                        # scalar or (B,) int: the global position attended to
+    *,
+    pos_offset: int = 0,        # global position of the shard's first entry
+    scale: Optional[float] = None,
+):
+    """The decode over one sequence shard of a cache, unnormalised: entry s
+    holds global position pos_offset + s and is valid where that is <= pos.
+    Returns fp32 (m, l, acc): per (row, head) the max score m (B, 1, H), the
+    sum l of exp(score - m) and the accumulator acc = sum exp(score - m) v
+    (B, 1, H, dv). A row with no valid entry in the shard gives m = -inf,
+    l = 0 and acc = 0. ``combine_partials`` of every shard's triple is
+    ``decode_attention_reference`` on the whole cache."""
+    B, _, H, hd = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else hd ** -0.5
+    dev = q.device
+    qg = q.reshape(B, KV, G, hd).float()
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.float()) * scale       # (B, KV, G, S)
+    p = torch.as_tensor(pos, device=dev).reshape(-1)                      # (1,) or (B,)
+    valid = (torch.arange(S, device=dev) + pos_offset)[None, :] <= p[:, None]
+    valid = valid[:, None, None, :]                                        # (B or 1, 1, 1, S)
+    s = torch.where(valid, s, float("-inf"))
+    m = s.amax(dim=-1)                                                     # -inf: no valid key
+    w = torch.where(valid, torch.exp(s - torch.where(torch.isinf(m), 0.0, m)[..., None]), 0.0)
+    acc = torch.einsum("bkgt,btkd->bkgd", w, v_cache.float())
+    return (m.reshape(B, 1, H), w.sum(dim=-1).reshape(B, 1, H),
+            acc.reshape(B, 1, H, v_cache.shape[-1]))
+
+
+def combine_partials(parts, dtype) -> torch.Tensor:
+    """The shards' (m, l, acc) triples merged by log-sum-exp into the output
+    (B, 1, H, dv) in ``dtype``: zeros for a row with no valid entry in any
+    shard (the kernels' rule)."""
+    ms = torch.stack([m for m, _, _ in parts])
+    m_g = ms.amax(dim=0)
+    l_g = torch.zeros_like(m_g)
+    acc_g = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        w = rescale(m, m_g)
+        l_g = l_g + l * w
+        acc_g = acc_g + acc * w[..., None]
+    return normalise(acc_g, l_g, dtype)
+
+
+def rescale(m: torch.Tensor, m_g: torch.Tensor) -> torch.Tensor:
+    """exp(m - m_g), the weight of a shard's partials under the global max
+    m_g; 0 where the shard has no valid entry (m = -inf, so m_g may be -inf
+    too)."""
+    return torch.where(torch.isinf(m), 0.0, torch.exp(m - m_g))
+
+
+def normalise(acc: torch.Tensor, l: torch.Tensor, dtype) -> torch.Tensor:
+    """acc / l in ``dtype``, zeros where l = 0 (no valid entry anywhere)."""
+    return torch.where(l[..., None] > 0, acc / l.clamp_min(torch.finfo(l.dtype).tiny)[..., None],
+                       0.0).to(dtype)

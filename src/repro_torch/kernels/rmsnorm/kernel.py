@@ -25,7 +25,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from .. import KernelWithPlainGrad, _build, on_host, records_grad
+from .. import KernelWithPlainGrad, _build, launcher, on_host, records_grad
 from . import ref
 
 CSRC = Path(__file__).parent / "csrc"
@@ -133,6 +133,7 @@ def fused_add_rmsnorm(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
     return _launch(x, delta, scale, eps=eps)
 
 
+@launcher
 def _launch(x, delta, scale, *, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(x, delta, scale)
     D = x.shape[-1]

@@ -27,7 +27,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .. import KernelWithPlainGrad, _build, on_host, records_grad
+from .. import KernelWithPlainGrad, _build, launcher, on_host, records_grad
 from . import ref
 
 CSRC = Path(__file__).parent / "csrc"
@@ -150,6 +150,7 @@ def _outputs(fn, *, chunk: int, return_final_state: bool):
     return call
 
 
+@launcher
 def _launch(x, dt, A, B_, C_, *, chunk: int, initial_state: Optional[torch.Tensor],
             return_final_state: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     _check(x, dt, A, B_, C_, chunk, initial_state)

@@ -196,8 +196,10 @@ class _DeviceCounter:
     """A dispatch mode that sees each rank's local ops: it hands every op on
     a DTensor back to DTensor (which then runs the local op, seen here) and
     skips the fake tensors of DTensor's shape propagation. It counts the
-    local ops' FLOPs with ``FlopCounterMode``'s formulas and records each
-    functional collective with its group size and result bytes."""
+    local ops' FLOPs with ``FlopCounterMode``'s formulas (in total, by aten
+    op, and by op and local operand shapes: a product a rank computes whole
+    shows its full width there) and records each functional collective with
+    its group size and result bytes."""
 
     def __init__(self, pod_groups=()):
         from torch.utils._python_dispatch import TorchDispatchMode
@@ -211,6 +213,7 @@ class _DeviceCounter:
         self.mode = Mode()
         self.flops = 0
         self.by_op: Dict[str, int] = {}
+        self.by_shape: Dict[str, int] = {}
         self.stats = CollectiveStats()
         self.pod_groups = set(pod_groups)
 
@@ -231,6 +234,9 @@ class _DeviceCounter:
             n = int(flop_registry[packet](*args, **kwargs, out_val=out))
             self.flops += n
             self.by_op[str(packet)] = self.by_op.get(str(packet), 0) + n
+            shapes = " x ".join(str(tuple(a.shape)) for a in args if isinstance(a, torch.Tensor))
+            key = f"{packet} {shapes}"
+            self.by_shape[key] = self.by_shape.get(key, 0) + n
         op = _FUNCOL.get(packet.__name__)
         if op is not None and "c10d_functional" in str(packet):
             # the group's name is the op's last string argument
@@ -271,9 +277,11 @@ def _trace(built) -> _DeviceCounter:
 
 def trace_device(built) -> dict:
     """One call of a mesh step on its meta DTensor stand-ins: each rank's
-    local FLOPs (total and by aten op) and its collectives."""
+    local FLOPs (total, by aten op, and by op and local operand shapes) and
+    its collectives."""
     counter = _trace(built)
     return {"flops_per_device": float(counter.flops), "flops_by_op": dict(counter.by_op),
+            "flops_by_shape": dict(counter.by_shape),
             "collectives": counter.stats.to_dict(),
             "wire_bytes_per_device": float(counter.stats.total_wire_bytes),
             "pod_wire_bytes_per_device": float(counter.stats.pod_wire_bytes)}
@@ -383,13 +391,18 @@ def trace_costs(built) -> dict:
 
 def extrapolate(base: dict, two_units: dict, units: int) -> dict:
     """Depth calibration: cost(L) = cost(L1) + (units-1) * (cost(L2)-cost(L1)).
-    Exact for layer-homogeneous stacks; the wire bytes too, on a mesh."""
+    Exact for layer-homogeneous stacks; the wire bytes too, on a mesh. A
+    mesh trace's FLOPs by op and by shape give one layer's breakdown."""
     out = {"units": units}
     for k in ("flops_per_device", "wire_bytes_per_device", "pod_wire_bytes_per_device"):
         if k in base:
             delta = two_units[k] - base[k]
             out[k] = base[k] + (units - 1) * delta
             out[k + "_per_layer"] = delta
+    for k in ("flops_by_op", "flops_by_shape"):
+        if k in base:
+            out[k + "_per_layer"] = {key: two_units[k].get(key, 0) - base[k].get(key, 0)
+                                     for key in set(base[k]) | set(two_units[k])}
     return out
 
 

@@ -8,6 +8,7 @@ Usage:
     python -m repro_torch.launch.dryrun --arch X --shape Y --mesh 16,16   # (data, model)
     python -m repro_torch.launch.dryrun --all --multi-pod       # the 2x16x16 mesh
     python -m repro_torch.launch.dryrun --all --both-meshes     # 16x16, then 2x16x16
+    python -m repro_torch.launch.dryrun --arch X --shape Y --mesh 16,16 --calibrated --by-op
 
 Port of ``repro.launch.dryrun`` over one device. For each cell it records
 whether the cell applies (``cell_applicable``); the FLOPs of one step,
@@ -31,7 +32,10 @@ meta DTensors. It records the resolved shardings of the weights, the
 per-device FLOPs (each rank's local ops) at full depth and at the
 calibration depths, the per-device modeled HBM traffic and memory fit, the
 collectives the step issues with their wire bytes, and the roofline with its
-collective term. ``--calibrated`` skips the full-depth trace.
+collective term. ``--calibrated`` skips the full-depth trace. ``--by-op``
+also prints one layer's FLOPs a device (the two calibration depths'
+difference) by aten op and its largest products by local operand shapes:
+a product a rank computes whole shows its full width there.
 
 Results accumulate in ``--results`` (default ``build/dryrun.json``,
 git-ignored) keyed by arch|shape|device (or mesh)|overrides, so reruns are
@@ -65,6 +69,7 @@ DEVICE_KEY = "1xH100"
 # the calibrated FLOPs against the full-depth count: equal up to float sums
 CALIBRATION_RTOL = 1e-9
 RUN_REPS = 5   # timed steps of --run
+BY_OP_PRODUCTS = 12   # products --by-op lists by their local operand shapes
 
 
 def _parse_overrides(pairs) -> dict:
@@ -305,11 +310,21 @@ def _weight_specs(model: Model, mesh) -> dict:
     return out
 
 
+def _print_by_op(total: dict) -> None:
+    """One layer's FLOPs a device by aten op, then its largest products by
+    their local operand shapes."""
+    for op, n in sorted(total["flops_by_op_per_layer"].items()):
+        print(f"  {op:16s} {n:.4e} a layer", flush=True)
+    shapes = sorted(total["flops_by_shape_per_layer"].items(), key=lambda kv: -kv[1])
+    for key, n in shapes[:BY_OP_PRODUCTS]:
+        print(f"  {n:.4e}  {key}", flush=True)
+
+
 def run_mesh_cell(arch: str, shape_name: str, dims: Sequence[int], names: Sequence[str],
                   overrides: Optional[dict] = None, verbose: bool = True,
-                  full_depth: bool = True) -> dict:
+                  full_depth: bool = True, by_op: bool = False) -> dict:
     """One mesh cell's record, in this process, under a fake world that holds
-    the mesh (``fake_world``)."""
+    the mesh (``fake_world``); ``by_op`` prints one layer's breakdown."""
     cfg, opt_kwargs = _config(arch, overrides)
     shape = SHAPES[shape_name]
     ok, reason = cell_applicable(cfg, shape)
@@ -360,6 +375,8 @@ def run_mesh_cell(arch: str, shape_name: str, dims: Sequence[int], names: Sequen
                   f"compute={r['compute_s']:.4g}s memory={r['memory_s']:.4g}s "
                   f"collective={r['collective_s']:.4g}s -> {r['bottleneck']} "
                   f"[trace {record['trace_s']}s]", flush=True)
+            if by_op:
+                _print_by_op(total)
     except Exception as e:  # noqa: BLE001
         record["status"] = "error"
         record["error"] = f"{type(e).__name__}: {e}"
@@ -371,7 +388,7 @@ def run_mesh_cell(arch: str, shape_name: str, dims: Sequence[int], names: Sequen
 
 def run_mesh_cell_subprocess(arch: str, shape_name: str, dims: Sequence[int],
                              overrides: Optional[dict] = None, full_depth: bool = True,
-                             timeout: float = 3600) -> dict:
+                             timeout: float = 3600, by_op: bool = False) -> dict:
     """``run_mesh_cell`` in a subprocess of its own (a fake world per process),
     its progress line passed through, its record read back as JSON."""
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--child", "--arch", arch,
@@ -380,6 +397,8 @@ def run_mesh_cell_subprocess(arch: str, shape_name: str, dims: Sequence[int],
         cmd += ["--override", f"{k}={v}"]
     if not full_depth:
         cmd.append("--calibrated")
+    if by_op:
+        cmd.append("--by-op")
     src = str(Path(__file__).resolve().parents[2])
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [src] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
@@ -429,6 +448,8 @@ def main() -> int:
     ap.add_argument("--mesh", help='explicit mesh dims, e.g. "2,4" (data, model)')
     ap.add_argument("--calibrated", action="store_true",
                     help="mesh cells: FLOPs from the calibration depths alone")
+    ap.add_argument("--by-op", action="store_true",
+                    help="mesh cells: print one layer's FLOPs by op and by product shape")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--override", action="append", help="cfg field=value")
     ap.add_argument("--run", action="store_true", help="run each cell that fits on the card")
@@ -447,7 +468,8 @@ def main() -> int:
         (dims, names), = meshes
         with fake_world(int(np.prod(dims))):
             rec = run_mesh_cell(args.arch, args.shape, dims, names,
-                                _parse_overrides(args.override), full_depth=not args.calibrated)
+                                _parse_overrides(args.override), full_depth=not args.calibrated,
+                                by_op=args.by_op)
         print(json.dumps(rec), flush=True)
         return 1 if rec["status"] == "error" else 0
     if args.run and torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
@@ -470,7 +492,7 @@ def main() -> int:
             continue
         if dims:
             rec = run_mesh_cell_subprocess(arch, shape, dims, overrides,
-                                           full_depth=not args.calibrated)
+                                           full_depth=not args.calibrated, by_op=args.by_op)
         else:
             rec = run_cell(arch, shape, overrides=overrides, run=args.run, device=args.device)
         results[key] = rec

@@ -27,6 +27,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels.rmsnorm import ops as rmsnorm_ops
 from ..sharding import partition
+from ..sharding.local import reduce_grad
 from . import attention, layers, mamba2, mla, moe
 
 
@@ -34,6 +35,18 @@ def _residual_enter(h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.sequence_parallel:
         return partition.shard_act(h, "batch", "seq_shard", None)
     return partition.shard_act(h, "batch", "seq", None)
+
+
+def _add_residual(h: torch.Tensor, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """h + x, with a sublayer's output x (on a mesh a product's partial sum
+    over `model`) first placed as the residual stream, and the sum's gradient
+    reduced to that placement (``reduce_grad``). The gradient coming back from
+    the logits, or from a sublayer's input products, is a partial sum over
+    `model`; left so, the sublayer's backward products would meet it and
+    gather their weights, giving every `model` rank the whole product (16x a
+    down projection's input gradient on a 16x16 mesh), where XLA reduces the
+    gradient first."""
+    return reduce_grad(h + _residual_enter(x, cfg))
 
 
 def init_decoder_layer(gen, cfg: ModelConfig, device, lead: Tuple[int, ...] = ()):
@@ -81,7 +94,7 @@ def decoder_layer(p, h: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
         )
     h, hn = rmsnorm_ops.fused_add_rmsnorm(h, a, p["ln2"]["scale"], cfg.norm_eps, impl)
     f, aux = _ffn(p["ffn"], hn, cfg)
-    return h + f, aux, kv
+    return _add_residual(h, f, cfg), aux, kv
 
 
 def decoder_layer_decode(p, h: torch.Tensor, cache: dict, pos: torch.Tensor,
@@ -158,7 +171,7 @@ def ssm_layer(p, h: torch.Tensor, cfg: ModelConfig, *, return_state: bool = Fals
     h = _residual_enter(h, cfg)
     hn = layers.rmsnorm(h, p["ln"], cfg.norm_eps)
     y, state = mamba2.mamba2_block(p["mamba"], hn, cfg, return_state=return_state, impl=impl)
-    return h + y, state
+    return _add_residual(h, y, cfg), state
 
 
 def ssm_layer_decode(p, h: torch.Tensor, state: dict, cfg: ModelConfig):
@@ -191,9 +204,9 @@ def encoder_layer(p, h: torch.Tensor, cfg: ModelConfig, impl: str = "auto") -> t
     hn = layers.layernorm(h, p["ln1"], cfg.norm_eps)
     a, _ = attention.self_attention(p["attn"], hn, cfg, positions=None, causal=False,
                                     impl=impl)
-    h = h + a
+    h = _add_residual(h, a, cfg)
     hn = layers.layernorm(h, p["ln2"], cfg.norm_eps)
-    return h + layers.gelu_mlp(hn, p["mlp"])
+    return _add_residual(h, layers.gelu_mlp(hn, p["mlp"]), cfg)
 
 
 def init_cross_decoder_layer(gen, cfg: ModelConfig, device, lead: Tuple[int, ...] = ()):
@@ -221,13 +234,13 @@ def cross_decoder_layer(p, h: torch.Tensor, enc_out: torch.Tensor, cfg: ModelCon
     hn = layers.layernorm(h, p["ln1"], cfg.norm_eps)
     a, self_kv = attention.self_attention(p["self"], hn, cfg, positions=None, causal=True,
                                           return_kv=True, impl=impl)
-    h = h + a
+    h = _add_residual(h, a, cfg)
     hn = layers.layernorm(h, p["ln2"], cfg.norm_eps)
     c, cross_kv = attention.cross_attention(p["cross"], hn, kv_source=enc_out, cfg=cfg,
                                             impl=impl)
-    h = h + c
+    h = _add_residual(h, c, cfg)
     hn = layers.layernorm(h, p["ln3"], cfg.norm_eps)
-    return h + layers.gelu_mlp(hn, p["mlp"]), (self_kv, cross_kv)
+    return _add_residual(h, layers.gelu_mlp(hn, p["mlp"]), cfg), (self_kv, cross_kv)
 
 
 def cross_decoder_layer_decode(p, h: torch.Tensor, cache: dict, pos: torch.Tensor,

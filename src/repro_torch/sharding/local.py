@@ -19,6 +19,9 @@ partition or what ``shard_map`` does in the reference:
 - ``all_reduce``: a differentiable all-reduce over one mesh dim's group, the
   reference's ``psum`` / ``pmean`` inside ``shard_map`` (``scale_grad`` for a
   value every rank of a group computes alike).
+- ``reduce_grad``: the identity, whose gradient's partial sums are reduced to
+  the tensor's own placements, where XLA would reduce them (DTensor keeps a
+  gradient partial as long as every op is linear in it, the whole backward).
 
 Beside them: ``as_replicated`` (a plain tensor, the same on every rank, as a
 replicated DTensor), ``local_shard`` (this rank's slice of such a tensor),
@@ -278,3 +281,30 @@ def scale_grad(x: torch.Tensor, scale: float) -> torch.Tensor:
     group computes alike gets 1/size of its gradient on each, so that the
     ranks' ``Partial`` gradients of its inputs sum to one."""
     return _ScaleGrad.apply(x, scale)
+
+
+class _ReduceGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not is_dtensor(g) or not any(p.is_partial() for p in g.placements):
+            return g
+        target = tuple(want if p.is_partial() else p
+                       for p, want in zip(g.placements, ctx.placements))
+        return g.redistribute(g.device_mesh, target)
+
+
+def reduce_grad(x: torch.Tensor) -> torch.Tensor:
+    """The identity on DTensor ``x`` (a plain tensor as it is), whose gradient,
+    where it arrives as a partial sum over a mesh dim, is reduced to ``x``'s
+    own placement there (an all-reduce, or a reduce-scatter onto a shard).
+    Without it a partial gradient travels through every op that is linear in
+    it, and a matrix product that meets it gathers its weight and computes
+    the whole product on every rank rather than reducing the gradient."""
+    if not is_dtensor(x) or not x.requires_grad:
+        return x
+    return _ReduceGrad.apply(x)

@@ -189,11 +189,35 @@ def test_jax_jit_function_raises_at_build():
         svc.shutdown()
 
 
+# ------------------------------------------- a stall is not an executor's death
+def test_heartbeat_monitor_does_not_count_a_stall_of_the_process():
+    import itertools
+
+    from repro_torch.core.heartbeat import HeartbeatMonitor
+
+    mon = HeartbeatMonitor(interval_s=0.1, threshold=2.0)
+    time.sleep(0.05)                          # the stall clock runs
+    mon.register("a")
+    t0 = time.perf_counter()
+    sum(itertools.repeat(1, 1_000_000))
+    n = int(1_000_000 / (time.perf_counter() - t0))
+    sum(itertools.repeat(1, n))               # one C call: the GIL held ~1 s, no thread beats
+    assert mon.dead() == []                   # ~1 s late, all of it a stall
+    time.sleep(0.4)                           # the process runs and "a" does not beat
+    assert mon.dead() == ["a"]
+    # explicit times outside any stall count in full
+    mon.register("b", now=0.0)
+    assert "b" in mon.dead(now=0.3) and "b" not in mon.dead(now=0.15)
+
+
 # ----------------------------------------------------- copies stay copies
 # copied verbatim from repro/core: only import lines may differ. worker.py
 # (no JAX executable), serializer.py (the wire codec, the tensor ext) and
-# metrics.py (a docstring naming the copy) diverge, and are not listed.
-COPIED = ["futures", "heartbeat", "memoization", "scheduler", "provider", "predictor",
+# metrics.py (a docstring naming the copy) diverge, and are not listed; so
+# does heartbeat.py, whose watchdog does not count a stall of the process
+# (a thread holding the GIL, such as ``torch.compile`` in a worker) against
+# an executor (F15).
+COPIED = ["futures", "memoization", "scheduler", "provider", "predictor",
           "fairness", "interchange", "batching", "auth", "warming", "datastore", "journal",
           "containers", "registry", "executor", "autoscaler", "endpoint", "forwarder",
           "service", "automation", "client"]

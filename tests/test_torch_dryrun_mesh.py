@@ -167,3 +167,23 @@ def test_dryrun_multi_pod_cell(tmp_path):
     cost = rec["analysis"]["cost"]
     assert 0 < cost["pod_wire_bytes_per_device"] <= cost["wire_bytes_per_device"]
     assert rec["analysis"]["roofline"]["collective_s"] > 0
+
+
+def test_dryrun_by_op_breaks_one_layer_down(tmp_path):
+    results = tmp_path / "dryrun.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                          "qwen1.5-0.5b", "--shape", "train_4k", "--mesh", "2,4", "--calibrated",
+                          "--by-op", "--results", str(results)],
+                         capture_output=True, text=True, env=env, timeout=600, cwd=ROOT)
+    assert out.returncode == 0, out.stdout + out.stderr
+    (rec,) = json.loads(results.read_text()).values()
+    cal = rec["analysis"]["calibrated"]
+    layer = cal["flops_per_device_per_layer"]
+    assert layer > 0
+    assert sum(cal["flops_by_op_per_layer"].values()) == pytest.approx(layer, rel=1e-12)
+    assert sum(cal["flops_by_shape_per_layer"].values()) == pytest.approx(layer, rel=1e-12)
+    # the printout: the ops, then the largest product by its local operand shapes
+    top_key, top = max(cal["flops_by_shape_per_layer"].items(), key=lambda kv: kv[1])
+    assert f"{top:.4e}  {top_key}" in out.stdout
+    assert any(line.split()[:1] == ["aten.mm"] for line in out.stdout.splitlines())

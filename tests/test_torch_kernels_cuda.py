@@ -434,6 +434,57 @@ def test_decode_kernel_at_the_mla_shape(dtype, cuda_device):
             rtol=tol, atol=tol)
 
 
+PARTIALS_CASES = {  # B, S, H, KV, dqk, dv, scale: qwen2-0.5b's GQA, minicpm3-4b's MLA
+    "gqa": (6, 1024, 14, 2, 64, 64, None),
+    "mla": (6, 1024, 40, 1, 288, 256, 96 ** -0.5),
+}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("case", list(PARTIALS_CASES))
+def test_decode_partials_kernel_over_sequence_shards(case, shards, dtype, cuda_device):
+    """``decode_attention_partials`` on each sequence shard at its offset,
+    against the plain partials shard by shard and, merged by log-sum-exp,
+    against the plain decode on the whole cache; rows that end in the first
+    shard and of length 0 give (-inf, 0, 0) where they hold no position; one
+    launch a call, counted under its own name."""
+    B, S, H, KV, dqk, dv, scale = PARTIALS_CASES[case]
+    tdt, tol = DTYPES[dtype]
+    q, k, v = _inputs(cuda_device, tdt, 41, (B, 1, H, dqk), (B, S, KV, dqk), (B, S, KV, dv))
+    pos = torch.tensor([S // 4 - 7, -1, S - 1, S // 2, 300, 901], device=cuda_device)
+    L = S // shards
+    parts = []
+    for i in range(shards):
+        ks, vs = k[:, i * L:(i + 1) * L], v[:, i * L:(i + 1) * L]
+        before = dict(tkernel.LAUNCHES)
+        got = tkernel.decode_attention_partials(q, ks, vs, pos, pos_offset=i * L, scale=scale)
+        torch.cuda.synchronize()
+        assert tkernel.LAUNCHES["decode_attention_partials"] == \
+            before["decode_attention_partials"] + 1
+        assert tkernel.LAUNCHES["decode_attention"] == before["decode_attention"]
+        want = tref.decode_attention_partials_reference(q, ks, vs, pos, pos_offset=i * L,
+                                                        scale=scale)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32 and g.shape == w.shape
+        m, l, acc = got
+        empty = [1] + ([0] if i else [])
+        assert torch.isneginf(m[empty]).all() and (l[empty] == 0).all() and (acc[empty] == 0).all()
+        live = torch.isfinite(want[0])
+        assert torch.equal(torch.isfinite(m), live)
+        # the kernel's max is the plain one; its sum and accumulator are relative to it
+        torch.testing.assert_close(m[live], want[0][live], rtol=tol, atol=tol)
+        torch.testing.assert_close((acc / l.clamp_min(1e-30)[..., None])[live],
+                                   (want[2] / want[1].clamp_min(1e-30)[..., None])[live],
+                                   rtol=tol, atol=tol)
+        parts.append(got)
+    out = tref.combine_partials(parts, tdt)
+    torch.testing.assert_close(out.float(),
+                               tref.decode_attention_reference(q, k, v, pos, scale=scale).float(),
+                               rtol=tol, atol=tol)
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+
+
 SSD_DTYPES = {"float32": (torch.float32, 1e-4), "bfloat16": (torch.bfloat16, 5e-2)}
 SSD_SWEEP = [  # B, S, H, P, G, N, chunk — tests/test_kernels_ssd.py:41-46, then the slice's
     (1, 64, 2, 16, 1, 16, 16),
