@@ -8,8 +8,10 @@ order, each printing its lines; any failure raises and the exit code is not 0:
 
 1. device          - require CUDA and compute capability 9.0; print the card's
                      name and power limit (nvidia-smi); fp32 products in full fp32.
-2. build           - compile the four kernels from ``src/repro_torch`` with nvcc
-                     for sm_90a, one nvcc per source, all started together.
+2. build           - compile the five kernels from ``src/repro_torch`` (flash,
+                     decode and MLA decode attention, the add + norm, the SSD
+                     scan) with nvcc for sm_90a, one nvcc per source, all
+                     started together.
 3. kernels         - hold each attention kernel against its plain PyTorch version
                      (ref.py) at 2e-5 (f32) / 2e-2 (bf16) on the reference's test
                      shapes, prefill at hd 80, 128 and 24 (the bf16 wgmma kernel's
@@ -42,7 +44,15 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      on the whole cache, with a row that ends in the first
                      shard and a row of length 0 (-inf, 0, 0 where a shard
                      holds none of a row); the partials over one of two
-                     shards timed beside the whole call.
+                     shards timed beside the whole call. MLA's own decode
+                     kernel (``mla_decode_attention``, K and V read from the
+                     two latent caches) at minicpm3-4b's served shape, f32
+                     and bf16, at the slice row's lengths (a row of length
+                     0) and at lengths 1, split - 1, split, split + 1 and S,
+                     and its partials over 2 and 4 shards merged; timed in
+                     bf16 beside the path it replaced (``cat`` of the caches,
+                     then ``decode_attention``), ``decode_attention`` alone
+                     on a ready K, its plain version and SDPA's math backend.
 4. kernels-rmsnorm - hold the fused add + RMSNorm kernel against its plain
                      version at 1e-6 (f32) / 1e-2 (bf16) on the reference's sweep
                      and the slices' rows (d_model 896, 2560 and 2048, 512-token
@@ -201,8 +211,10 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      Multi-head Latent Attention, 40 heads, d_model 2560, vocab
                      73448), f32 (17 GB) and bf16, no cut.
 22. serve-mla      - the same as serve for full-width bf16 minicpm3-4b: flash
-                     attention (dv 64 != dqk 96), decode attention (dqk 288, dv
-                     256) and the add + norm 62 times a prefill and a step.
+                     attention (dv 64 != dqk 96) and the add + norm 62 times a
+                     prefill, and MLA's decode kernel (the latent caches read
+                     as they lie, no concatenated copy) and the add + norm 62
+                     times a step.
 23. fabric-mla     - ``serve_model`` on one ``torch`` endpoint, a batched host
                      whose slots a ``cache_bytes`` budget of 4 sessions sets: 4
                      sessions of 32 tokens held to serve-mla's graphed streams
@@ -277,11 +289,14 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      ends the probe.
 31b. mesh-decode   - decode over a cache split by sequence across two ranks
                      on the one card (gloo, a (model = 2) mesh): at the
-                     partials' two shapes, bf16, each rank's
-                     ``decode_attention_partials`` over its half and the
-                     combine's two all-reduces (max, then the rescaled sums),
-                     through ``ops.decode_attention`` as a model's decode
-                     calls it, held to the plain decode on the whole cache;
+                     partials' two shapes, f32 and bf16, each rank's
+                     ``decode_attention_partials`` over its half (at the MLA
+                     shape ``mla_decode_attention_partials`` over its half
+                     of the two latent caches) and the combine's two
+                     all-reduces (max, then the rescaled sums), through
+                     ``ops.decode_attention`` (``ops.mla_decode_attention``)
+                     as a model's decode calls it, held to the plain decode
+                     on the whole cache;
                      one partials launch a call and nothing else; the call
                      timed on each rank.
 32. mesh-moe       - full-width qwen2-moe-a2.7b's experts split over two ranks
@@ -302,10 +317,11 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      qwen2-0.5b's ``build_train_step(mesh=)`` (3 steps, B = 8,
                      S = 1024, remat on) and ``build_decode_step(mesh=)`` (32
                      greedy tokens) against the unsharded builders' (losses
-                     and grad norms within 1e-6 relative, tokens equal), and
-                     mamba2-2.7b cut to 4 of 64 layers for one train step, so
-                     that all four kernels launch through the wrappers'
-                     ``local_map``; each step's wall beside the unsharded
+                     and grad norms within 1e-6 relative, tokens equal),
+                     minicpm3-4b cut to 4 of 62 layers for the same decode,
+                     and mamba2-2.7b cut to 4 of 64 layers for one train
+                     step, so that every single-card kernel launches through
+                     the wrappers' ``local_map``; each step's wall beside the unsharded
                      one's. Then the collectives a (data 1, model 2) step
                      issues (traced under a fake group); where mesh-probe
                      shows gloo takes them all on CUDA tensors as functional
@@ -335,7 +351,7 @@ train-ssm and train-hybrid trainer runs, the shapes phase's timed runs, the
 warming phase's compiled LM loss and the mesh-decode, mesh-moe and
 mesh-steps phases' runs on a mesh; the fabric phases together must have
 launched every kernel of a single card's paths, mesh-steps those too, and
-mesh-decode ``decode_attention_partials`` (which only a cache split by
+mesh-decode the two partials kernels (which only a cache split by
 sequence over ranks runs).
 
 The last two lines are the ``{"kernels": [...]}`` summary and
@@ -345,6 +361,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -398,6 +415,9 @@ SOURCES = {
     "decode_attention": "src/repro_torch/kernels/flash_attention/csrc/decode_attention.cu",
     "decode_attention_partials":
         "src/repro_torch/kernels/flash_attention/csrc/decode_attention.cu",
+    "mla_decode_attention": "src/repro_torch/kernels/flash_attention/csrc/mla_decode.cu",
+    "mla_decode_attention_partials":
+        "src/repro_torch/kernels/flash_attention/csrc/mla_decode.cu",
     "fused_add_rmsnorm": "src/repro_torch/kernels/rmsnorm/csrc/fused_add_rmsnorm.cu",
     "ssd": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
 }
@@ -406,6 +426,9 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/flash_attention/kernel.py:173",
     # the same TPU kernel, over one sequence shard of a mesh's cache
     "decode_attention_partials": "src/repro/kernels/flash_attention/kernel.py:173",
+    # ... at MLA's absorbed decode (src/repro/models/mla.py:133), whole and by shard
+    "mla_decode_attention": "src/repro/kernels/flash_attention/kernel.py:173",
+    "mla_decode_attention_partials": "src/repro/kernels/flash_attention/kernel.py:173",
     "fused_add_rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:30",
     "ssd": "src/repro/kernels/ssd/kernel.py:93",
 }
@@ -413,7 +436,7 @@ KERNEL_MODULES = (attn_kernel, rms_kernel, ssd_kernel)
 # kernels that run only where a decode cache is split by sequence over more
 # than one rank (a mesh whose `model` axis the KV heads do not divide, or
 # MLA's latent cache): no single-card path and no 1-rank mesh launches them
-MESH_SEQ_KERNELS = ("decode_attention_partials",)
+MESH_SEQ_KERNELS = ("decode_attention_partials", "mla_decode_attention_partials")
 # decode over a sequence-sharded cache (F14): qwen2-0.5b's decode_32k row shape
 # and minicpm3-4b's absorbed MLA decode at its served shape, each cut into 2
 # and 4 shards; the first is the summary's row (bf16, a shard of 2).
@@ -895,11 +918,139 @@ def phase_kernels() -> dict:
     pos_mla = pos_np.copy()
     pos_mla[1] = -1                           # and a row of length 0
     _attn_slice_rows(gen, MLA_PREFILL_SHAPE, MLA_DECODE_SHAPE, pos_mla, MLA_ARCH, scale=MLA_SCALE)
+    rows.update(_mla_decode_rows(gen, pos_mla))
     _whisper_attn_rows(gen)
     _attn_slice_rows(gen, VLM_PREFILL_SHAPE, VLM_DECODE_SHAPE, pos_np, VLM_ARCH)
     _long_decode_rows(gen)
     rows.update(_partials_rows(gen))
     return rows
+
+
+def _mla_caches(gen, B: int, S: int, H: int, dqk: int, dv: int, dtype) -> tuple:
+    """q (B, 1, H, dqk) and minicpm3-4b's two latent caches, ckv (B, S, dv)
+    and krope (B, S, dqk - dv)."""
+    return (randn(gen, (B, 1, H, dqk), dtype), randn(gen, (B, S, dv), dtype),
+            randn(gen, (B, S, dqk - dv), dtype))
+
+
+def _mla_decode_rows(gen, pos_np) -> dict:
+    """MLA's absorbed decode kernel (``mla_decode.cu``) at MLA_DECODE_SHAPE, f32
+    and bf16, against its plain version (the caches concatenated, then the
+    plain decode) at the slice rows' lengths ``pos_np`` (a row of length 0)
+    and at lengths 1, split - 1, split, split + 1 and S; its partials over 2
+    and 4 sequence shards merged by log-sum-exp against the plain decode on
+    the whole caches, (-inf, 0, 0) where a shard holds none of a row. Timed
+    in bf16 at ``pos_np``, in one call: the kernel, the path it replaced
+    (the ``cat`` of the two caches into one K, then ``decode_attention``),
+    ``decode_attention`` alone on a ready K, the plain version, and SDPA's
+    math backend on the ready K (the only backend that takes 288 / 256, a
+    yardstick); the partials over one of two shards beside the plain ones."""
+    B, S, H, _, dqk, dv = MLA_DECODE_SHAPE
+    split = attn_kernel._lib("mla_decode_attention").mla_decode_split(B, S)
+    pos = torch.from_numpy(pos_np).to(DEVICE)
+    edges = torch.tensor([1, split - 1, split, split + 1, S, 0, 3 * split + 5, S // 2 + 1],
+                         device=DEVICE)[:B] - 1
+    kw = dict(scale=MLA_SCALE)
+    errs, perrs = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, ckv, krope = _mla_caches(gen, B, S, H, dqk, dv, dtype)
+        for p in (pos, edges):
+            out = attn_kernel.mla_decode_attention(q, ckv, krope, p, **kw)
+            torch.cuda.synchronize()
+            empty = (p < 0).nonzero().flatten()
+            if not torch.equal(out[empty], torch.zeros_like(out[empty])):
+                raise AssertionError(f"mla_decode_attention {dtype}: a row of length 0 is not "
+                                     "zeros")
+            errs[dtype] = max(errs.get(dtype, 0.0), max_err(
+                out, attn_ref.mla_decode_reference(q, ckv, krope, p, **kw), TOL[dtype],
+                f"mla_decode_attention {MLA_DECODE_SHAPE} pos {p.tolist()} {dtype}"))
+        for shards in PARTIALS_SHARDS:
+            L = S // shards
+            parts = [attn_kernel.mla_decode_attention_partials(
+                q, ckv[:, i * L:(i + 1) * L], krope[:, i * L:(i + 1) * L], edges,
+                pos_offset=i * L, **kw) for i in range(shards)]
+            torch.cuda.synchronize()
+            lens = edges + 1
+            for i, (m, l, acc) in enumerate(parts):
+                none = (lens <= i * L).nonzero().flatten()   # rows with no position here
+                if not (torch.isneginf(m[none]).all() and (l[none] == 0).all()
+                        and (acc[none] == 0).all()):
+                    raise AssertionError(f"mla partials {dtype} shard {i} of {shards}: a row "
+                                         "with no position here is not (-inf, 0, 0)")
+            perrs[dtype] = max(perrs.get(dtype, 0.0), max_err(
+                attn_ref.combine_partials(parts, dtype),
+                attn_ref.mla_decode_reference(q, ckv, krope, edges, **kw), TOL[dtype],
+                f"mla partials {shards} shards {dtype}"))
+        say("kernels", f"{MLA_ARCH} mla_decode_attention {dtype}: max_abs_err {errs[dtype]:.3e} "
+                       f"at pos {pos_np.tolist()} and {edges.tolist()} (split {split}; tol "
+                       f"{TOL[dtype]:g}); its partials merged over "
+                       f"{' and '.join(map(str, PARTIALS_SHARDS))} shards {perrs[dtype]:.3e}, "
+                       "(-inf, 0, 0) where a shard holds none of a row")
+    # timing in bf16 (q and the caches from the bf16 pass above)
+    k_full = torch.cat([ckv, krope], dim=-1)[:, :, None, :]
+    v_lat = ckv[:, :, None, :]
+
+    def pr20_path():   # models/mla.py before this kernel: the copy, then decode_attention
+        k = torch.cat([ckv, krope], dim=-1)[:, :, None, :]
+        return attn_kernel.decode_attention(q, k, ckv[:, :, None, :], pos, **kw)
+
+    lens = np.maximum(pos_np.astype(np.int64) + 1, 0)
+    d_bytes = int(lens.sum()) * dqk * 2 + q.numel() * 2 + B * H * dv * 2 + 4 * B
+    d_flops = 2 * int(lens.sum()) * H * (dqk + dv)
+    qt = q.transpose(1, 2)
+    kt, vt = k_full.transpose(1, 2), v_lat.transpose(1, 2)
+    mask = (torch.arange(S, device=DEVICE)[None, :] < pos[:, None] + 1)[:, None, None, :]
+
+    def sdpa_math():
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        with sdpa_kernel(SDPBackend.MATH):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True,
+                                                  scale=MLA_SCALE)
+
+    fns = {"kernel": lambda: attn_kernel.mla_decode_attention(q, ckv, krope, pos, **kw),
+           "pr20": pr20_path,
+           "decode": lambda: attn_kernel.decode_attention(q, k_full, v_lat, pos, **kw),
+           "plain": lambda: attn_ref.mla_decode_reference(q, ckv, krope, pos, **kw),
+           "sdpa": sdpa_math}
+    t = {k: [] for k in fns}
+    for k in [*fns, *reversed(fns)]:   # two readings each, in turns
+        t[k].append(cuda_ms(fns[k]))
+    t = {k: float(np.mean(v)) for k, v in t.items()}
+    passes = _kernel_passes(lambda: attn_kernel.mla_decode_attention(q, ckv, krope, pos, **kw),
+                            calls=10, pattern=r"mla_\w+_kernel")
+    b = bound(d_bytes, d_flops, torch.bfloat16)
+    live = int(np.sum(-(-lens // split)))
+    say("kernels", f"{MLA_ARCH} mla_decode_attention bf16 (pos {pos_np.tolist()}): kernel "
+                   f"{t['kernel']:.4f} ms; the path it replaced (cat + decode_attention) "
+                   f"{t['pr20']:.4f} ms, decode_attention alone on a ready K {t['decode']:.4f} ms; "
+                   f"plain {t['plain']:.4f} ms; SDPA math on a ready K {t['sdpa']:.4f} ms "
+                   f"(each the mean of two readings, in turns); bound {b[0]:.5f} ms by {b[1]} "
+                   f"({d_flops / 1e9:.4f} GFLOP, {d_bytes / 1e6:.3f} MB: the caches read once); "
+                   f"by pass (profiler, mean of 10): " + (", ".join(
+                       f"{kn} {ms:.4f} ms" for kn, (ms, _) in passes.items()) or "not measured"))
+    say("kernels", f"{MLA_ARCH} mla_decode_attention occupancy: pass 1 one block of 128 threads "
+                   f"per (split of {split}, row) = {-(-S // split)} x {B} blocks ({live} live at "
+                   f"these lengths), mma.sync over 48 rows for {H} heads; pass 2 one per "
+                   f"(head, row) = {H * B}; on "
+                   f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    # the partials over one of two shards, every row full
+    L = S // 2
+    full = torch.tensor(S - 1, device=DEVICE)
+    cs, rs = ckv[:, :L], krope[:, :L]
+    p_ms = cuda_ms(lambda: attn_kernel.mla_decode_attention_partials(q, cs, rs, full, **kw))
+    p_plain = cuda_ms(lambda: attn_ref.mla_decode_partials_reference(q, cs, rs, full, **kw),
+                      reps=10)
+    pb = bound(B * L * dqk * 2 + q.numel() * 2 + B * H * (dv + 2) * 4,
+               2 * B * L * H * (dqk + dv), torch.bfloat16)
+    say("kernels", f"{MLA_ARCH} mla_decode_attention_partials over one of 2 shards (B {B}, "
+                   f"{L} of {S} positions, bf16): {p_ms:.4f} ms against its bound {pb[0]:.5f} "
+                   f"ms by {pb[1]}; plain partials {p_plain:.4f} ms; library: none")
+    del q, ckv, krope, k_full, v_lat, cs, rs
+    torch.cuda.empty_cache()
+    return {"mla_decode_attention": dict(max_abs_err=errs[torch.bfloat16], ms=t["kernel"],
+                                         plain_ms=t["plain"], library_ms=t["sdpa"], bound=b),
+            "mla_decode_attention_partials": dict(max_abs_err=perrs[torch.bfloat16], ms=p_ms,
+                                                  plain_ms=p_plain, library_ms=None, bound=pb)}
 
 
 def _partials_positions(rng, B: int, S: int) -> torch.Tensor:
@@ -1619,14 +1770,18 @@ class _TimedEngine(ServeEngine):
 
 
 # device launches per wrapper call of the kernels a decode step runs
-# (decode_attention: the split-KV pass, then the combine; flash_attention,
+# (decode_attention and mla_decode_attention: the split pass, then the
+# combine; flash_attention,
 # the encoder-decoder's cross-attention, one); ssd runs only in prefill
-STEP_DEVICE_LAUNCHES = {"decode_attention": 2, "fused_add_rmsnorm": 1, "flash_attention": 1}
+STEP_DEVICE_LAUNCHES = {"decode_attention": 2, "mla_decode_attention": 2,
+                        "fused_add_rmsnorm": 1, "flash_attention": 1}
 
 
 def _port_kernel(name: str):
     """The port kernel a device kernel's name (demangled, as the profiler
     gives it, or mangled, as libcuda does) belongs to, or None."""
+    if "mla_split_kernel" in name or "mla_combine_kernel" in name:
+        return "mla_decode_attention"
     if "decode_split_kernel" in name or "decode_combine_kernel" in name:
         return "decode_attention"
     if "repro_torch_rmsnorm" in name:
@@ -1823,7 +1978,9 @@ def _launch_floor(cfg, n_req: int, steps: int) -> dict:
         G = L // cfg.shared_attn_every
         return {"flash_attention": n_req * G, "decode_attention": steps * G,
                 "fused_add_rmsnorm": (n_req + steps) * G, "ssd": n_req * L}
-    return {"flash_attention": n_req * L, "decode_attention": steps * L,
+    # MLA's absorbed decode runs its own kernel over the latent caches
+    decode = "mla_decode_attention" if cfg.mla is not None else "decode_attention"
+    return {"flash_attention": n_req * L, decode: steps * L,
             "fused_add_rmsnorm": (n_req + steps) * L}
 
 
@@ -1940,6 +2097,13 @@ def _step_bound(model: Model, max_batch: int, max_len: int) -> str:
 # ------------------------------------------------------------------ the fabric
 def _launch_counts() -> dict:
     return {k: v for mod in KERNEL_MODULES for k, v in mod.LAUNCHES.items()}
+
+
+def _counts(**calls) -> dict:
+    """Every kernel's launch count: ``calls``, 0 for the rest."""
+    out = dict.fromkeys(_launch_counts(), 0)
+    out.update(calls)
+    return out
 
 
 def _reset_launches() -> None:
@@ -2526,11 +2690,8 @@ def _train_counts(cfg) -> dict:
     attn = _attention_layers(cfg)
     scan = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     if cfg.family == "encdec":   # encoder self, decoder self + cross; LayerNorms
-        return {"flash_attention": 2 * (cfg.n_enc_layers + 2 * cfg.n_layers),
-                "fused_add_rmsnorm": 0, "decode_attention": 0, "ssd": 0,
-                "decode_attention_partials": 0}
-    return {"flash_attention": 2 * attn, "fused_add_rmsnorm": 2 * attn,
-            "decode_attention": 0, "ssd": 2 * scan, "decode_attention_partials": 0}
+        return _counts(flash_attention=2 * (cfg.n_enc_layers + 2 * cfg.n_layers))
+    return _counts(flash_attention=2 * attn, fused_add_rmsnorm=2 * attn, ssd=2 * scan)
 
 
 def _plain_backward_ms(model: Model, batch: int = TRAIN_BATCH) -> dict:
@@ -2778,9 +2939,8 @@ def _train_resume(tag: str, model: Model) -> dict:
                 and late < early):
             raise AssertionError(f"{tag}: resume |dloss| {diff:.3e}, first 5 {early}, last 5 "
                                  f"{late}, or a non-finite loss")
-        need = {"flash_attention": 2 * model.cfg.n_layers, "fused_add_rmsnorm":
-                2 * model.cfg.n_layers, "decode_attention": 0, "ssd": 0,
-                "decode_attention_partials": 0}
+        need = _counts(flash_attention=2 * model.cfg.n_layers,
+                       fused_add_rmsnorm=2 * model.cfg.n_layers)
         ran = len(first) + len(second)
         if launches != {k: n * ran for k, n in need.items()}:
             raise AssertionError(f"{tag}: {ran} trainer steps launched {launches}")
@@ -2986,11 +3146,12 @@ def _shape_decode(arch: str, rec: dict) -> dict:
 
 
 def _decode_counts(cfg) -> dict:
-    """Kernel calls of one decode step: decode attention and the add + norm
-    once a dense layer or hybrid group; none for the ssm family."""
+    """Kernel calls of one decode step: decode attention (MLA's own kernel for
+    MLA) and the add + norm once a dense layer or hybrid group; none for the
+    ssm family."""
     attn = _attention_layers(cfg)
-    return {"flash_attention": 0, "decode_attention": attn, "fused_add_rmsnorm": attn,
-            "ssd": 0, "decode_attention_partials": 0}
+    decode = "mla_decode_attention" if cfg.mla is not None else "decode_attention"
+    return _counts(**{decode: attn, "fused_add_rmsnorm": attn})
 
 
 def _report_cell(arch: str, rec: dict, B: int, ms: float, peak: float, checks: str) -> None:
@@ -3173,6 +3334,7 @@ MESH_MOE_TIMED_REPS = 10
 # unsharded ones (no collective runs: equal to float rounding of the same ops)
 MESH_TRAIN_STEPS, MESH_DECODE_TOKENS, MESH_DECODE_BATCH = 3, 32, 8
 MESH_SSM_LAYERS = 4            # mamba2-2.7b at full width, cut to 4 of 64 layers
+MESH_MLA_LAYERS = 4            # minicpm3-4b's decode at full width, cut to 4 of 62 layers
 MESH_STEP_RTOL = 1e-6
 # two ranks over gloo on the one card: (data 1, model 2), B = 4; bf16 losses
 MESH_TWO_RANK_BATCH, MESH_TWO_RANK_TOL = 4, 2e-2
@@ -3366,8 +3528,11 @@ def _seqshard_rank(rank: int) -> dict:
     (model = 2) mesh, q replicated, and calls ``ops.decode_attention``, the
     main path's decode over a sequence-sharded cache: the partials kernel
     over its own positions, then gloo's all-reduces of the max and of the
-    rescaled sums. The counters are set to 0 just before the call and read
-    just after; the output, replicated, is held against the plain decode on
+    rescaled sums. At the MLA shape the cache is the model's two latent
+    caches, (B, S, 256) and (B, S, 32), each ``Shard(1)``, through
+    ``ops.mla_decode_attention`` and its partials kernel. The counters are
+    set to 0 just before the call and read just after; the output,
+    replicated, is held against the plain decode on
     the whole cache (MESH_DECODE_REF_ROWS rows at a time) at the dtype's
     tolerance, so the f32 call holds the cross-rank rescale and sums at 2e-5.
     Then the bf16 call timed (CUDA events on this rank, and the host's
@@ -3383,32 +3548,41 @@ def _seqshard_rank(rank: int) -> dict:
     rng = np.random.default_rng(5)
     rows, launches = {}, dict.fromkeys(_launch_counts(), 0)
     for name, (B, S, H, KV, dqk, dv) in PARTIALS_SHAPES.items():
-        scale = MLA_SCALE if dqk == MLA_DECODE_SHAPE[4] else None
+        mla = dqk == MLA_DECODE_SHAPE[4]
+        scale = MLA_SCALE if mla else None
         pos = _partials_positions(rng, B, S)
+        if mla:   # q against ckv and krope; K = [ckv | krope], V = ckv
+            shapes, kernel = ((B, S, dv), (B, S, dqk - dv)), "mla_decode_attention_partials"
+            plain = functools.partial(attn_ref.mla_decode_reference, scale=scale)
+            call = functools.partial(attn_ops.mla_decode_attention, scale=scale)
+        else:
+            shapes, kernel = ((B, S, KV, dqk), (B, S, KV, dv)), "decode_attention_partials"
+            plain = functools.partial(attn_ref.decode_attention_reference, scale=scale)
+            call = functools.partial(attn_ops.decode_attention, scale=scale)
         for dtype in (torch.float32, torch.bfloat16):
             gen = torch.Generator(device=DEVICE).manual_seed(7)
             q = randn(gen, (B, 1, H, dqk), dtype)
-            k, v = (randn(gen, (B, S, KV, d), dtype) for d in (dqk, dv))
+            k, v = (randn(gen, shape, dtype) for shape in shapes)
             L = S // world
             kd, vd = (DTensor.from_local(t[:, rank * L:(rank + 1) * L].contiguous(), mesh,
                                          [Shard(1)], run_check=False) for t in (k, v))
             qd = DTensor.from_local(q, mesh, [Replicate()], run_check=False)
             with torch.no_grad():
                 _reset_launches()
-                o = attn_ops.decode_attention(qd, kd, vd, pos, scale=scale)
+                o = call(qd, kd, vd, pos)
                 torch.cuda.synchronize()
                 counts = _launch_counts()
             what = f"mesh-decode rank {rank} {name} {dtype}"
-            if counts["decode_attention_partials"] != 1 or sum(counts.values()) != 1:
-                raise AssertionError(f"{what}: launches {counts}, want one "
-                                     "decode_attention_partials and nothing else")
+            if counts[kernel] != 1 or sum(counts.values()) != 1:
+                raise AssertionError(f"{what}: launches {counts}, want one {kernel} and "
+                                     "nothing else")
             if tuple(o.placements) != (Replicate(),):
                 raise AssertionError(f"{what}: output placed {o.placements}")
             for kk, n in counts.items():
                 launches[kk] += n
-            want = torch.cat([attn_ref.decode_attention_reference(
+            want = torch.cat([plain(
                 q[r:r + MESH_DECODE_REF_ROWS], k[r:r + MESH_DECODE_REF_ROWS],
-                v[r:r + MESH_DECODE_REF_ROWS], pos[r:r + MESH_DECODE_REF_ROWS], scale=scale)
+                v[r:r + MESH_DECODE_REF_ROWS], pos[r:r + MESH_DECODE_REF_ROWS])
                 for r in range(0, B, MESH_DECODE_REF_ROWS)])
             row = rows[(name, str(dtype))] = {
                 "err": max_err(o.to_local(), want, TOL[dtype], what), "tol": TOL[dtype],
@@ -3421,7 +3595,7 @@ def _seqshard_rank(rank: int) -> dict:
                         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                         t0 = time.perf_counter()
                         start.record()
-                        attn_ops.decode_attention(qd, kd, vd, pos, scale=scale)
+                        call(qd, kd, vd, pos)
                         end.record()
                         end.synchronize()
                         wall.append((time.perf_counter() - t0) * 1e3)
@@ -3436,7 +3610,8 @@ def phase_mesh_decode() -> dict:
     """(a2) Decode over a cache split by sequence across two ranks on the one
     card (gloo, a (model = 2) mesh): at qwen2-0.5b's decode_32k row shape and
     minicpm3-4b's MLA decode shape, f32 and bf16, each rank's partials
-    kernel over its half and the cross-rank combine's two all-reduces, held
+    kernel over its half (at the MLA shape MLA's own, over the two latent
+    caches) and the cross-rank combine's two all-reduces, held
     to the plain decode on the whole cache at 2e-5 (f32) and 2e-2 (bf16),
     with a row that ends in the first shard and a row of length 0. Returns
     the launches of the main-path calls."""
@@ -3452,9 +3627,11 @@ def phase_mesh_decode() -> dict:
                      f"wall (median of {MESH_DECODE_REPS})" if "ms" in r else "")
             say("mesh-decode", f"rank {rank}, {name} {dtype}: max_abs_err {r['err']:.3e} "
                                f"against the whole cache (tol {r['tol']:g}){timed}")
-    want = MESH_DECODE_WORLD * len(PARTIALS_SHAPES) * 2
-    if launches["decode_attention_partials"] != want:
-        raise AssertionError(f"mesh-decode: launches {launches}, want {want} partials")
+    # each rank, each shape, f32 and bf16: the MLA shape through MLA's kernel
+    want = _counts(decode_attention_partials=MESH_DECODE_WORLD * 2,
+                   mla_decode_attention_partials=MESH_DECODE_WORLD * 2)
+    if launches != want:
+        raise AssertionError(f"mesh-decode: launches {launches}, want {want}")
     say("mesh-decode", f"launches {launches}; wall {time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -3712,6 +3889,41 @@ def _check_pair(tag: str, want: list, got: list, rtol: float) -> float:
     return worst
 
 
+def _mesh_decode_pair(cfg, mesh) -> dict:
+    """(c)'s decode step: MESH_DECODE_TOKENS greedy tokens x MESH_DECODE_BATCH
+    rows from the same start through ``build_decode_step`` unsharded and on
+    ``mesh`` (its cache placed by ``place_cache``), the tokens equal; the mesh
+    run's launches."""
+    from repro_torch.training.steps import place_cache
+
+    start = torch.as_tensor(synthetic_batch(cfg, MESH_DECODE_BATCH, 1, 7)["tokens"])
+    streams = []
+    for where in (None, mesh):
+        model = Model(cfg, device=DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
+        built = build_decode_step(model, mesh=where)
+        cache = model.init_cache(MESH_DECODE_BATCH, MESH_DECODE_TOKENS)
+        if where is not None:
+            cache = place_cache(model, cache, mesh)
+            _reset_launches()
+        token, out = start.to(DEVICE), []
+        for pos in range(MESH_DECODE_TOKENS):
+            token, cache = built.fn(model.params, token, cache, torch.tensor(pos, device=DEVICE))
+            token = token.full_tensor() if hasattr(token, "full_tensor") else token
+            out.append(token[:, 0].tolist())
+        if where is not None:
+            counts = _launch_counts()
+        streams.append(out)
+        del model, built, cache
+        torch.cuda.empty_cache()
+    if streams[0] != streams[1]:
+        raise AssertionError(f"mesh-steps: {cfg.name}'s 1-rank mesh decode step's tokens "
+                             "differ from the unsharded step's")
+    say("mesh-steps", f"{cfg.name} ({cfg.n_layers} layers) decode, 1-rank mesh: "
+                      f"{MESH_DECODE_TOKENS} greedy tokens x {MESH_DECODE_BATCH} rows equal to "
+                      f"the unsharded step's; launches {counts}")
+    return counts
+
+
 def _mesh_ssm_step(mesh) -> dict:
     """(c)'s scan: full-width mamba2-2.7b cut to MESH_SSM_LAYERS layers, one
     train step on ``mesh`` against the unsharded builder's; its launches."""
@@ -3778,8 +3990,10 @@ def phase_mesh_steps(probe: dict) -> dict:
     """(c) The sharded step builders with the port's kernels. On a 1-rank NCCL
     mesh (data 1, model 1): full-width qwen2-0.5b's train step (3 steps, B =
     8, S = 1024, remat on) and decode step (32 greedy tokens) against the
-    unsharded builders', and full-width mamba2-2.7b cut to 4 layers for one
-    train step; all four kernels launch through the wrappers' ``local_map``.
+    unsharded builders', the decode step of full-width minicpm3-4b cut to 4
+    layers (MLA's decode kernel), and full-width mamba2-2.7b cut to 4 layers
+    for one train step; every single-card kernel launches through the
+    wrappers' ``local_map``.
     Then, where gloo takes every collective the step issues on CUDA tensors,
     qwen2-0.5b's train step on two ranks, (data 1, model 2), at B = 4."""
     import torch.distributed as dist
@@ -3808,36 +4022,9 @@ def phase_mesh_steps(probe: dict) -> dict:
             say("mesh-steps", f"{ARCH} train step wall (host, synchronised; the first "
                               f"warms up): mesh {[round(g['ms'], 3) for g in got]} ms, "
                               f"unsharded {[round(w['ms'], 3) for w in want]} ms")
-            # the decode step: 32 greedy tokens from the same start
-            start = torch.as_tensor(synthetic_batch(cfg, MESH_DECODE_BATCH, 1, 7)["tokens"])
-            streams = []
-            for where in (None, mesh):
-                model = Model(cfg, device=DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
-                built = build_decode_step(model, mesh=where)
-                cache = model.init_cache(MESH_DECODE_BATCH, MESH_DECODE_TOKENS)
-                if where is not None:
-                    from repro_torch.training.steps import place_cache
-                    cache = place_cache(model, cache, mesh)
-                    _reset_launches()
-                token, out = start.to(DEVICE), []
-                for pos in range(MESH_DECODE_TOKENS):
-                    token, cache = built.fn(model.params, token, cache,
-                                            torch.tensor(pos, device=DEVICE))
-                    token = token.full_tensor() if hasattr(token, "full_tensor") else token
-                    out.append(token[:, 0].tolist())
-                if where is not None:
-                    counts = _launch_counts()
-                streams.append(out)
-                del model, built, cache
-                torch.cuda.empty_cache()
-            if streams[0] != streams[1]:
-                raise AssertionError("mesh-steps: the 1-rank mesh decode step's tokens differ "
-                                     "from the unsharded step's")
-            for k, n in counts.items():
-                launches[k] += n
-            say("mesh-steps", f"{ARCH} decode, 1-rank mesh: {MESH_DECODE_TOKENS} greedy tokens "
-                              f"x {MESH_DECODE_BATCH} rows equal to the unsharded step's; "
-                              f"launches {counts}")
+            for dcfg in (cfg, get_config(MLA_ARCH).with_(n_layers=MESH_MLA_LAYERS)):
+                for k, n in _mesh_decode_pair(dcfg, mesh).items():
+                    launches[k] += n
             for k, n in _mesh_ssm_step(mesh).items():
                 launches[k] += n
         finally:

@@ -10,6 +10,14 @@
   the shard's max, sum and unnormalised accumulator per (row, head) for a
   combine across ranks (``ops.decode_attention``). Counted in ``LAUNCHES``
   under its own name.
+- ``mla_decode_attention``: MLA's absorbed decode (``models/mla.py``), the
+  same TPU kernel at that call: H query heads against one latent KV head
+  whose K row is [ckv | krope] and whose V is ckv, read from the two cache
+  tensors as they lie (no concatenated copy). Two device launches a call
+  (the split pass on tensor cores, then the combine).
+- ``mla_decode_attention_partials``: the same over one sequence shard of the
+  two caches, returning the shard's max, sum and accumulator per (row, head)
+  (``ops.mla_decode_attention`` on a mesh).
 
 A wrapper given CPU or meta tensors (meta: a trace with no data) computes the
 plain version in ``ref.py``, and only then. Given CUDA tensors it checks them,
@@ -21,7 +29,7 @@ falls back to the plain version on the card. The libraries are built by
 Under autograd (an input that requires grad, grad mode on) ``flash_attention``
 launches through ``KernelWithPlainGrad``: the kernel forward, the gradient of
 ``ref.mha_reference`` backward (training runs it twice a layer with remat:
-forward and recompute). ``decode_attention`` is on no training path and raises.
+forward and recompute). The decode kernels are on no training path and raise.
 """
 from __future__ import annotations
 
@@ -40,9 +48,11 @@ CSRC = Path(__file__).parent / "csrc"
 SOURCES = {
     "flash_attention": CSRC / "flash_attention.cu",
     "decode_attention": CSRC / "decode_attention.cu",
+    "mla_decode_attention": CSRC / "mla_decode.cu",
 }
 # entry points of each library beyond the one named after it
-EXTRA_ENTRY_POINTS = {"decode_attention": ("decode_attention_partials",)}
+EXTRA_ENTRY_POINTS = {"decode_attention": ("decode_attention_partials",),
+                      "mla_decode_attention": ("mla_decode_attention_partials",)}
 # launches per kernel since the last reset_launches(): the proof that a run
 # went through the kernels
 LAUNCHES: Dict[str, int] = {name: 0 for name in
@@ -53,6 +63,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh kFloat32
 # kernel's registers, the bf16 kernel's two 64-column slabs);
 # decode_attention.cu kMaxDqk / kMaxDv (its shared memory, sized for MLA)
 MAX_HEAD_DIMS = {"flash_attention": (128, 128), "decode_attention": (288, 256)}
+# the widest latent (dl, a multiple of 16) and rope (dr, a multiple of 8)
+# parts mla_decode.cu takes (kMaxLatent / kMaxRope)
+MLA_MAX_DIMS = (256, 64)
 # cache positions per split of the decode kernel's first pass
 # (csrc/decode_attention.cu kSplit, checked when the library loads)
 DECODE_SPLIT = 128
@@ -75,6 +88,15 @@ _ARGTYPES = {
     "decode_attention_partials": [_P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_int64,
                                   ctypes.c_int64, _P, _I, _I, _I, _I, _I, _I, _I, _I64P,
                                   _I64P, _I64P, _F, _P],
+    # q, ckv, krope, o, pos, pos is int64, pos stride, scratch, dtype, B, S, H, dl,
+    # dr, q/ckv/krope strides, scale, stream
+    "mla_decode_attention": [_P, _P, _P, _P, _P, _I, ctypes.c_int64, _P, _I, _I, _I, _I, _I,
+                             _I, _I64P, _I64P, _I64P, _F, _P],
+    # q, ckv, krope, m, l, acc, pos, pos is int64, pos stride, pos offset, scratch,
+    # dtype, B, S, H, dl, dr, q/ckv/krope strides, scale, stream
+    "mla_decode_attention_partials": [_P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_int64,
+                                      ctypes.c_int64, _P, _I, _I, _I, _I, _I, _I, _I64P,
+                                      _I64P, _I64P, _F, _P],
 }
 
 
@@ -84,25 +106,33 @@ def reset_launches() -> None:
 
 
 def build() -> Dict[str, dict]:
-    """Compile both kernels (in parallel) and load them; returns, per kernel,
+    """Compile the attention kernels (in parallel) and load them; returns, per kernel,
     the library path, build seconds and the ptxas report."""
     with _lock:
         results = _build.build(list(SOURCES.values()))
         for name, src in SOURCES.items():
             if name not in _libs:
-                lib = ctypes.CDLL(str(results[src]["path"]))
-                for entry in (name, *EXTRA_ENTRY_POINTS.get(name, ())):
-                    fn = getattr(lib, f"{entry}_launch")
-                    fn.argtypes = _ARGTYPES[entry]
-                    fn.restype = ctypes.c_int
-                lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-                lib.repro_cuda_error_string.restype = ctypes.c_char_p
-                if name == "decode_attention" and lib.decode_attention_split() != DECODE_SPLIT:
-                    raise RuntimeError(f"decode_attention.cu splits by "
-                                       f"{lib.decode_attention_split()}, kernel.py by "
-                                       f"{DECODE_SPLIT}")
-                _libs[name] = lib
+                _libs[name] = load(name, results[src]["path"])
     return {name: results[src] for name, src in SOURCES.items()}
+
+
+def load(name: str, path) -> ctypes.CDLL:
+    """The library of kernel ``name`` at ``path`` (a build of its source, or of
+    a variant with the same C interface), its entry points typed."""
+    lib = ctypes.CDLL(str(path))
+    for entry in (name, *EXTRA_ENTRY_POINTS.get(name, ())):
+        fn = getattr(lib, f"{entry}_launch")
+        fn.argtypes = _ARGTYPES[entry]
+        fn.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    if name == "mla_decode_attention":
+        lib.mla_decode_split.argtypes = [_I, _I]
+        lib.mla_decode_split.restype = ctypes.c_int
+    if name == "decode_attention" and lib.decode_attention_split() != DECODE_SPLIT:
+        raise RuntimeError(f"decode_attention.cu splits by {lib.decode_attention_split()}, "
+                           f"kernel.py by {DECODE_SPLIT}")
+    return lib
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -298,3 +328,94 @@ def _partials_launch(q, k_cache, v_cache, pos, pos_offset: int, scale):
     _raise_on(err, "decode_attention")
     LAUNCHES["decode_attention_partials"] += 1
     return m, l, acc
+
+
+def mla_decode_attention(q, ckv, krope, pos, *, scale: float) -> torch.Tensor:
+    """MLA's absorbed decode: q (B,1,H,dl+dr) against the latent caches ckv
+    (B,S,dl) and krope (B,S,dr), K = [ckv | krope] and V = ckv, entries
+    <= pos valid -> (B,1,H,dl); ``pos`` is a scalar or (B,)."""
+    if on_host(q):
+        return ref.mla_decode_reference(q, ckv, krope, pos, scale=scale)
+    refuse_grad("mla_decode_attention", q, ckv, krope)
+    return _mla_launch(q, ckv, krope, pos, None, scale)
+
+
+def mla_decode_attention_partials(q, ckv, krope, pos, *, pos_offset: int = 0, scale: float):
+    """The absorbed decode over one sequence shard of the latent caches, whose
+    entry s holds global position ``pos_offset + s``: fp32 (m, l, acc) as
+    ``decode_attention_partials`` returns them, acc (B,1,H,dl)."""
+    if on_host(q):
+        return ref.mla_decode_partials_reference(q, ckv, krope, pos, pos_offset=pos_offset,
+                                                 scale=scale)
+    refuse_grad("mla_decode_attention_partials", q, ckv, krope)
+    return _mla_launch(q, ckv, krope, pos, int(pos_offset), scale)
+
+
+def _check_mla(q: torch.Tensor, ckv: torch.Tensor, krope: torch.Tensor) -> None:
+    """q (B, 1, H, dl + dr), ckv (B, S, dl), krope (B, S, dr): one dtype, widths
+    mla_decode.cu takes, then one card and rows it can copy in 16-byte pieces
+    (shapes and dtypes first, so the checks also read CPU tensors)."""
+    for name, t, ndim in (("q", q, 4), ("ckv", ckv, 3), ("krope", krope, 3)):
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} has dtype {t.dtype}, q has {q.dtype}")
+        if t.ndim != ndim:
+            raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"mla_decode_attention takes float32 or bfloat16, got {q.dtype}")
+    B, Sq, _, dqk = q.shape
+    if Sq != 1:
+        raise ValueError(f"decode attention takes one query token per row, got {Sq}")
+    dl, dr = ckv.shape[-1], krope.shape[-1]
+    if ckv.shape[:2] != krope.shape[:2] or ckv.shape[0] != B or dqk != dl + dr:
+        raise ValueError(f"ckv {tuple(ckv.shape)} / krope {tuple(krope.shape)} do not match q "
+                         f"{tuple(q.shape)}: the caches need the same (B, S), and q's head "
+                         "dim is their widths' sum")
+    max_dl, max_dr = MLA_MAX_DIMS
+    if dl % 16 or dr % 8 or not 0 < dl <= max_dl or dr > max_dr:
+        raise ValueError(f"mla_decode_attention: the latent width {dl} must be a multiple of "
+                         f"16 up to {max_dl}, the rope width {dr} a multiple of 8 up to "
+                         f"{max_dr}")
+    for name, t in (("q", q), ("ckv", ckv), ("krope", krope)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {q.device}, got {t.device}")
+        strides = (t.stride(0), t.stride(2)) if t.ndim == 4 else t.stride()[:2]
+        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(x % 8 for x in strides):
+            raise ValueError(f"{name} must be 16-byte aligned with a unit stride on its last "
+                             f"dim and the others in multiples of 8 elements: strides "
+                             f"{t.stride()}")
+
+
+@launcher
+def _mla_launch(q, ckv, krope, pos, pos_offset: Optional[int], scale: float):
+    """Both passes of mla_decode.cu: the output (pos_offset None) or one
+    sequence shard's fp32 partials."""
+    _check_mla(q, ckv, krope)
+    B, _, H, _ = q.shape
+    S, dl, dr = ckv.shape[1], ckv.shape[-1], krope.shape[-1]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if pos_offset is None:
+        outs = (torch.empty((B, 1, H, dl), dtype=q.dtype, device=q.device),)
+    else:
+        outs = (torch.empty((B, 1, H), **f32), torch.empty((B, 1, H), **f32),
+                torch.empty((B, 1, H, dl), **f32))
+    if outs[-1].numel() == 0:
+        return outs[0] if pos_offset is None else outs
+    pos = _positions(pos, B, q.device)
+    lib = _lib("mla_decode_attention")
+    n_split = -(-S // lib.mla_decode_split(B, S))
+    scratch = torch.empty(B * n_split * H * (dl + 2), **f32)
+    common = (pos.data_ptr(), int(pos.dtype == torch.int64), pos.stride(0) if pos.ndim else 0)
+    tail = (scratch.data_ptr(), _DTYPE_CODES[q.dtype], B, S, H, dl, dr,
+            _strides(q, (0, 2)), _strides(ckv, (0, 1)), _strides(krope, (0, 1)), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    heads = (q.data_ptr(), ckv.data_ptr(), krope.data_ptr())
+    if pos_offset is None:
+        name = "mla_decode_attention"
+        err = lib.mla_decode_attention_launch(*heads, outs[0].data_ptr(), *common, *tail)
+    else:
+        name = "mla_decode_attention_partials"
+        err = lib.mla_decode_attention_partials_launch(
+            *heads, *(t.data_ptr() for t in outs), *common, pos_offset, *tail)
+    _raise_on(err, "mla_decode_attention")
+    LAUNCHES[name] += 1
+    return outs[0] if pos_offset is None else outs

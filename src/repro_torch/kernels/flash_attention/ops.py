@@ -17,7 +17,9 @@ divide the `model` axis, and MLA's latent cache) is never gathered. Each
 rank runs ``decode_attention_partials`` over its own positions, and two
 all-reduces over the sequence's mesh dims (the max, then the rescaled sums
 and accumulators) merge the partials by log-sum-exp, as XLA partitions the
-reference's plain attention over the sequence.
+reference's plain attention over the sequence. MLA's absorbed decode
+(``mla_decode_attention``) reads its two latent caches, ``Shard(1)`` both,
+the same way through ``mla_decode_attention_partials``.
 """
 from __future__ import annotations
 
@@ -68,6 +70,23 @@ def decode_attention(q, k_cache, v_cache, pos, *, scale: Optional[float] = None,
         return local_call(functools.partial(fn, scale=scale), [q, k_cache, v_cache, pos],
                           ["b.h.", "b.h.", "b.h.", pos_key], "b.h.")
     return fn(q, k_cache, v_cache, pos, scale=scale)
+
+
+def mla_decode_attention(q, ckv, krope, pos, *, scale: float, impl: str = "auto"):
+    """MLA's absorbed decode: q (B,1,H,dl+dr) against the latent caches ckv
+    (B,S,dl) and krope (B,S,dr), K = [ckv | krope], V = ckv, entries <= pos
+    valid -> (B,1,H,dl)."""
+    plain = use_ref(q, impl)
+    fn = ref.mla_decode_reference if plain else kernel.mla_decode_attention
+    pos_key = ("b" if pos.ndim == 1 else "") if torch.is_tensor(pos) else None
+    if is_dtensor(ckv) and _sequence_dims(ckv):
+        partials = (ref.mla_decode_partials_reference if plain
+                    else kernel.mla_decode_attention_partials)
+        return _decode_over_sequence_shards(partials, q, ckv, krope, pos, pos_key, scale)
+    if is_dtensor(q) or is_dtensor(ckv):
+        return local_call(functools.partial(fn, scale=scale), [q, ckv, krope, pos],
+                          ["b.h.", "b..", "b..", pos_key], "b.h.")
+    return fn(q, ckv, krope, pos, scale=scale)
 
 
 def _split(t, dim: int) -> tuple:
@@ -122,7 +141,8 @@ def _decode_over_sequence_shards(partials, q, k_cache, v_cache, pos, pos_key, sc
     in mesh order, as DTensor splits them), merged across those dims by an
     all-reduce of the max and one of [acc, l] rescaled to it. Batch and head
     shards pass through ``local_call``; q, replicated over the sequence's
-    mesh dims, meets every shard."""
+    mesh dims, meets every shard. ``partials`` takes (q, k, v, pos) or
+    MLA's (q, ckv, krope, pos)."""
     import torch.distributed._functional_collectives as funcol
 
     dims = _sequence_dims(k_cache)
@@ -140,5 +160,5 @@ def _decode_over_sequence_shards(partials, q, k_cache, v_cache, pos, pos_key, sc
         both = reduce(torch.cat([acc * w[..., None], (l * w)[..., None]], dim=-1), "sum")
         return ref.normalise(both[..., :-1], both[..., -1], q.dtype)
 
-    return local_call(call, [k_cache, v_cache, q, pos], ["bsh.", "bsh.", "b.h.", pos_key],
-                      "b.h.")
+    cache = "bsh." if k_cache.ndim == 4 else "bs."    # MLA's latent caches have no heads
+    return local_call(call, [k_cache, v_cache, q, pos], [cache, cache, "b.h.", pos_key], "b.h.")

@@ -117,6 +117,35 @@ def decode_attention_partials_reference(
             acc.reshape(B, 1, H, v_cache.shape[-1]))
 
 
+def _latent_kv(ckv: torch.Tensor, krope: torch.Tensor):
+    """MLA's latent caches as one KV head: K = [ckv | krope] (B, S, 1, dl + dr)
+    and V = ckv (B, S, 1, dl), the reference's ``k_full`` and ``v_lat``
+    (src/repro/models/mla.py:131-132)."""
+    return torch.cat([ckv, krope], dim=-1)[:, :, None, :], ckv[:, :, None, :]
+
+
+def mla_decode_reference(
+    q: torch.Tensor,            # (B, 1, H, dl + dr)
+    ckv: torch.Tensor,          # (B, S, dl): the latent, K's first dl columns and V
+    krope: torch.Tensor,        # (B, S, dr): K's last dr columns
+    pos,                        # scalar or (B,) int: the position attended to
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """MLA's absorbed decode attention, (B, 1, H, dl): the two caches
+    concatenated into one KV head, then ``decode_attention_reference``, as
+    the reference's models/mla.py computes it."""
+    k, v = _latent_kv(ckv, krope)
+    return decode_attention_reference(q, k, v, pos, scale=scale)
+
+
+def mla_decode_partials_reference(q, ckv, krope, pos, *, pos_offset: int = 0, scale: float):
+    """``decode_attention_partials_reference`` over one sequence shard of the
+    two latent caches (entry s at global position pos_offset + s)."""
+    k, v = _latent_kv(ckv, krope)
+    return decode_attention_partials_reference(q, k, v, pos, pos_offset=pos_offset, scale=scale)
+
+
 def combine_partials(parts, dtype) -> torch.Tensor:
     """The shards' (m, l, acc) triples merged by log-sum-exp into the output
     (B, 1, H, dv) in ``dtype``: zeros for a row with no valid entry in any

@@ -4,14 +4,15 @@ Port of ``repro.models.mla``. Prefill expands the compressed latent into
 per-head k/v and runs ``ops.flash_attention`` with dqk = nope + rope and
 dv = v_head; decode runs the *absorbed* form: queries are projected into
 latent space and attention runs as MQA over one (kv_lora + rope)-wide KV head
-(``ops.decode_attention`` with dqk = kv_lora + rope, dv = kv_lora). The
-cache stores only (c_kv, k_rope) per token, the technique's memory advantage.
+(``ops.mla_decode_attention``: K = [c_kv | k_rope], V = c_kv). The cache
+stores only (c_kv, k_rope) per token, the technique's memory advantage.
 
 Decode writes the new token's latent into the caller's cache IN PLACE at
 ``pos`` (a device tensor: no host sync, so the step captures as one CUDA
-graph), as ``attention.self_attention_decode`` does. The per-step
-concatenation of the two cache leaves into ``k_full`` is the reference's
-(src/repro/models/mla.py:131): a copy of the whole cache a layer a step.
+graph), as ``attention.self_attention_decode`` does. The attention reads the
+two cache leaves as they are: the reference first concatenates them into
+one K tensor (src/repro/models/mla.py:131), a copy of the whole cache a layer
+a step, which the port does not make.
 The reference's ``_norm`` (an RMSNorm over the last axis in fp32) is
 ``attention._headwise_rmsnorm`` here.
 """
@@ -121,10 +122,8 @@ def mla_attention_decode(p, x: torch.Tensor, ckv_cache: torch.Tensor,
     # absorb W_uk into the query: q_lat (B, 1, H, kv_lora)
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wuk"])
     q_full = torch.cat([q_lat, q_rope], dim=-1)                    # (B, 1, H, lora + rope)
-    k_full = torch.cat([ckv_cache, krope_cache], dim=-1)[:, :, None, :]  # (B, S, 1, ·)
-    v_lat = ckv_cache[:, :, None, :]                               # (B, S, 1, lora)
-    o_lat = attn_ops.decode_attention(q_full, k_full, v_lat, pos,
-                                      scale=(m.qk_nope_dim + m.qk_rope_dim) ** -0.5,
-                                      impl=impl)                   # (B, 1, H, lora)
+    o_lat = attn_ops.mla_decode_attention(q_full, ckv_cache, krope_cache, pos,
+                                          scale=(m.qk_nope_dim + m.qk_rope_dim) ** -0.5,
+                                          impl=impl)               # (B, 1, H, lora)
     o = torch.einsum("bshr,rhk->bshk", o_lat, p["wuv"])           # absorb W_uv
     return attention._out(o, p["wo"]), (ckv_cache, krope_cache)

@@ -175,7 +175,9 @@ def test_a_replay_adds_the_captured_calls_to_launches(cuda_device):
     G = cfg.n_layers // cfg.shared_attn_every
     engine = ServeEngine(model, max_batch=2, max_len=32)
     assert engine._graph.launches == {"flash_attention": 0, "decode_attention": G,
+                                      "mla_decode_attention": 0,
                                       "decode_attention_partials": 0,
+                                      "mla_decode_attention_partials": 0,
                                       "fused_add_rmsnorm": G, "ssd": 0}
     before = tengine.launch_counts()
     engine.submit(np.arange(7), max_new_tokens=4)
@@ -184,7 +186,8 @@ def test_a_replay_adds_the_captured_calls_to_launches(cuda_device):
     steps = engine.steps
     assert steps == 3
     assert {k: after[k] - before[k] for k in after} == {
-        "flash_attention": G, "decode_attention": steps * G, "decode_attention_partials": 0,
+        "flash_attention": G, "decode_attention": steps * G, "mla_decode_attention": 0,
+        "decode_attention_partials": 0, "mla_decode_attention_partials": 0,
         "fused_add_rmsnorm": (1 + steps) * G, "ssd": cfg.n_layers}
 
 

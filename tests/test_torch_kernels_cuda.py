@@ -485,6 +485,190 @@ def test_decode_partials_kernel_over_sequence_shards(case, shards, dtype, cuda_d
     assert torch.equal(out[1], torch.zeros_like(out[1]))
 
 
+# ----------------------------------------------------- MLA's absorbed decode
+MLA_SCALE = 96 ** -0.5
+MLA_CASES = {  # B, S, H, dl, dr: minicpm3-4b's served shape; its reduced config;
+    # a split of several double-buffered tiles (the grid would pass 264 blocks);
+    # two groups of heads (H > 48)
+    "minicpm3-4b": (8, 1024, 40, 256, 32),
+    "reduced": (3, 100, 4, 16, 8),
+    "multi-tile": (16, 8192, 40, 256, 32),
+    "head-groups": (2, 300, 56, 128, 32),
+}
+
+
+def _mla_inputs(device, dtype, seed, B, S, H, dl, dr):
+    return _inputs(device, dtype, seed, (B, 1, H, dl + dr), (B, S, dl), (B, S, dr))
+
+
+def _mla_split(B, S) -> int:
+    return tkernel._lib("mla_decode_attention").mla_decode_split(B, S)
+
+
+def _mla_positions(B, S, split, device):
+    """A row of length 0, then lengths 1, split - 1, split, split + 1 and S,
+    the rest mixed."""
+    lens = [0, 1, split - 1, split, split + 1, S, 2 * split + 7, S // 2 + 3]
+    lens = [min(max(n, 0), S) for n in (lens * (B // len(lens) + 1))[:B]]
+    return torch.tensor(lens, device=device) - 1
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(MLA_CASES))
+def test_mla_decode_kernel_matches_plain(case, dtype, cuda_device):
+    """``mla_decode_attention`` against its plain version (the two caches
+    concatenated, then the plain decode), one launch counted a call, with a
+    row of length 0 (zeros) and lengths at the split boundaries; scalar and
+    int32 positions."""
+    B, S, H, dl, dr = MLA_CASES[case]
+    tdt, tol = DTYPES[dtype]
+    q, ckv, krope = _mla_inputs(cuda_device, tdt, 51, B, S, H, dl, dr)
+    pos = _mla_positions(B, S, _mla_split(B, S), cuda_device)
+    before = dict(tkernel.LAUNCHES)
+    out = tkernel.mla_decode_attention(q, ckv, krope, pos, scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    assert tkernel.LAUNCHES["mla_decode_attention"] == before["mla_decode_attention"] + 1
+    assert tkernel.LAUNCHES["decode_attention"] == before["decode_attention"]
+    assert out.shape == (B, 1, H, dl) and out.dtype == tdt
+    want = tref.mla_decode_reference(q, ckv, krope, pos, scale=MLA_SCALE)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    for p in (0, S - 1, torch.tensor(S // 3, device=cuda_device),
+              pos.to(torch.int32)):
+        out = tkernel.mla_decode_attention(q, ckv, krope, p, scale=MLA_SCALE)
+        torch.testing.assert_close(
+            out.float(), tref.mla_decode_reference(q, ckv, krope, p, scale=MLA_SCALE).float(),
+            rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_mla_decode_kernel_reads_strided_caches(dtype, cuda_device):
+    """The caches as views: the first S positions of longer caches, and one
+    layer of a stacked (L, B, S, d) cache whose batch rows are not adjacent."""
+    tdt, tol = DTYPES[dtype]
+    B, S, H, dl, dr = 4, 200, 40, 256, 32
+    q, ckv, krope = _mla_inputs(cuda_device, tdt, 52, B, 2 * S, H, dl, dr)
+    stacked = _inputs(cuda_device, tdt, 53, (2, B, S, dl), (2, B, S, dr))
+    pos = torch.tensor([S - 1, 0, 77, 150], device=cuda_device)
+    for c, r in ((ckv[:, :S], krope[:, :S]), (stacked[0][1], stacked[1][1])):
+        out = tkernel.mla_decode_attention(q, c, r, pos, scale=MLA_SCALE)
+        torch.testing.assert_close(
+            out.float(), tref.mla_decode_reference(q, c, r, pos, scale=MLA_SCALE).float(),
+            rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shards", [2, 4])
+def test_mla_decode_partials_kernel_over_sequence_shards(shards, dtype, cuda_device):
+    """``mla_decode_attention_partials`` on each sequence shard of the two
+    caches at its offset, against the plain partials and, merged by
+    log-sum-exp, against the plain decode on the whole caches; (-inf, 0, 0)
+    where a shard holds none of a row; counted under its own name."""
+    B, S, H, dl, dr = 6, 1024, 40, 256, 32
+    tdt, tol = DTYPES[dtype]
+    q, ckv, krope = _mla_inputs(cuda_device, tdt, 54, B, S, H, dl, dr)
+    pos = torch.tensor([S // 4 - 7, -1, S - 1, S // 2, 300, 901], device=cuda_device)
+    L = S // shards
+    parts = []
+    for i in range(shards):
+        c, r = ckv[:, i * L:(i + 1) * L], krope[:, i * L:(i + 1) * L]
+        before = dict(tkernel.LAUNCHES)
+        got = tkernel.mla_decode_attention_partials(q, c, r, pos, pos_offset=i * L,
+                                                    scale=MLA_SCALE)
+        torch.cuda.synchronize()
+        assert tkernel.LAUNCHES["mla_decode_attention_partials"] == \
+            before["mla_decode_attention_partials"] + 1
+        assert tkernel.LAUNCHES["mla_decode_attention"] == before["mla_decode_attention"]
+        want = tref.mla_decode_partials_reference(q, c, r, pos, pos_offset=i * L,
+                                                  scale=MLA_SCALE)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32 and g.shape == w.shape
+        m, l, acc = got
+        empty = [1] + ([0] if i else [])
+        assert torch.isneginf(m[empty]).all() and (l[empty] == 0).all() and (acc[empty] == 0).all()
+        live = torch.isfinite(want[0])
+        assert torch.equal(torch.isfinite(m), live)
+        torch.testing.assert_close(m[live], want[0][live], rtol=tol, atol=tol)
+        torch.testing.assert_close((acc / l.clamp_min(1e-30)[..., None])[live],
+                                   (want[2] / want[1].clamp_min(1e-30)[..., None])[live],
+                                   rtol=tol, atol=tol)
+        parts.append(got)
+    out = tref.combine_partials(parts, tdt)
+    torch.testing.assert_close(
+        out.float(), tref.mla_decode_reference(q, ckv, krope, pos, scale=MLA_SCALE).float(),
+        rtol=tol, atol=tol)
+
+
+def test_mla_decode_kernel_refuses_what_it_does_not_take(cuda_device):
+    q, ckv, krope = _mla_inputs(cuda_device, torch.float32, 55, 2, 32, 4, 16, 8)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tkernel.mla_decode_attention(q.half(), ckv.half(), krope.half(), 3, scale=1.0)
+    with pytest.raises(ValueError, match="has dtype"):
+        tkernel.mla_decode_attention(q, ckv.bfloat16(), krope, 3, scale=1.0)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tkernel.mla_decode_attention(q, ckv[..., :8].contiguous(),
+                                     torch.cat([ckv[..., 8:], krope], -1), 3, scale=1.0)
+    with pytest.raises(ValueError, match="widths' sum"):
+        tkernel.mla_decode_attention(q, ckv, krope[..., :4].contiguous(), 3, scale=1.0)
+    with pytest.raises(ValueError, match="one query token"):
+        tkernel.mla_decode_attention(q.expand(2, 2, 4, 24), ckv, krope, 3, scale=1.0)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        tkernel.mla_decode_attention(q.requires_grad_(), ckv, krope, 3, scale=1.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_decode_step_replays_from_a_cuda_graph(dtype, cuda_device):
+    """One decode step of the reduced minicpm3-4b captured as a CUDA graph
+    (the step captures the kernel once a layer), replayed at two sets of
+    lengths that cross the kernel's splits: logits and caches equal the eager
+    step's bit for bit."""
+    cfg = get_reduced("minicpm3-4b").with_(dtype=dtype)
+    model = Model(cfg, device=cuda_device).init(torch.Generator(cuda_device).manual_seed(0))
+    B, S = 4, 256
+    cache = model.init_cache(B, S)
+    leaves = [cache["ckv"], cache["krope"]]
+    for i, leaf in enumerate(leaves):
+        leaf.copy_(_inputs(cuda_device, leaf.dtype, 60 + i, tuple(leaf.shape))[0])
+    start = [leaf.clone() for leaf in leaves]
+    tokens = torch.zeros((B, 1), dtype=torch.long, device=cuda_device)
+    pos = torch.zeros((B,), dtype=torch.long, device=cuda_device)
+
+    def step():
+        logits, _ = model.decode_step(tokens, cache, pos)
+        return logits
+
+    def restore():
+        for leaf, s0 in zip(leaves, start):
+            leaf.copy_(s0)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.no_grad(), torch.cuda.stream(side):
+        step()                                       # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    restore()
+    graph = torch.cuda.CUDAGraph()
+    before = tkernel.LAUNCHES["mla_decode_attention"]
+    with torch.no_grad(), torch.cuda.graph(graph):
+        static_logits = step()
+    assert tkernel.LAUNCHES["mla_decode_attention"] == before + cfg.n_layers
+    split = _mla_split(B, S)
+    rng = np.random.default_rng(7)
+    for lengths in ([1, split, split + 1, S], [S - 3, 2, 2 * split - 1, split - 1]):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, 1))).to(cuda_device)
+        restore()
+        tokens.copy_(toks)
+        pos.copy_(torch.tensor(lengths, device=cuda_device) - 1)
+        graph.replay()
+        got, got_cache = static_logits.clone(), [leaf.clone() for leaf in leaves]
+        restore()
+        with torch.no_grad():
+            want = step()
+        assert torch.equal(got, want)
+        for g, w in zip(got_cache, leaves):
+            assert torch.equal(g, w)
+
+
 SSD_DTYPES = {"float32": (torch.float32, 1e-4), "bfloat16": (torch.bfloat16, 5e-2)}
 SSD_SWEEP = [  # B, S, H, P, G, N, chunk — tests/test_kernels_ssd.py:41-46, then the slice's
     (1, 64, 2, 16, 1, 16, 16),

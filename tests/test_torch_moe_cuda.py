@@ -71,7 +71,9 @@ def test_graphed_moe_engine_equals_eager_engine(arch, dtype, cuda_device):
     graphed = ServeEngine(model, max_batch=3, max_len=64)
     eager = ServeEngine(model, max_batch=3, max_len=64, cuda_graph=False)
     assert graphed._graph.launches == {"flash_attention": 0, "decode_attention": L,
+                                       "mla_decode_attention": 0,
                                        "decode_attention_partials": 0,
+                                       "mla_decode_attention_partials": 0,
                                        "fused_add_rmsnorm": L, "ssd": 0}
     assert _serve(graphed, prompts, n_new) == _serve(eager, prompts, n_new)
     assert graphed.steps == eager.steps

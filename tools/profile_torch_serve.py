@@ -28,9 +28,11 @@ For the MoE it also times the decode step's expert products alone (CUDA
 events, L2 flushed): every layer's three batched products over its 60
 experts at the step's capacity, as the step runs them, against the least
 time the card needs to read those weights. For MLA (minicpm3-4b) it times
-the decode step's per-layer concatenation of the latent cache and its rope
-keys into the absorbed attention's keys (``k_full``, models/mla.py) alone,
-against the least time to read and write them. Needs one CUDA card.
+the decode step's absorbed attention alone: every layer's
+``mla_decode_attention`` over the engine's latent caches at its slots'
+positions, against the least time to read the caches once, beside the path
+the kernel replaced (each layer's ``cat`` of the two caches into one K, then
+``decode_attention``). Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -144,33 +146,55 @@ def _expert_products(model: Model, n_tokens: int, reps: int = 20) -> None:
           f"{weight_bytes / HBM_BYTES_S * 1e3:.4f} ms at 3.35 TB/s")
 
 
-def _latent_concat(engine: ServeEngine, reps: int = 20) -> None:
-    """Median device time of a decode step's ``k_full`` copies alone: every
-    layer's ``torch.cat([ckv, krope], -1)`` over the engine's whole cache, as
-    models/mla.py runs it (CUDA events, L2 flushed)."""
-    ckv, krope = engine.cache["ckv"], engine.cache["krope"]
+def _mla_attention(engine: ServeEngine, reps: int = 20) -> None:
+    """Median device time of a decode step's absorbed attention alone (CUDA
+    events, L2 flushed): every layer's ``mla_decode_attention`` over the
+    engine's latent caches at its slots' current positions, with a random
+    query; then the path it replaced, each layer's ``cat`` of the caches and
+    ``decode_attention``, on the same tensors."""
+    from repro_torch.kernels.flash_attention import kernel as attn_kernel
 
-    def chain():
-        for i in range(ckv.shape[0]):
-            torch.cat([ckv[i], krope[i]], dim=-1)
+    cfg = engine.model.cfg
+    m = cfg.mla
+    ckv, krope = engine.cache["ckv"], engine.cache["krope"]    # (L, B, S, ·)
+    L, B, S, dl = ckv.shape
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    pos = engine._positions
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn((B, 1, cfg.n_heads, dl + krope.shape[-1]), generator=gen,
+                    device="cuda").to(ckv.dtype)
+
+    def kernel():
+        for i in range(L):
+            attn_kernel.mla_decode_attention(q, ckv[i], krope[i], pos, scale=scale)
+
+    def replaced():
+        for i in range(L):
+            k = torch.cat([ckv[i], krope[i]], dim=-1)[:, :, None, :]
+            attn_kernel.decode_attention(q, k, ckv[i][:, :, None, :], pos, scale=scale)
 
     flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
-    chain()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(5_000_000)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
+    ms = {}
+    for name, chain in (("kernel", kernel), ("replaced", replaced)):
         chain()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    moved = 2 * (ckv.numel() + krope.numel()) * ckv.element_size()
-    print(f"[k_full] a decode step's latent concatenations ({ckv.shape[0]} layers, cache "
-          f"{tuple(ckv.shape[1:])} + {tuple(krope.shape[1:])}): {np.median(times):.4f} ms "
-          f"(median of {reps}, L2 flushed); {moved / 1e6:.1f} MB read and written, "
-          f"{moved / HBM_BYTES_S * 1e3:.4f} ms at 3.35 TB/s")
+        times = []
+        for _ in range(reps):
+            flush.zero_()
+            torch.cuda._sleep(20_000_000)           # the host enqueues the chain meanwhile
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            chain()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms[name] = float(np.median(times))
+    lens = (pos.clamp(min=-1) + 1).clamp(max=S)
+    read = int(lens.sum()) * (dl + krope.shape[-1]) * ckv.element_size() * L
+    print(f"[mla] a decode step's absorbed attention ({L} layers, {B} slots at lengths "
+          f"{lens.tolist()}): mla_decode_attention {ms['kernel']:.4f} ms (median of {reps}, "
+          f"L2 flushed); the caches read once {read / 1e6:.1f} MB, "
+          f"{read / HBM_BYTES_S * 1e3:.4f} ms at 3.35 TB/s; the path it replaced (cat + "
+          f"decode_attention) {ms['replaced']:.4f} ms")
 
 
 def main() -> int:
@@ -227,7 +251,7 @@ def main() -> int:
     if cfg.family == "moe":
         _expert_products(model, engine.max_batch)
     if cfg.mla is not None:
-        _latent_concat(engine)
+        _mla_attention(engine)
     return 0
 
 
