@@ -8,10 +8,10 @@ order, each printing its lines; any failure raises and the exit code is not 0:
 
 1. device          - require CUDA and compute capability 9.0; print the card's
                      name and power limit (nvidia-smi); fp32 products in full fp32.
-2. build           - compile the five kernels from ``src/repro_torch`` (flash,
-                     decode and MLA decode attention, the add + norm, the SSD
-                     scan) with nvcc for sm_90a, one nvcc per source, all
-                     started together.
+2. build           - compile the six kernels from ``src/repro_torch`` (flash,
+                     decode and MLA decode attention, flash attention's
+                     backward, the add + norm, the SSD scan) with nvcc for
+                     sm_90a, one nvcc per source, all started together.
 3. kernels         - hold each attention kernel against its plain PyTorch version
                      (ref.py) at 2e-5 (f32) / 2e-2 (bf16) on the reference's test
                      shapes, prefill at hd 80, 128 and 24 (the bf16 wgmma kernel's
@@ -53,6 +53,20 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      bf16 beside the path it replaced (``cat`` of the caches,
                      then ``decode_attention``), ``decode_attention`` alone
                      on a ready K, its plain version and SDPA's math backend.
+                     Flash attention's backward kernel (B10) on the forward
+                     kernel's (o, lse), f32 and bf16, against
+                     ``ref.mha_backward_reference`` (each gradient within
+                     relative L2 1e-5 / 2e-2; the lse against the plain one)
+                     at qwen2-0.5b's and zamba2-2.7b's training calls
+                     (8 x 1024, 14/2 hd 64 and 32/32 hd 80, causal),
+                     minicpm3-4b's prefill (dqk 96, dv 64), whisper-small's
+                     cross attention (64 queries over 1500 keys,
+                     non-causal), internvl2-26b's (G 6, hd 128) and per-row
+                     kv_len with a row of length 0 (exact zero gradients)
+                     and a q_offset; timed in bf16 at the two training
+                     calls beside its plain version, the plain autograd
+                     backward it replaced, SDPA's backward alone and the
+                     bound of its five products.
 4. kernels-rmsnorm - hold the fused add + RMSNorm kernel against its plain
                      version at 1e-6 (f32) / 1e-2 (bf16) on the reference's sweep
                      and the slices' rows (d_model 896, 2560 and 2048, 512-token
@@ -140,10 +154,14 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      (b) one ``build_train_step`` step with the counters set to
                      0 just before it launches exactly 48 flash attention and
                      48 add + norm calls (24 layers x forward and remat's
-                     recompute; the backward of each is its plain version's
-                     gradient) and no decode attention or scan; the step split
-                     by CUDA events into forward, backward (the plain attention
-                     backward's share from one call timed alone) and optimizer,
+                     recompute) and 24 of flash attention's backward kernel
+                     (the add + norm's backward is its plain version's
+                     gradient) and no decode attention or scan, and
+                     ``ref.mha_reference`` runs on no CUDA tensor there or in
+                     the timed steps; the step split by CUDA events into
+                     forward, backward (the attention backward kernel's and
+                     the plain add + norm backward's shares from one call
+                     each timed alone) and optimizer,
                      tokens/s, model FLOP utilisation against the bf16 dense
                      peak, peak allocated memory; (c) a ``Trainer`` runs 20
                      steps through a FunctionService (one endpoint, one worker)
@@ -151,7 +169,7 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      second Trainer on the same directory resumes at 10 and its
                      losses for steps 11-20 match the first's within 1e-2;
                      every loss finite, the last 5 below the first 5 on average,
-                     48 + 48 launches a step; (d) a bf16 checkpoint of the
+                     48 + 48 + 24 launches a step; (d) a bf16 checkpoint of the
                      weights restores to bf16 tensors equal to those saved.
 11. slice-ssm      - the same as slice for full-width mamba2-2.7b (prefills pad
                      384 to 512).
@@ -188,7 +206,7 @@ order, each printing its lines; any failure raises and the exit code is not 0:
 17. train-hybrid   - the same for full-width zamba2-2.7b after fabric-hybrid:
                      108 `ssd`, 18 flash attention and 18 add + norm calls a
                      step (54 Mamba2 layers and 9 shared-block calls, each
-                     twice).
+                     twice) and 9 of the attention backward kernel.
 18. slice-moe      - the same as slice for full-width qwen2-moe-a2.7b (60 routed
                      experts top-4 with capacity drop, a gated shared expert);
                      the f32 check runs 8 of its 24 layers (a depth cut: the
@@ -350,7 +368,8 @@ graphed serve runs, the fabric runs, the train phase's two trainer runs, the
 train-ssm and train-hybrid trainer runs, the shapes phase's timed runs, the
 warming phase's compiled LM loss and the mesh-decode, mesh-moe and
 mesh-steps phases' runs on a mesh; the fabric phases together must have
-launched every kernel of a single card's paths, mesh-steps those too, and
+launched every kernel of a single card's serving paths, mesh-steps those and
+flash attention's backward (which only training runs) too, and
 mesh-decode the two partials kernels (which only a cache split by
 sequence over ranks runs).
 
@@ -418,6 +437,8 @@ SOURCES = {
     "mla_decode_attention": "src/repro_torch/kernels/flash_attention/csrc/mla_decode.cu",
     "mla_decode_attention_partials":
         "src/repro_torch/kernels/flash_attention/csrc/mla_decode.cu",
+    "flash_attention_backward":
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention_backward.cu",
     "fused_add_rmsnorm": "src/repro_torch/kernels/rmsnorm/csrc/fused_add_rmsnorm.cu",
     "ssd": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
 }
@@ -429,6 +450,9 @@ REPLACES = {
     # ... at MLA's absorbed decode (src/repro/models/mla.py:133), whole and by shard
     "mla_decode_attention": "src/repro/kernels/flash_attention/kernel.py:173",
     "mla_decode_attention_partials": "src/repro/kernels/flash_attention/kernel.py:173",
+    # attention's gradient: the reference trains through jax.grad of its plain
+    # mha_reference, flash_attention_pallas having no VJP (F10)
+    "flash_attention_backward": "src/repro/kernels/flash_attention/ref.py:16",
     "fused_add_rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:30",
     "ssd": "src/repro/kernels/ssd/kernel.py:93",
 }
@@ -437,6 +461,9 @@ KERNEL_MODULES = (attn_kernel, rms_kernel, ssd_kernel)
 # than one rank (a mesh whose `model` axis the KV heads do not divide, or
 # MLA's latent cache): no single-card path and no 1-rank mesh launches them
 MESH_SEQ_KERNELS = ("decode_attention_partials", "mla_decode_attention_partials")
+# kernels that run only where autograd records a forward (the train phases and
+# mesh-steps' train steps): no serve or fabric path launches them
+TRAIN_KERNELS = ("flash_attention_backward",)
 # decode over a sequence-sharded cache (F14): qwen2-0.5b's decode_32k row shape
 # and minicpm3-4b's absorbed MLA decode at its served shape, each cut into 2
 # and 4 shards; the first is the summary's row (bf16, a shard of 2).
@@ -560,6 +587,23 @@ VLM_F32_LAYERS = 8
 # max|dlogit| within 16 such ulps, and every top-1 disagreement a near-tie
 # within that same margin.
 SLICE_VLM_BF16_TOL = 0.5
+
+# the attention backward kernel: held against ref.mha_backward_reference on
+# the forward kernel's (o, lse), each gradient within BWD_TOL (relative L2:
+# f32 sums in another order; bf16 rounds P and dS for the products); timed
+# at qwen2-0.5b's and zamba2-2.7b's training calls, the first the summary's
+# row, and held at the other families' training shapes. (B, Sq, Skv, H, KV,
+# dqk, dv, kwargs; causal unless the kwargs say otherwise)
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+BWD_TIMED_SHAPES = {ARCH: (8, 1024, 1024, 14, 2, 64, 64, {}),
+                    HYBRID_ARCH: (8, 1024, 1024, 32, 32, 80, 80, {})}
+BWD_HELD_SHAPES = {
+    "minicpm3-4b prefill (dqk 96, dv 64)": (1, 512, 512, 40, 40, 96, 64, {"scale": MLA_SCALE}),
+    "whisper-small cross (64 over 1500 keys)": (1, 64, 1500, 12, 12, 64, 64, {"causal": False}),
+    "internvl2-26b (G 6, hd 128)": (1, 768, 768, 48, 8, 128, 128, {}),
+    "per-row kv_len with a 0 row, q_offset 64": (3, 100, 164, 8, 2, 64, 64,
+                                                 {"q_offset": 64, "kv_len": [0, 37, 164]}),
+}
 
 
 # the train phase: full-width qwen2-0.5b, bf16, seed 0, remat on (the config's)
@@ -920,6 +964,7 @@ def phase_kernels() -> dict:
     _attn_slice_rows(gen, MLA_PREFILL_SHAPE, MLA_DECODE_SHAPE, pos_mla, MLA_ARCH, scale=MLA_SCALE)
     rows.update(_mla_decode_rows(gen, pos_mla))
     _whisper_attn_rows(gen)
+    rows.update(_flash_backward_rows(gen))
     _attn_slice_rows(gen, VLM_PREFILL_SHAPE, VLM_DECODE_SHAPE, pos_np, VLM_ARCH)
     _long_decode_rows(gen)
     rows.update(_partials_rows(gen))
@@ -1345,6 +1390,102 @@ def _whisper_attn_rows(gen) -> None:
                    f"{t['plain']:.4f} ms, sdpa {t['sdpa']:.4f} ms (default dispatch; by "
                    f"backend: {t['backends']}), bound {t['bound'][0]:.5f} ms by "
                    f"{t['bound'][1]} ({d_flops / 1e9:.4f} GFLOP, {d_bytes / 1e6:.3f} MB)")
+
+
+def _flash_backward_case(gen, shape, dtype) -> tuple:
+    """``flash_attention_backward`` on the forward kernel's (o, lse) at
+    ``shape`` (a BWD_*_SHAPES entry) against ``ref.mha_backward_reference``
+    on the same tensors: each gradient within BWD_TOL (relative L2), exact
+    zeros for a row of length 0; the forward's lse against the plain one.
+    Returns (max_abs_err over dq, dk, dv, lse's max abs difference, the
+    call's tensors and kwargs)."""
+    B, Sq, Skv, H, KV, dqk, dv, kw = shape
+    kw = {"causal": True, "q_offset": None, "kv_len": None, "scale": None} | {
+        n: torch.tensor(x, device=DEVICE) if isinstance(x, list) else x for n, x in kw.items()}
+    q, k = randn(gen, (B, Sq, H, dqk), dtype), randn(gen, (B, Skv, KV, dqk), dtype)
+    v, do = randn(gen, (B, Skv, KV, dv), dtype), randn(gen, (B, Sq, H, dv), dtype)
+    o, lse = attn_kernel._flash_launch(q, k, v, with_lse=True, **kw)
+    got = attn_kernel.flash_attention_backward(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    want = attn_ref.mha_backward_reference(q, k, v, o, do, lse, **kw)
+    what = f"flash backward {(B, Sq, Skv, H, KV, dqk, dv)} {kw} {dtype}"
+    errs = []
+    for name, g, w in zip("qkv", got, want):
+        g, w = g.float(), w.float()
+        rel = ((g - w).norm() / w.norm()).item()
+        if not torch.isfinite(g).all() or rel > BWD_TOL[dtype]:
+            raise AssertionError(f"{what}: d{name} relative L2 {rel:.3e} > {BWD_TOL[dtype]} "
+                                 "or non-finite")
+        errs.append((g - w).abs().max().item())
+    lens = kw["kv_len"]
+    if lens is not None and lens.ndim == 1 and (lens == 0).any():
+        empty = lens == 0
+        if any(g[empty].count_nonzero() for g in got):
+            raise AssertionError(f"{what}: a row of length 0 has a nonzero gradient")
+    _, plain_lse = attn_ref.mha_forward_with_lse_reference(q, k, v, **kw)
+    finite = torch.isfinite(plain_lse)
+    if not torch.equal(torch.isfinite(lse), finite):
+        raise AssertionError(f"{what}: the kernel's lse is -inf on other rows than the plain one")
+    lse_err = (lse[finite] - plain_lse[finite]).abs().max().item()
+    if lse_err > 1e-3:
+        raise AssertionError(f"{what}: lse differs from the plain one by {lse_err:.3e}")
+    return max(errs), lse_err, (q, k, v, o, do, lse), kw
+
+
+def _flash_backward_rows(gen) -> dict:
+    """The attention backward kernel (B10): held in f32 and bf16 at every
+    BWD_TIMED_SHAPES and BWD_HELD_SHAPES entry; timed in bf16 at the timed
+    ones beside its plain version (``mha_backward_reference``), the plain
+    autograd backward the train step ran before it (``mha_reference``
+    recomputed and differentiated), SDPA's backward alone (its forward run
+    once, the graph retained) and the bound of the five products (S, dP, dV,
+    dQ, dK) and the bytes (q, k, v, o, dO, lse read, dq, dk, dv written).
+    Returns the summary's row (the first timed shape)."""
+    rows = {}
+    for label, shape in list(BWD_TIMED_SHAPES.items()) + list(BWD_HELD_SHAPES.items()):
+        errs = {dt: _flash_backward_case(gen, shape, dt)[:2]
+                for dt in (torch.float32, torch.bfloat16)}
+        say("kernels", f"flash_attention_backward {label} {shape[:7]}: max_abs_err "
+                       f"{errs[torch.float32][0]:.3e} (f32) / {errs[torch.bfloat16][0]:.3e} "
+                       f"(bf16), each gradient within relative L2 {BWD_TOL[torch.float32]:g} / "
+                       f"{BWD_TOL[torch.bfloat16]:g} of mha_backward_reference; the forward's "
+                       f"lse within {errs[torch.float32][1]:.1e} / {errs[torch.bfloat16][1]:.1e}")
+        if label not in BWD_TIMED_SHAPES:
+            continue
+        err, _, (q, k, v, o, do, lse), kw = _flash_backward_case(gen, shape, torch.bfloat16)
+        B, Sq, Skv, H, KV, dqk, dv, _ = shape
+        pairs = B * H * Sq * (Sq + 1) // 2                  # causal: the pairs a row sees
+        flops = 2 * pairs * (3 * dqk + 2 * dv)
+        # q, k, v, o and dO read, dq, dk and dv written (bf16), the lse read (fp32)
+        n_bytes = 2 * (q.numel() + k.numel() + v.numel() + o.numel()) * 2 + lse.numel() * 4
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2)
+        r = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: attn_kernel.flash_attention_backward(q, k, v, o, do, lse, **kw)),
+            plain_ms=cuda_ms(lambda: attn_ref.mha_backward_reference(q, k, v, o, do, lse, **kw),
+                             reps=10),
+            autograd_ms=cuda_ms(lambda: torch.autograd.grad(
+                attn_ref.mha_reference(qg, kg, vg), (qg, kg, vg), do), reps=10),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
+                                                           retain_graph=True)),
+            bound=bound(n_bytes, flops, torch.bfloat16),
+        )
+        say("kernels", f"{label} flash_attention_backward bf16 {shape[:7]} causal: kernel "
+                       f"{r['ms']:.4f} ms, plain (mha_backward_reference) {r['plain_ms']:.4f} "
+                       f"ms, plain autograd backward (forward recomputed + gradient) "
+                       f"{r['autograd_ms']:.4f} ms, SDPA backward alone {r['library_ms']:.4f} "
+                       f"ms, bound {r['bound'][0]:.5f} ms by {r['bound'][1]} ({flops / 1e9:.2f} "
+                       f"GFLOP, {n_bytes / 1e6:.1f} MB); device launches a call: the dQ "
+                       f"pass, the dK/dV pass ({H * B * -(-Skv // 64)} blocks of 128 threads, "
+                       f"one per query head and 64-key tile){', the GQA sum' if H > KV else ''}"
+                       f" on {torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+        rows.setdefault("flash_attention_backward", r)
+        del q, k, v, o, do, lse, qg, kg, vg, qt, kt, vt, sdpa_out
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _rms_case(gen, shape, dtype, eps=1e-6):
@@ -2682,27 +2823,39 @@ def _attention_layers(cfg) -> int:
         cfg.family, cfg.n_layers)
 
 
-def _train_counts(cfg) -> dict:
-    """Kernel calls of one train step (remat on: each forward call twice,
-    forward and recompute; the backward of each is its plain version's
-    gradient): flash attention and the add + norm once a dense layer or a
-    hybrid group's shared block, the scan once a Mamba2 layer."""
+def _forward_counts(cfg) -> dict:
+    """Kernel calls of one forward: flash attention and the add + norm once a
+    dense layer or a hybrid group's shared block, the scan once a Mamba2
+    layer; whisper's encoder self and decoder self + cross attention (its
+    norms are LayerNorms)."""
+    if cfg.family == "encdec":
+        return _counts(flash_attention=cfg.n_enc_layers + 2 * cfg.n_layers)
     attn = _attention_layers(cfg)
     scan = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
-    if cfg.family == "encdec":   # encoder self, decoder self + cross; LayerNorms
-        return _counts(flash_attention=2 * (cfg.n_enc_layers + 2 * cfg.n_layers))
-    return _counts(flash_attention=2 * attn, fused_add_rmsnorm=2 * attn, ssd=2 * scan)
+    return _counts(flash_attention=attn, fused_add_rmsnorm=attn, ssd=scan)
 
 
-def _plain_backward_ms(model: Model, batch: int = TRAIN_BATCH) -> dict:
+def _train_counts(cfg) -> dict:
+    """Kernel calls of one train step (remat on): each forward call twice,
+    forward and recompute; attention's backward kernel once a forward call
+    of attention (the add + norm's and the scan's backwards are their plain
+    versions' gradients: no launch)."""
+    fwd = _forward_counts(cfg)
+    return {k: 2 * n for k, n in fwd.items()} | {"flash_attention_backward":
+                                                 fwd["flash_attention"]}
+
+
+def _backward_ms(model: Model, batch: int = TRAIN_BATCH) -> dict:
     """Each kernel on the model's training path at the training shapes:
-    {name: {"plain": device ms of one call of its plain backward (what
+    {name: {"backward": device ms of one call of the backward the step runs,
+    "kind": "kernel" (attention's backward kernel) or "plain" (what
     ``KernelWithPlainGrad.backward`` runs: the plain forward recomputed and
-    its gradient), "kernel": the kernel forward's ms, "bound": (the forward's
-    least ms, "bytes" or "operations"), "library": {yardstick: ms}}}. The
-    yardsticks: ``F.scaled_dot_product_attention``'s forward and its
-    forward + backward (B10); the add + norm's two calls ``x + delta`` and
-    ``F.rms_norm``; none for the scan."""
+    its gradient), "plain": that plain backward's ms (for attention the
+    path the kernel replaced), "kernel": the kernel forward's ms, "bound":
+    (the forward's least ms, "bytes" or "operations"), "library":
+    {yardstick: ms}}}. The yardsticks: ``F.scaled_dot_product_attention``'s
+    forward, its forward + backward and its backward alone (B10); the add +
+    norm's two calls ``x + delta`` and ``F.rms_norm``; none for the scan."""
     cfg, gen = model.cfg, torch.Generator(device=DEVICE).manual_seed(5)
     dt = model.params["embed"]["tok"].dtype
     esz = torch.empty((), dtype=dt).element_size()
@@ -2718,27 +2871,37 @@ def _plain_backward_ms(model: Model, batch: int = TRAIN_BATCH) -> dict:
                                                       enable_gqa=True)
         with torch.no_grad():
             sdpa_fwd = cuda_ms(sdpa)
+        sdpa_out, got = sdpa(), go.detach().transpose(1, 2)
+        qd, kd, vd, god = (t.detach() for t in (q, k, v, go))
+        o, lse = attn_kernel._flash_launch(qd, kd, vd, with_lse=True, causal=True, q_offset=None,
+                                           kv_len=None, scale=None)
+        plain = cuda_ms(lambda: torch.autograd.grad(
+            attn_ref.mha_reference(q, k, v), (q, k, v), go.detach()), reps=10)
         out["flash_attention"] = {
-            "plain": cuda_ms(lambda: torch.autograd.grad(
-                attn_ref.mha_reference(q, k, v), (q, k, v), go.detach()), reps=10),
-            "kernel": cuda_ms(lambda: attn_kernel.flash_attention(q.detach(), k.detach(),
-                                                                  v.detach())),
+            "backward": cuda_ms(lambda: attn_kernel.flash_attention_backward(qd, kd, vd, o, god,
+                                                                             lse)),
+            "kind": "kernel",
+            "plain": plain,
+            "kernel": cuda_ms(lambda: attn_kernel.flash_attention(qd, kd, vd)),
             # q, k, v read, o written; the causal QK^T and PV
             "bound": bound((2 * q.numel() + 2 * k.numel()) * esz,
                            2 * B * H * S * S * hd, dt),
             "library": {"SDPA forward": sdpa_fwd, "SDPA forward + backward": cuda_ms(
-                lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), go.detach().transpose(1, 2)),
-                reps=10)},
+                lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), got), reps=10),
+                "SDPA backward alone": cuda_ms(lambda: torch.autograd.grad(
+                    sdpa_out, (qt, kt, vt), got, retain_graph=True))},
         }
+        del sdpa_out, o, lse
     if counts["fused_add_rmsnorm"]:
         x, d = (randn(gen, (B, S, cfg.d_model), dt).requires_grad_() for _ in range(2))
         scale = torch.ones(cfg.d_model, device=DEVICE, requires_grad=True)
         g_res, g_out = (randn(gen, (B, S, cfg.d_model), dt) for _ in range(2))
         xd, dd, sd = x.detach(), d.detach(), scale.detach()
+        plain = cuda_ms(lambda: torch.autograd.grad(
+            rms_ref.fused_add_rmsnorm_reference(x, d, scale, cfg.norm_eps), (x, d, scale),
+            (g_res, g_out)), reps=10)
         out["fused_add_rmsnorm"] = {
-            "plain": cuda_ms(lambda: torch.autograd.grad(
-                rms_ref.fused_add_rmsnorm_reference(x, d, scale, cfg.norm_eps), (x, d, scale),
-                (g_res, g_out)), reps=10),
+            "backward": plain, "kind": "plain", "plain": plain,
             "kernel": cuda_ms(lambda: rms_kernel.fused_add_rmsnorm(xd, dd, sd, cfg.norm_eps)),
             # x and delta read, both outputs written, the fp32 scale read
             "bound": bound(4 * x.numel() * esz + scale.numel() * 4, 0, dt),
@@ -2751,9 +2914,10 @@ def _plain_backward_ms(model: Model, batch: int = TRAIN_BATCH) -> dict:
         args = [t.requires_grad_() for t in _ssd_inputs(gen, B, S, H, P, G, N, dt)]
         gy = randn(gen, (B, S, H, P), dt)
         x = args[0]
+        plain = cuda_ms(lambda: torch.autograd.grad(
+            ssd_ref.ssd_reference(*args, chunk=s.chunk)[0], args, gy), reps=5)
         out["ssd"] = {
-            "plain": cuda_ms(lambda: torch.autograd.grad(
-                ssd_ref.ssd_reference(*args, chunk=s.chunk)[0], args, gy), reps=5),
+            "backward": plain, "kind": "plain", "plain": plain,
             "kernel": cuda_ms(lambda: ssd_kernel.ssd(*(t.detach() for t in args),
                                                      chunk=s.chunk)),
             # x in, y out, B, C (the activation dtype), dt and A (fp32)
@@ -2804,35 +2968,32 @@ _KERNEL_WORDS = {"flash_attention": "attention", "fused_add_rmsnorm": "add + nor
                  "ssd": "scan"}
 
 
-def _train_time_steps(tag: str, model: Model, batch: int = TRAIN_BATCH) -> None:
-    """(b) and the timings: one step through ``build_train_step`` with the
-    launch counters set to 0 just before it (exactly ``_train_counts``:
-    forward and remat's recompute; no decode attention); then
-    TRAIN_TIMED_STEPS steps split by CUDA events into forward, backward and
-    optimizer."""
-    cfg = model.cfg
-    ocfg = train_opt.OptimizerConfig()
-    params = model.params
-    state = train_opt.init_state(params, ocfg)
-    step = build_train_step(model, ocfg).fn
-    data = _train_batch(cfg, batch=batch)
-    for _ in range(2):                      # warm-up: cuBLAS handles, allocator
-        step(params, state, data)
-    torch.cuda.synchronize()
-    _reset_launches()
-    _, _, m = step(params, state, data)
-    torch.cuda.synchronize()
-    launches = _launch_counts()
-    need = _train_counts(cfg)
-    if launches != need:
-        raise AssertionError(f"{tag}: one train step launched {launches}, not {need}")
-    say(tag, f"(b) one train step launched {launches}: {cfg.n_layers} layers x (forward + "
-             "remat recompute); the backward of each is the plain version's gradient")
+@contextlib.contextmanager
+def _plain_attention_calls():
+    """Counts the calls of ``ref.mha_reference`` on CUDA tensors while open
+    (the wrappers and ``ops`` reach it through the module's attribute): the
+    plain attention, or its gradient, run on the card."""
+    calls = {"cuda": 0}
+    plain = attn_ref.mha_reference
 
+    def counted(q, *args, **kw):
+        calls["cuda"] += int(q.is_cuda)
+        return plain(q, *args, **kw)
+
+    attn_ref.mha_reference = counted
+    try:
+        yield calls
+    finally:
+        attn_ref.mha_reference = plain
+
+
+def _timed_steps(model: Model, state, data: dict, ocfg) -> tuple:
+    """TRAIN_TIMED_STEPS steps of ``model`` split by CUDA events: ([[forward,
+    backward, optimizer] ms of each step], the optimizer state after them)."""
+    params = model.params
     leaves = train_opt.tree_leaves(params)
     dtypes = train_opt.tree_map(lambda p: p.dtype, params)
     gdt = getattr(torch, ocfg.grad_dtype)
-    torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(TRAIN_TIMED_STEPS):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -2849,18 +3010,57 @@ def _train_time_steps(tag: str, model: Model, batch: int = TRAIN_BATCH) -> None:
         ev[3].synchronize()
         times.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
         del grads, new
+    return times, state
+
+
+def _train_time_steps(tag: str, model: Model, batch: int = TRAIN_BATCH) -> None:
+    """(b) and the timings: one step through ``build_train_step`` with the
+    launch counters set to 0 just before it (exactly ``_train_counts``:
+    forward and remat's recompute, attention's backward kernel; no decode
+    attention); then TRAIN_TIMED_STEPS steps split by CUDA events into
+    forward, backward and optimizer. In both, ``ref.mha_reference`` runs on
+    no CUDA tensor."""
+    cfg = model.cfg
+    ocfg = train_opt.OptimizerConfig()
+    params = model.params
+    state = train_opt.init_state(params, ocfg)
+    step = build_train_step(model, ocfg).fn
+    data = _train_batch(cfg, batch=batch)
+    for _ in range(2):                      # warm-up: cuBLAS handles, allocator
+        step(params, state, data)
+    torch.cuda.synchronize()
+    need = _train_counts(cfg)
+    with _plain_attention_calls() as plain_calls:
+        _reset_launches()
+        _, _, m = step(params, state, data)
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        if launches != need:
+            raise AssertionError(f"{tag}: one train step launched {launches}, not {need}")
+        say(tag, f"(b) one train step launched {launches}: the forward kernels twice a call "
+                 "(forward + remat recompute), attention's backward kernel once; the add + "
+                 "norm's and the scan's backwards are their plain versions' gradients")
+        torch.cuda.reset_peak_memory_stats()
+        times, state = _timed_steps(model, state, data, ocfg)
+    if plain_calls["cuda"]:
+        raise AssertionError(f"{tag}: ref.mha_reference ran {plain_calls['cuda']} times on the "
+                             "card during the timed steps")
+    say(tag, f"ref.mha_reference on the card during (b) and the {TRAIN_TIMED_STEPS} timed "
+             f"steps: {plain_calls['cuda']} calls")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     del state
     fwd, bwd, optim = (float(np.median(c)) for c in zip(*times))
     total = float(np.median([sum(t) for t in times]))
     flops = _train_flops(model, batch)
     tokens = batch * TRAIN_SEQ
-    plain = _plain_backward_ms(model, batch)
+    timed = _backward_ms(model, batch)
     parts = []
-    for name, r in plain.items():
-        n = need[name] // 2
-        parts.append(f"the plain {_KERNEL_WORDS[name]} backward {r['plain']:.4f} ms a call "
-                     f"alone, x {n} = {n * r['plain']:.3f} ms, {n * r['plain'] / bwd:.1%} of it")
+    for name, r in timed.items():
+        n, word = need[name] // 2, _KERNEL_WORDS[name]
+        what = f"the {word} backward kernel" if r["kind"] == "kernel" else \
+            f"the plain {word} backward"
+        parts.append(f"{what} {r['backward']:.4f} ms a call alone, x {n} = "
+                     f"{n * r['backward']:.3f} ms, {n * r['backward'] / bwd:.1%} of it")
     say(tag, f"step (median of {TRAIN_TIMED_STEPS}, CUDA events) {total:.3f} ms: forward "
              f"{fwd:.3f}, backward {bwd:.3f} (remat's recompute included; "
              + "; ".join(parts) + f"), optimizer {optim:.3f}")
@@ -2870,9 +3070,11 @@ def _train_time_steps(tag: str, model: Model, batch: int = TRAIN_BATCH) -> None:
              f"MFU {flops / (total / 1e3) / PEAK_FLOPS[torch.bfloat16]:.3%} of the bf16 dense "
              f"peak ({flops / PEAK_FLOPS[torch.bfloat16] * 1e3:.3f} ms at 989 TFLOP/s); peak "
              f"allocated {peak:.3f} GiB")
-    for name, r in plain.items():
+    for name, r in timed.items():
+        kernel = f"backward kernel {r['backward']:.4f} ms a call, the plain backward it " \
+            "replaced" if r["kind"] == "kernel" else "plain backward"
         say(tag, f"{name} at the training shape: kernel forward {r['kernel']:.4f} ms against "
-                 f"its bound {r['bound'][0]:.5f} ms by {r['bound'][1]}; plain backward "
+                 f"its bound {r['bound'][0]:.5f} ms by {r['bound'][1]}; {kernel} "
                  f"{r['plain']:.4f} ms a call" + "".join(
                      f"; {k} {v:.4f} ms" for k, v in r["library"].items()))
     if not np.isfinite(float(m["loss"])):
@@ -2939,8 +3141,7 @@ def _train_resume(tag: str, model: Model) -> dict:
                 and late < early):
             raise AssertionError(f"{tag}: resume |dloss| {diff:.3e}, first 5 {early}, last 5 "
                                  f"{late}, or a non-finite loss")
-        need = _counts(flash_attention=2 * model.cfg.n_layers,
-                       fused_add_rmsnorm=2 * model.cfg.n_layers)
+        need = _train_counts(model.cfg)
         ran = len(first) + len(second)
         if launches != {k: n * ran for k, n in need.items()}:
             raise AssertionError(f"{tag}: {ran} trainer steps launched {launches}")
@@ -3184,7 +3385,7 @@ def _shape_prefill(arch: str, rec: dict, B: int) -> dict:
     S = shape.seq_len
     tol = SHAPES_TOL.get(arch, SLICE_SSM_BF16_TOL)
     gen = torch.Generator(device=DEVICE).manual_seed(6)
-    need = {k: n // 2 for k, n in _train_counts(cfg).items()}   # one forward's calls
+    need = _forward_counts(cfg)
     flash = "no attention"
     if need["flash_attention"]:
         q, k, v = (randn(gen, (1, S, 1, cfg.hd), torch.bfloat16) for _ in range(3))
@@ -4123,7 +4324,7 @@ def main() -> int:
     rows.update(phase_kernels_rmsnorm())
     rows.update(phase_kernels_ssd())
     launches = dict.fromkeys(rows, 0)
-    fabric_launches = {k: 0 for k in rows if k not in MESH_SEQ_KERNELS}
+    fabric_launches = {k: 0 for k in rows if k not in MESH_SEQ_KERNELS + TRAIN_KERNELS}
     for k, n in phase_warming().items():
         launches[k] += n
     mesh_dir = tempfile.TemporaryDirectory()    # the mesh-moe phase's reference run

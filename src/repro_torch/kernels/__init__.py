@@ -7,11 +7,13 @@ given a tensor on the CPU or on the meta device (a trace with no data, as
 ``launch/analysis.py`` counts FLOPs) computes the plain version (``on_host``).
 
 Gradients: a kernel wrapper given CUDA inputs that autograd records (grad
-mode on and an input that requires grad) launches its kernel through
-``KernelWithPlainGrad``, whose backward is the plain version's gradient
-(flash attention, the add + norm, the SSD scan), or raises where the kernel
-is on no training path (decode attention). It never returns an output
-without a ``grad_fn`` there.
+mode on and an input that requires grad) launches its kernel through an
+autograd Function, or raises where the kernel is on no training path
+(decode attention). Flash attention's Function
+(``flash_attention.kernel.FlashAttentionGrad``) has a backward kernel of its
+own; the add + norm and the SSD scan launch through ``KernelWithPlainGrad``,
+whose backward is the plain version's gradient, until their backward kernels
+come. A wrapper never returns an output without a ``grad_fn`` there.
 
 Compiled code: each kernel's launch on CUDA tensors (its pointer checks, the
 ctypes call, the launch counter) is a ``launcher``, which ``torch.compile``

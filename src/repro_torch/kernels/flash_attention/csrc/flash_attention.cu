@@ -55,6 +55,11 @@
 // h reads KV head h / G (G = H / KV, any integer); K/V are never repeated.
 // Masking uses the finite NEG_INF of ref.py; a row that sees no valid key
 // gives zeros.
+//
+// Under autograd the caller also asks for lse (B, H, Sq), fp32: each row's
+// natural-log log-sum-exp of its scaled, masked scores (-inf for a row with
+// no valid key), which flash_attention_backward.cu reads. Both kernels write
+// it from their final max and sum, one store a row; a null pointer skips it.
 #include <cstdio>
 
 #include <cuda.h>  // CUtensorMap and the driver's enums; the entry point comes from the runtime
@@ -85,6 +90,7 @@ size_t smem_bytes_f32(int dqk, int dv) {
 __global__ void __launch_bounds__(kThreads)
 flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
+                           float* __restrict__ lse,         // (B, H, Sq) or null
                            const int* __restrict__ kv_len,  // (B,) or null: Skv
                            int Sq, int Skv, int H, int KV, int dqk, int dv,
                            int64_t q_sb, int64_t q_ss, int64_t q_sh,
@@ -221,6 +227,8 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
     const int qi = q0 + ty + 16 * i;
     if (qi >= Sq) continue;
     const float den = l[i] == 0.f ? 1.f : l[i];  // no key visited: zeros, not NaN
+    if (lse != nullptr && tx == 0)
+      lse[(int64_t(b) * H + h) * Sq + qi] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
     float* orow = o + ((int64_t(b) * Sq + qi) * H + h) * dv;
 #pragma unroll
     for (int j = 0; j < kDims; ++j) {
@@ -230,7 +238,8 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
   }
 }
 
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, const int* kv_len,
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
+                       const int* kv_len,
                        int B, int Sq, int Skv, int H, int KV, int dqk, int dv,
                        const int64_t* qs, const int64_t* ks, const int64_t* vs,
                        float scale, int causal, int q_offset, cudaStream_t stream) {
@@ -241,7 +250,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, con
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
   flash_attention_f32_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), kv_len, Sq, Skv, H, KV, dqk, dv,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, kv_len, Sq, Skv, H, KV, dqk, dv,
       qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale, causal, q_offset);
   return cudaGetLastError();
 }
@@ -378,6 +387,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
                              __nv_bfloat16* __restrict__ o,
+                             float* __restrict__ lse,         // (B, H, Sq) or null
                              const int* __restrict__ kv_len,  // (B,) or null: Skv
                              int Sq, int Skv, int H, int KV, int dqk, int dv,
                              float scale_log2, int causal, int q_offset) {
@@ -418,8 +428,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int row0 = q0 + r0, row1 = row0 + 8;
   __nv_bfloat16* o0 = o + ((int64_t(b) * Sq + row0) * H + h) * dv;
   __nv_bfloat16* o1 = o0 + int64_t(8) * H * dv;
+  float* lse_row = lse != nullptr ? lse + (int64_t(b) * H + h) * Sq : nullptr;
 
-  if (n_tiles == 0) {  // no valid key for any row of the tile: zeros
+  if (n_tiles == 0) {  // no valid key for any row of the tile: zeros, lse -inf
+    if (lse_row != nullptr && (lane & 3) == 0) {
+      if (row0 < Sq) lse_row[row0] = -INFINITY;
+      if (row1 < Sq) lse_row[row1] = -INFINITY;
+    }
 #pragma unroll
     for (int s = 0; s < kVSlabs; ++s)
 #pragma unroll
@@ -582,6 +597,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;  // a row with no valid key: zeros
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  if (lse_row != nullptr && (lane & 3) == 0) {  // natural log; m is in log2 units
+    const float ln2 = 0.6931471805599453f;
+    if (row0 < Sq) lse_row[row0] = l0 > 0.f ? (m0 + log2f(l0)) * ln2 : -INFINITY;
+    if (row1 < Sq) lse_row[row1] = l1 > 0.f ? (m1 + log2f(l1)) * ln2 : -INFINITY;
+  }
 #pragma unroll
   for (int s = 0; s < kVSlabs; ++s)
 #pragma unroll
@@ -655,8 +675,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int hd, int S, int heads, int B
 
 template <int kQkSlabs, int kVSlabs>
 cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-                         void* o, const int* kv_len, int B, int Sq, int Skv, int H, int KV,
-                         int dqk, int dv, float scale, int causal, int q_offset,
+                         void* o, float* lse, const int* kv_len, int B, int Sq, int Skv, int H,
+                         int KV, int dqk, int dv, float scale, int causal, int q_offset,
                          cudaStream_t stream) {
   static size_t granted = 48 * 1024;
   const size_t smem = smem_bytes_bf16(kQkSlabs, kVSlabs);
@@ -666,32 +686,45 @@ cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUt
   const dim3 grid(H * ((Sq + kBlockQ - 1) / kBlockQ), B);
   const float log2e = 1.4426950408889634f;
   flash_attention_wgmma_kernel<kQkSlabs, kVSlabs><<<grid, kWgThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), kv_len, Sq, Skv, H, KV, dqk, dv,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, kv_len, Sq, Skv, H, KV, dqk, dv,
       scale * log2e, causal, q_offset);
   return cudaGetLastError();
 }
 
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, const int* kv_len,
-                        int B, int Sq, int Skv, int H, int KV, int dqk, int dv,
+// Fills n floats with -inf: the lse of rows that see no key.
+__global__ void fill_neg_inf_kernel(float* x, int64_t n) {
+  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n) x[i] = -INFINITY;
+}
+
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                        const int* kv_len, int B, int Sq, int Skv, int H, int KV, int dqk, int dv,
                         const int64_t* qs, const int64_t* ks, const int64_t* vs,
                         float scale, int causal, int q_offset, cudaStream_t stream) {
-  if (Skv == 0)  // no key for any row: zeros (a tensor map needs a nonzero extent)
+  if (Skv == 0) {  // no key for any row: zeros (a tensor map needs a nonzero extent)
+    const int64_t rows = int64_t(B) * H * Sq;
+    if (lse != nullptr && rows > 0) {
+      fill_neg_inf_kernel<<<unsigned((rows + 255) / 256), 256, 0, stream>>>(lse, rows);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
     return cudaMemsetAsync(o, 0, size_t(B) * Sq * H * dv * 2, stream);
+  }
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, dqk, Sq, H, B, qs) || !make_map(&tk, k, dqk, Skv, KV, B, ks) ||
       !make_map(&tv, v, dv, Skv, KV, B, vs))
     return cudaErrorInvalidValue;
   const bool wide_qk = dqk > kSlabCols, wide_v = dv > kSlabCols;
   if (wide_qk && wide_v)
-    return launch_wgmma<2, 2>(tq, tk, tv, o, kv_len, B, Sq, Skv, H, KV, dqk, dv, scale,
+    return launch_wgmma<2, 2>(tq, tk, tv, o, lse, kv_len, B, Sq, Skv, H, KV, dqk, dv, scale,
                               causal, q_offset, stream);
   if (wide_qk)
-    return launch_wgmma<2, 1>(tq, tk, tv, o, kv_len, B, Sq, Skv, H, KV, dqk, dv, scale,
+    return launch_wgmma<2, 1>(tq, tk, tv, o, lse, kv_len, B, Sq, Skv, H, KV, dqk, dv, scale,
                               causal, q_offset, stream);
   if (wide_v)
-    return launch_wgmma<1, 2>(tq, tk, tv, o, kv_len, B, Sq, Skv, H, KV, dqk, dv, scale,
+    return launch_wgmma<1, 2>(tq, tk, tv, o, lse, kv_len, B, Sq, Skv, H, KV, dqk, dv, scale,
                               causal, q_offset, stream);
-  return launch_wgmma<1, 1>(tq, tk, tv, o, kv_len, B, Sq, Skv, H, KV, dqk, dv, scale, causal,
+  return launch_wgmma<1, 1>(tq, tk, tv, o, lse, kv_len, B, Sq, Skv, H, KV, dqk, dv, scale, causal,
                             q_offset, stream);
 }
 
@@ -700,22 +733,26 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, co
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). Strides
 // are in elements: {batch, sequence, head} for each of q, k, v. dqk is the
-// head dim of q and k, dv that of v and o.
+// head dim of q and k, dv that of v and o. lse, where not null, receives each
+// row's natural-log log-sum-exp of its scaled, masked scores, (B, H, Sq) fp32,
+// -inf for a row with no valid key: the backward's input (training). The
+// serving paths pass null, and the kernels then do what they did without it.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      const int* kv_len, int dtype, int B, int Sq, int Skv,
-                                      int H, int KV, int dqk, int dv, const int64_t* q_strides,
-                                      const int64_t* k_strides, const int64_t* v_strides,
-                                      float scale, int causal, int q_offset, void* stream) {
+                                      float* lse, const int* kv_len, int dtype, int B, int Sq,
+                                      int Skv, int H, int KV, int dqk, int dv,
+                                      const int64_t* q_strides, const int64_t* k_strides,
+                                      const int64_t* v_strides, float scale, int causal,
+                                      int q_offset, void* stream) {
   using namespace repro_torch;
   if (dqk <= 0 || dqk > kMaxHd || dqk % 8 != 0 || dv <= 0 || dv > kMaxHd || dv % 8 != 0 ||
       KV <= 0 || H % KV != 0)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return launch_f32(q, k, v, o, kv_len, B, Sq, Skv, H, KV, dqk, dv, q_strides, k_strides,
+    return launch_f32(q, k, v, o, lse, kv_len, B, Sq, Skv, H, KV, dqk, dv, q_strides, k_strides,
                       v_strides, scale, causal, q_offset, s);
   if (dtype == kBFloat16)
-    return launch_bf16(q, k, v, o, kv_len, B, Sq, Skv, H, KV, dqk, dv, q_strides, k_strides,
+    return launch_bf16(q, k, v, o, lse, kv_len, B, Sq, Skv, H, KV, dqk, dv, q_strides, k_strides,
                        v_strides, scale, causal, q_offset, s);
   return cudaErrorInvalidValue;
 }

@@ -1,7 +1,14 @@
 """Wrappers of the Hopper attention kernels (``csrc/*.cu``), bound with ctypes.
 
 - ``flash_attention``: prefill, replaces ``flash_attention_pallas``
-  (src/repro/kernels/flash_attention/kernel.py:107).
+  (src/repro/kernels/flash_attention/kernel.py:107). Under autograd it also
+  writes each row's log-sum-exp for the backward.
+- ``flash_attention_backward``: its gradient (dq, dk, dv) from q, k, v, the
+  output, the output's gradient and the log-sum-exp; two device launches a
+  call (the dQ pass, then the dK/dV pass), three under GQA (the sum of each
+  KV head's query heads). The JAX package has no backward
+  kernel: it differentiates its plain ``mha_reference`` with ``jax.grad``
+  (src/repro/kernels/flash_attention/ref.py:16; the Pallas kernel has no VJP).
 - ``decode_attention``: one token against the cache, replaces
   ``decode_attention_pallas`` (same file, :173). One call is two device
   launches (split-KV, then the combine); ``LAUNCHES`` counts calls.
@@ -27,9 +34,10 @@ falls back to the plain version on the card. The libraries are built by
 ``nvcc`` at first use (``build()``).
 
 Under autograd (an input that requires grad, grad mode on) ``flash_attention``
-launches through ``KernelWithPlainGrad``: the kernel forward, the gradient of
-``ref.mha_reference`` backward (training runs it twice a layer with remat:
-forward and recompute). The decode kernels are on no training path and raise.
+launches through ``FlashAttentionGrad``: the kernel forward, which also
+writes the log-sum-exp, and ``flash_attention_backward``'s kernel backward
+(training with remat runs the forward twice a layer, forward and recompute,
+and the backward once). The decode kernels are on no training path and raise.
 """
 from __future__ import annotations
 
@@ -41,7 +49,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .. import KernelWithPlainGrad, _build, launcher, on_host, records_grad, refuse_grad
+from .. import _build, launcher, on_host, records_grad, refuse_grad
 from . import ref
 
 CSRC = Path(__file__).parent / "csrc"
@@ -49,6 +57,7 @@ SOURCES = {
     "flash_attention": CSRC / "flash_attention.cu",
     "decode_attention": CSRC / "decode_attention.cu",
     "mla_decode_attention": CSRC / "mla_decode.cu",
+    "flash_attention_backward": CSRC / "flash_attention_backward.cu",
 }
 # entry points of each library beyond the one named after it
 EXTRA_ENTRY_POINTS = {"decode_attention": ("decode_attention_partials",),
@@ -75,10 +84,14 @@ _lock = threading.Lock()
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _ARGTYPES = {
-    # q, k, v, o, kv_len, dtype, B, Sq, Skv, H, KV, dqk, dv, q/k/v strides, scale,
-    # causal, q_offset, stream
-    "flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+    # q, k, v, o, lse, kv_len, dtype, B, Sq, Skv, H, KV, dqk, dv, q/k/v strides,
+    # scale, causal, q_offset, stream
+    "flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I64P, _I64P, _I64P, _F, _I, _I, _P],
+    # q, k, v, o, dout, lse, kv_len, dq, dk, dv, scratch, dtype, B, Sq, Skv, H, KV,
+    # dqk, dv, q/k/v strides, scale, causal, q_offset, stream
+    "flash_attention_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _I64P, _I64P, _I64P, _F, _I, _I, _P],
     # q, k_cache, v_cache, o, pos, pos is int64, pos stride, scratch, dtype, B, S, H,
     # KV, dqk, dv, q/k/v strides, scale, stream
     "decode_attention": [_P, _P, _P, _P, _P, _I, ctypes.c_int64, _P, _I, _I, _I, _I, _I, _I,
@@ -129,6 +142,9 @@ def load(name: str, path) -> ctypes.CDLL:
     if name == "mla_decode_attention":
         lib.mla_decode_split.argtypes = [_I, _I]
         lib.mla_decode_split.restype = ctypes.c_int
+    if name == "flash_attention_backward":
+        lib.flash_attention_backward_scratch.argtypes = [_I] * 7
+        lib.flash_attention_backward_scratch.restype = ctypes.c_int64
     if name == "decode_attention" and lib.decode_attention_split() != DECODE_SPLIT:
         raise RuntimeError(f"decode_attention.cu splits by {lib.decode_attention_split()}, "
                            f"kernel.py by {DECODE_SPLIT}")
@@ -204,24 +220,51 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset=None, kv_len=None,
     if on_host(q):
         return ref.mha_reference(q, k, v, **kw)
     if records_grad(q, k, v):
-        return KernelWithPlainGrad.apply(functools.partial(_flash_launch, **kw),
-                                         functools.partial(ref.mha_reference, **kw), q, k, v)
+        return FlashAttentionGrad.apply(functools.partial(_flash_launch, with_lse=True, **kw),
+                                        functools.partial(_flash_backward_launch, **kw),
+                                        q, k, v)
     return _flash_launch(q, k, v, **kw)
 
 
+class FlashAttentionGrad(torch.autograd.Function):
+    """``apply(forward_fn, backward_fn, q, k, v)``: the forward is
+    ``forward_fn(q, k, v) -> (o, lse)`` and returns o, saving q, k, v, o and
+    lse; the backward is ``backward_fn(q, k, v, o, do, lse) -> (dq, dk, dv)``
+    and returns the gradients of the inputs that need one. On the card the
+    pair is the two kernels; the CPU tests pass the plain pair
+    (``ref.mha_forward_with_lse_reference``, ``ref.mha_backward_reference``).
+    Under ``torch.utils.checkpoint`` the recompute runs ``forward_fn`` again."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, backward_fn, q, k, v):
+        o, lse = forward_fn(q, k, v)
+        ctx.backward_fn = backward_fn
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        grads = ctx.backward_fn(q, k, v, o, do, lse)
+        return (None, None, *(g if n else None for g, n in zip(grads, ctx.needs_input_grad[2:])))
+
+
 @launcher
-def _flash_launch(q, k, v, *, causal: bool, q_offset, kv_len, scale) -> torch.Tensor:
+def _flash_launch(q, k, v, *, causal: bool, q_offset, kv_len, scale, with_lse: bool = False):
+    """o, or (o, lse (B, H, Sq) fp32) with ``with_lse``."""
     _check(q, k, v, "flash_attention")
     B, Sq, H, dqk = q.shape
     Skv, KV, dv = k.shape[1], k.shape[2], v.shape[-1]
     scale = scale if scale is not None else dqk ** -0.5
     o = torch.empty((B, Sq, H, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if with_lse else None
     if o.numel() == 0:
-        return o
+        return (o, lse) if with_lse else o
     lens = None if kv_len is None else _lengths(kv_len, B, q.device)
     lib = _lib("flash_attention")
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         None if lens is None else lens.data_ptr(), _DTYPE_CODES[q.dtype],
         B, Sq, Skv, H, KV, dqk, dv,
         _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)), _strides(v, (0, 1, 2)),
@@ -230,7 +273,56 @@ def _flash_launch(q, k, v, *, causal: bool, q_offset, kv_len, scale) -> torch.Te
     )
     _raise_on(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return o
+    return (o, lse) if with_lse else o
+
+
+def flash_attention_backward(q, k, v, o, do, lse, *, causal: bool = True, q_offset=None,
+                             kv_len=None, scale: Optional[float] = None):
+    """The gradient of ``flash_attention`` for q, k and v: (dq, dk, dv) in the
+    inputs' shapes and dtype, from its output o and the output's gradient do
+    (B, Sq, H, dv), and lse (B, H, Sq) fp32, the forward's log-sum-exp
+    (``ref.mha_forward_with_lse_reference`` gives both). The masks are the
+    forward's."""
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, scale=scale)
+    if on_host(q):
+        return ref.mha_backward_reference(q, k, v, o, do, lse, **kw)
+    return _flash_backward_launch(q, k, v, o, do, lse, **kw)
+
+
+@launcher
+def _flash_backward_launch(q, k, v, o, do, lse, *, causal: bool, q_offset, kv_len, scale):
+    _check(q, k, v, "flash_attention")
+    B, Sq, H, dqk = q.shape
+    Skv, KV, dv = k.shape[1], k.shape[2], v.shape[-1]
+    do = do.contiguous()   # autograd may hand it over strided or expanded
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != (B, Sq, H, dv) or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must be ({B}, {Sq}, {H}, {dv}) {q.dtype} on {q.device}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or lse.device != q.device \
+            or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous ({B}, {H}, {Sq}) float32 on {q.device}, got "
+                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    scale = scale if scale is not None else dqk ** -0.5
+    dq, dk, dv_ = (torch.empty(t.shape, dtype=q.dtype, device=q.device) for t in (q, k, v))
+    lens = None if kv_len is None else _lengths(kv_len, B, q.device)
+    lib = _lib("flash_attention_backward")
+    # rowsum(do * o) and, under GQA, each query head's fp32 dk | dv
+    scratch = torch.empty(lib.flash_attention_backward_scratch(B, Sq, Skv, H, KV, dqk, dv),
+                          dtype=torch.float32, device=q.device)
+    err = lib.flash_attention_backward_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        None if lens is None else lens.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv_.data_ptr(), scratch.data_ptr(), _DTYPE_CODES[q.dtype], B, Sq, Skv, H, KV, dqk, dv,
+        _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)), _strides(v, (0, 1, 2)),
+        float(scale), int(causal), int(q_offset) if q_offset is not None else 0,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(err, "flash_attention_backward")
+    LAUNCHES["flash_attention_backward"] += 1
+    return dq, dk, dv_
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, scale: Optional[float] = None) -> torch.Tensor:

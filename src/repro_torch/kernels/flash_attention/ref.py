@@ -2,7 +2,10 @@
 
 Port of ``repro.kernels.flash_attention.ref``. On the CPU it is the execution
 path; on the card ``chip_smoke.py`` and the CUDA tests hold the kernels in
-``kernel.py`` against it. Nothing on the main path calls it for a CUDA tensor.
+``kernel.py`` against it. Nothing on the main path calls it for a CUDA tensor:
+under autograd the card runs the backward kernel, whose plain version is
+``mha_backward_reference`` (the explicit FlashAttention-2 formulas; the JAX
+package differentiates its ``mha_reference`` with ``jax.grad`` instead).
 """
 from __future__ import annotations
 
@@ -11,6 +14,45 @@ from typing import Optional
 import torch
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def _masked_scores(q, k, causal: bool, q_offset, kv_len, scale: float):
+    """The scaled scores (B, KV, G, Sq, Skv), NEG_INF where masked, in fp32
+    (fp64 for fp64 inputs, as gradcheck gives them), and the mask, (B or 1,
+    1, 1, Sq, Skv). Query head h reads KV head h // G."""
+    B, Sq, H, hd = q.shape
+    _, Skv, KV, _ = k.shape
+    assert H % KV == 0, (H, KV)
+    G = H // KV
+    dev = q.device
+    acc = torch.promote_types(q.dtype, torch.float32)
+
+    qg = q.reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bskgd,btkd->bkgst", qg.to(acc), k.to(acc)) * scale
+
+    kv_pos = torch.arange(Skv, device=dev)
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
+    if causal:
+        q_pos = torch.arange(Sq, device=dev) + (q_offset if q_offset is not None else 0)
+        mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+    if kv_len is not None:
+        kl = torch.as_tensor(kv_len, device=dev)
+        if kl.ndim == 0:
+            mask = mask & (kv_pos[None, :] < kl)
+        else:  # per-batch-row validity length (B,)
+            mask = mask[None] & (kv_pos[None, None, :] < kl[:, None, None])
+    # (B or 1, 1, 1, Sq, Skv): broadcast over (KV, G)
+    mask = mask[None, None, None] if mask.ndim == 2 else mask[:, None, None]
+    return torch.where(mask, s, NEG_INF), mask
+
+
+def _softmax(q, k, causal: bool, q_offset, kv_len, scale: float):
+    """(m, e, l, valid): each row's max m of its masked scores, e = exp(s - m),
+    its sum l, and whether the row has a valid key, all (B, KV, G, Sq, ·)."""
+    s, mask = _masked_scores(q, k, causal, q_offset, kv_len, scale)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    return m, e, e.sum(dim=-1, keepdim=True), mask.any(dim=-1, keepdim=True)
 
 
 def mha_reference(
@@ -33,37 +75,54 @@ def mha_reference(
     NEG_INF), and its Pallas kernel the mean over the keys of its padded
     blocks (src/repro/kernels/flash_attention/kernel.py:57-72). Every row
     with at least one valid key is computed as JAX computes it."""
+    return mha_forward_with_lse_reference(q, k, v, causal=causal, q_offset=q_offset,
+                                          kv_len=kv_len, scale=scale)[0]
+
+
+def mha_forward_with_lse_reference(q, k, v, *, causal: bool = True, q_offset=None,
+                                   kv_len=None, scale: Optional[float] = None):
+    """(o, lse): ``mha_reference``'s output and each row's natural-log
+    log-sum-exp of its scaled, masked scores, (B, H, Sq) in fp32 (fp64 for
+    fp64 inputs), -inf for a row with no valid key: the forward kernel's two
+    outputs under autograd."""
     B, Sq, H, hd = q.shape
-    _, Skv, KV, _ = k.shape
-    assert H % KV == 0, (H, KV)
+    scale = scale if scale is not None else hd ** -0.5
+    m, e, l, valid = _softmax(q, k, causal, q_offset, kv_len, scale)
+    w = torch.where(valid, e / l, 0.0)  # no valid key: zeros
+    o = torch.einsum("bkgst,btkd->bskgd", w, v.to(w.dtype))
+    o = o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)  # dv may differ (MLA)
+    return o, torch.where(valid, m + torch.log(l), float("-inf")).reshape(B, H, Sq)
+
+
+def mha_backward_reference(q, k, v, o, do, lse, *, causal: bool = True, q_offset=None,
+                           kv_len=None, scale: Optional[float] = None):
+    """The gradient of ``mha_reference`` for q, k and v, given its output o,
+    the output's gradient do (B, Sq, H, dv) and lse (B, H, Sq) from
+    ``mha_forward_with_lse_reference``: FlashAttention-2's formulas in fp32
+    (fp64 for fp64 inputs), not autograd. P = exp(S - lse) where the mask
+    lets a key through, Delta = rowsum(do * o), dS = P (dP - Delta) with
+    dP = do V^T, dq = scale dS K, dk = scale dS^T q and dv = P^T do, each
+    KV head's summed over its G query heads. A row with no valid key has
+    P = 0 and so gives zero gradients. Returns (dq, dk, dv) in the inputs'
+    dtypes. The backward kernel's plain version: the tests and
+    ``chip_smoke.py`` hold the kernel against it."""
+    B, Sq, H, hd = q.shape
+    _, Skv, KV, dv = v.shape
     G = H // KV
     scale = scale if scale is not None else hd ** -0.5
-    dev = q.device
-
-    qg = q.reshape(B, Sq, KV, G, hd)
-    # scores: (B, KV, G, Sq, Skv) in fp32
-    s = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
-
-    kv_pos = torch.arange(Skv, device=dev)
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
-    if causal:
-        q_pos = torch.arange(Sq, device=dev) + (q_offset if q_offset is not None else 0)
-        mask = mask & (kv_pos[None, :] <= q_pos[:, None])
-    if kv_len is not None:
-        kl = torch.as_tensor(kv_len, device=dev)
-        if kl.ndim == 0:
-            mask = mask & (kv_pos[None, :] < kl)
-        else:  # per-batch-row validity length (B,)
-            mask = mask[None] & (kv_pos[None, None, :] < kl[:, None, None])
-    # (B or 1, 1, 1, Sq, Skv): broadcast over (KV, G)
-    mask = mask[None, None, None] if mask.ndim == 2 else mask[:, None, None]
-    s = torch.where(mask, s, NEG_INF)
-
-    w = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    w = w / w.sum(dim=-1, keepdim=True)
-    w = torch.where(mask.any(dim=-1, keepdim=True), w, 0.0)  # no valid key: zeros
-    o = torch.einsum("bkgst,btkd->bskgd", w, v.float())
-    return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)  # dv may differ (MLA)
+    s, mask = _masked_scores(q, k, causal, q_offset, kv_len, scale)
+    acc = s.dtype
+    lse = lse.to(acc).reshape(B, KV, G, Sq, 1)
+    p = torch.where(mask, torch.exp(s - torch.where(torch.isinf(lse), 0.0, lse)), 0.0)
+    dog = do.to(acc).reshape(B, Sq, KV, G, dv)
+    delta = (dog * o.to(acc).reshape(B, Sq, KV, G, dv)).sum(dim=-1)       # (B, Sq, KV, G)
+    delta = delta.permute(0, 2, 3, 1)[..., None]                          # (B, KV, G, Sq, 1)
+    d_v = torch.einsum("bkgst,bskgd->btkd", p, dog)
+    dp = torch.einsum("bskgd,btkd->bkgst", dog, v.to(acc))
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, k.to(acc)).reshape(B, Sq, H, hd)
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, q.to(acc).reshape(B, Sq, KV, G, hd))
+    return dq.to(q.dtype), dk.to(k.dtype), d_v.to(v.dtype)
 
 
 def decode_attention_reference(

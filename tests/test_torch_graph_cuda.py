@@ -176,6 +176,7 @@ def test_a_replay_adds_the_captured_calls_to_launches(cuda_device):
     engine = ServeEngine(model, max_batch=2, max_len=32)
     assert engine._graph.launches == {"flash_attention": 0, "decode_attention": G,
                                       "mla_decode_attention": 0,
+                                      "flash_attention_backward": 0,
                                       "decode_attention_partials": 0,
                                       "mla_decode_attention_partials": 0,
                                       "fused_add_rmsnorm": G, "ssd": 0}
@@ -187,7 +188,8 @@ def test_a_replay_adds_the_captured_calls_to_launches(cuda_device):
     assert steps == 3
     assert {k: after[k] - before[k] for k in after} == {
         "flash_attention": G, "decode_attention": steps * G, "mla_decode_attention": 0,
-        "decode_attention_partials": 0, "mla_decode_attention_partials": 0,
+        "flash_attention_backward": 0, "decode_attention_partials": 0,
+        "mla_decode_attention_partials": 0,
         "fused_add_rmsnorm": (1 + steps) * G, "ssd": cfg.n_layers}
 
 

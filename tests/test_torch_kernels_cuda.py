@@ -1006,12 +1006,32 @@ def test_model_kernel_path_matches_plain_path(arch, cuda_device):
 
 
 # ------------------------------------------------------------ gradients
-# Under autograd the attention and add + norm wrappers launch their kernel
-# forward through ``KernelWithPlainGrad``, whose backward is the plain
-# version's gradient recomputed from the saved inputs; decode attention and
-# the scan, on no training path, raise.
-GRAD_FLASH_SHAPES = [(2, 64, 64, 4, 2, 32), (8, 1024, 1024, 14, 2, 64)]  # small; qwen2 training
+# Under autograd flash attention launches its kernel forward (which also
+# writes the log-sum-exp) and, backward, flash_attention_backward's kernel;
+# the add + norm and the scan launch their kernel forward through
+# ``KernelWithPlainGrad``, whose backward is the plain version's gradient
+# recomputed from the saved inputs; decode attention, on no training path,
+# raises.
+# (id, (B, Sq, Skv, H, KV, dqk, dv), kwargs): small; qwen2-0.5b's and
+# zamba2-2.7b's training calls; minicpm3-4b's expanded prefill (dqk 96, dv
+# 64, its own scale); whisper-small's cross attention (64 queries over 1500
+# keys, non-causal); internvl2-26b's GQA 48/8 at hd 128; per-row kv_len with
+# a row of length 0 and a q_offset; zero-padded head dims, Sq != Skv
+GRAD_FLASH_CASES = [
+    ("small", (2, 64, 64, 4, 2, 32, 32), {"causal": True}),
+    ("qwen2-train", (8, 1024, 1024, 14, 2, 64, 64), {"causal": True}),
+    ("zamba2-train", (8, 1024, 1024, 32, 32, 80, 80), {"causal": True}),
+    ("mla-prefill", (1, 512, 512, 40, 40, 96, 64), {"causal": True, "scale": 96 ** -0.5}),
+    ("whisper-cross", (1, 64, 1500, 12, 12, 64, 64), {"causal": False}),
+    ("internvl2", (1, 768, 768, 48, 8, 128, 128), {"causal": True}),
+    ("kv_len-q_offset", (3, 100, 164, 8, 2, 64, 64),
+     {"causal": True, "q_offset": 64, "kv_len": [0, 37, 164]}),
+    ("padded-noncausal", (2, 70, 90, 6, 6, 24, 16), {"causal": False, "kv_len": [90, 41]}),
+]
 GRAD_RMS_SHAPES = [(2, 5, 64), (8, 1024, 896)]                            # small; qwen2 training
+# each gradient's relative L2 distance to the plain gradient in f32 from the
+# same inputs: f32 sums in another order; bf16 rounds P and dS for the products
+GRAD_REL_L2 = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
 def _close_grads(got, want, dtype, tol):
@@ -1020,23 +1040,112 @@ def _close_grads(got, want, dtype, tol):
         torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
 
 
+def _grad_case(case, dtype, device, seed=7):
+    """q, k, v (requiring grad), the output's gradient and the kwargs of a
+    GRAD_FLASH_CASES entry."""
+    _, (B, Sq, Skv, H, KV, dqk, dv), kw = case
+    q, k, v, go = _inputs(device, DTYPES[dtype][0], seed, (B, Sq, H, dqk), (B, Skv, KV, dqk),
+                          (B, Skv, KV, dv), (B, Sq, H, dv))
+    kw = {n: torch.tensor(x, device=device) if isinstance(x, list) else x for n, x in kw.items()}
+    return [t.requires_grad_() for t in (q, k, v)], go, kw
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("shape", GRAD_FLASH_SHAPES, ids=str)
-def test_flash_gradients_are_the_plain_versions(shape, dtype, cuda_device):
-    B, Sq, Skv, H, KV, hd = shape
+@pytest.mark.parametrize("case", GRAD_FLASH_CASES, ids=[c[0] for c in GRAD_FLASH_CASES])
+def test_flash_gradients_are_the_plain_versions(case, dtype, cuda_device):
+    """Under autograd one forward launch and one flash_attention_backward
+    launch, no plain attention on the card; dq, dk, dv against autograd of
+    the plain version in f32 on the same inputs within GRAD_REL_L2 (and, f32,
+    max |diff| <= 1e-4 max |plain|); the output within the forward's tolerance."""
     tdt, tol = DTYPES[dtype]
-    q, k, v, go = _inputs(cuda_device, tdt, 7, (B, Sq, H, hd), (B, Skv, KV, hd),
-                          (B, Skv, KV, hd), (B, Sq, H, hd))
-    q, k, v = (t.requires_grad_() for t in (q, k, v))
-    before = tkernel.LAUNCHES["flash_attention"]
-    out = tkernel.flash_attention(q, k, v, causal=True)
-    assert tkernel.LAUNCHES["flash_attention"] == before + 1
+    (q, k, v), go, kw = _grad_case(case, dtype, cuda_device)
+    before = dict(tkernel.LAUNCHES)
+    out = tkernel.flash_attention(q, k, v, **kw)
     assert out.grad_fn is not None
     got = torch.autograd.grad(out, (q, k, v), go)
-    assert tkernel.LAUNCHES["flash_attention"] == before + 1   # the backward is plain
-    want_out = tref.mha_reference(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    ran = {n: tkernel.LAUNCHES[n] - before[n] for n in before}
+    assert ran == {**dict.fromkeys(before, 0), "flash_attention": 1,
+                   "flash_attention_backward": 1}
+    with torch.no_grad():
+        want_out = tref.mha_reference(q, k, v, **kw)
     torch.testing.assert_close(out.float(), want_out.float(), rtol=tol, atol=tol)
-    _close_grads(got, torch.autograd.grad(want_out, (q, k, v), go), dtype, tol)
+    x32 = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(tref.mha_reference(*x32, **kw), x32, go.float())
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == tdt and g.shape == w.shape
+        rel = float((g.float() - w).norm() / w.norm())
+        assert rel <= GRAD_REL_L2[dtype], f"d{name}: relative L2 {rel:.3e}"
+        if dtype == "float32":
+            worst = float((g - w).abs().max())
+            assert worst <= 1e-4 * float(w.abs().max()), f"d{name}: max |diff| {worst:.3e}"
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", [c for c in GRAD_FLASH_CASES if c[0] in
+                                  ("small", "mla-prefill", "kv_len-q_offset", "padded-noncausal")],
+                         ids=str)
+def test_flash_backward_kernel_matches_its_plain_version(case, dtype, cuda_device):
+    """``flash_attention_backward`` on the forward kernel's (o, lse) against
+    ``ref.mha_backward_reference`` on the same tensors, and the kernel's lse
+    against ``ref.mha_forward_with_lse_reference``'s (-inf where a row sees
+    no key)."""
+    tdt, tol = DTYPES[dtype]
+    (q, k, v), go, kw = _grad_case(case, dtype, cuda_device, seed=8)
+    q, k, v = (t.detach() for t in (q, k, v))
+    full = dict(causal=True, q_offset=None, kv_len=None, scale=None) | kw
+    o, lse = tkernel._flash_launch(q, k, v, with_lse=True, **full)
+    _, want_lse = tref.mha_forward_with_lse_reference(q, k, v, **kw)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+    finite = torch.isfinite(want_lse)
+    torch.testing.assert_close(lse[finite], want_lse[finite].float(), rtol=1e-5, atol=1e-5)
+    before = tkernel.LAUNCHES["flash_attention_backward"]
+    got = tkernel.flash_attention_backward(q, k, v, o, go, lse, **kw)
+    torch.cuda.synchronize()
+    assert tkernel.LAUNCHES["flash_attention_backward"] == before + 1
+    want = tref.mha_backward_reference(q, k, v, o, go, lse, **kw)
+    for name, g, w in zip("qkv", got, want):
+        rel = float((g.float() - w.float()).norm() / w.float().norm())
+        assert rel <= GRAD_REL_L2[dtype], f"d{name}: relative L2 {rel:.3e}"
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_gradient_of_a_row_with_no_valid_key_is_zero(dtype, cuda_device):
+    """A batch row of kv_len 0 (causal and not): its dq, dk and dv are exact
+    zeros from the kernel; the other rows hold to the plain gradient."""
+    for causal in (False, True):
+        (q, k, v), go, kw = _grad_case(
+            ("", (2, 70, 70, 4, 2, 64, 64), {"causal": causal, "kv_len": [0, 40]}), dtype,
+            cuda_device, seed=17)
+        got = torch.autograd.grad(tkernel.flash_attention(q, k, v, **kw), (q, k, v), go)
+        torch.cuda.synchronize()
+        for g in got:
+            assert torch.equal(g[0], torch.zeros_like(g[0]))
+        x32 = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(tref.mha_reference(*x32, **kw), x32, go.float())
+        for g, w in zip(got, want):
+            assert float((g.float() - w).norm() / w.norm()) <= GRAD_REL_L2[dtype]
+
+
+def test_flash_backward_refuses_what_it_does_not_take(cuda_device):
+    q, k, v, o = _inputs(cuda_device, torch.float32, 3, (1, 8, 4, 16), (1, 8, 2, 16),
+                         (1, 8, 2, 16), (1, 8, 4, 16))
+    lse = torch.zeros((1, 4, 8), device=cuda_device)
+    bwd = tkernel.flash_attention_backward
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        bwd(q.half(), k.half(), v.half(), o.half(), o.half(), lse)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        bwd(q[..., :12], k[..., :12], v[..., :12], o[..., :12], o[..., :12], lse)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        bwd(q, k.cpu(), v, o, o, lse)
+    with pytest.raises(ValueError, match="o must be"):
+        bwd(q, k, v, o.cpu(), o, lse)
+    with pytest.raises(ValueError, match="do must be"):
+        bwd(q, k, v, o, o.bfloat16(), lse)
+    with pytest.raises(ValueError, match="lse must be"):
+        bwd(q, k, v, o, o, lse.bfloat16())
+    with pytest.raises(ValueError, match="lse must be"):
+        bwd(q, k, v, o, o, lse[:, :, :4])
 
 
 @pytest.mark.parametrize("dtype", list(RMS_DTYPES))
@@ -1121,8 +1230,8 @@ def test_ssd_gradients_are_the_plain_versions(shape, dtype, final_state, cuda_de
 def test_model_loss_backward_reaches_every_weight(arch, cuda_device):
     """A reduced model's loss backward through the kernels (remat on) gives
     every weight a nonzero gradient, close to the plain path's (f32), and
-    launches flash attention and the add + norm twice a layer: forward and
-    recompute."""
+    launches flash attention and the add + norm twice a layer (forward and
+    recompute) and the attention backward kernel once."""
     cfg = get_reduced(arch).with_(dtype="float32")
     model = Model(cfg, device=cuda_device).init(torch.Generator(cuda_device).manual_seed(0))
     model.requires_grad_(True)
@@ -1144,6 +1253,7 @@ def test_model_loss_backward_reaches_every_weight(arch, cuda_device):
             encdec = cfg.family == "encdec"   # encoder self, decoder self + cross; LayerNorms
             per_forward = cfg.n_enc_layers + 2 * cfg.n_layers if encdec else cfg.n_layers
             assert tkernel.LAUNCHES["flash_attention"] == 2 * per_forward
+            assert tkernel.LAUNCHES["flash_attention_backward"] == per_forward
             assert rms_kernel.LAUNCHES["fused_add_rmsnorm"] == (0 if encdec else 2 * cfg.n_layers)
             assert tkernel.LAUNCHES["decode_attention"] == 0
     for name, g, w in zip(names, grads["auto"], grads["ref"]):
@@ -1157,7 +1267,7 @@ def test_ssm_families_do_not_train_on_the_card_yet(arch, cuda_device):
     backward through the kernels (remat on) gives every weight a nonzero
     gradient close to the plain path's (f32), and launches the scan twice a
     Mamba2 layer (forward and recompute), the hybrid's shared block's flash
-    attention and add + norm twice a group."""
+    attention and add + norm twice a group and the attention backward once."""
     cfg = get_reduced(arch).with_(dtype="float32")
     model = Model(cfg, device=cuda_device).init(torch.Generator(cuda_device).manual_seed(0))
     model.requires_grad_(True)
@@ -1175,6 +1285,7 @@ def test_ssm_families_do_not_train_on_the_card_yet(arch, cuda_device):
             groups = cfg.n_layers // cfg.shared_attn_every if cfg.family == "hybrid" else 0
             assert ssd_kernel.LAUNCHES["ssd"] == 2 * cfg.n_layers
             assert tkernel.LAUNCHES["flash_attention"] == 2 * groups
+            assert tkernel.LAUNCHES["flash_attention_backward"] == groups
             assert rms_kernel.LAUNCHES["fused_add_rmsnorm"] == 2 * groups
             assert tkernel.LAUNCHES["decode_attention"] == 0
     for name, g, w in zip(names, grads["auto"], grads["ref"]):

@@ -72,6 +72,7 @@ def test_graphed_moe_engine_equals_eager_engine(arch, dtype, cuda_device):
     eager = ServeEngine(model, max_batch=3, max_len=64, cuda_graph=False)
     assert graphed._graph.launches == {"flash_attention": 0, "decode_attention": L,
                                        "mla_decode_attention": 0,
+                                       "flash_attention_backward": 0,
                                        "decode_attention_partials": 0,
                                        "mla_decode_attention_partials": 0,
                                        "fused_add_rmsnorm": L, "ssd": 0}

@@ -429,6 +429,7 @@ def test_launch_counts_merges_every_kernel_wrapper(fresh_launches):
     rms_kernel.LAUNCHES["fused_add_rmsnorm"] += 5
     assert tengine.launch_counts() == {"flash_attention": 0, "decode_attention": 3,
                                        "mla_decode_attention": 0,
+                                       "flash_attention_backward": 0,
                                        "decode_attention_partials": 0,
                                        "mla_decode_attention_partials": 0,
                                        "fused_add_rmsnorm": 5, "ssd": 0}
@@ -439,8 +440,8 @@ def test_decode_graph_replay_adds_the_captured_launches(fresh_launches):
     makes no host call); a replay under another kernel_impl raises before it
     replays or counts anything."""
     captured = {"flash_attention": 0, "decode_attention": 24, "mla_decode_attention": 0,
-                "decode_attention_partials": 0, "mla_decode_attention_partials": 0,
-                "fused_add_rmsnorm": 24, "ssd": 0}
+                "flash_attention_backward": 0, "decode_attention_partials": 0,
+                "mla_decode_attention_partials": 0, "fused_add_rmsnorm": 24, "ssd": 0}
     graph = DecodeGraph(_StandInGraph(), captured, "auto")
     before = tengine.launch_counts()
     for _ in range(3):
