@@ -8,10 +8,11 @@ order, each printing its lines; any failure raises and the exit code is not 0:
 
 1. device          - require CUDA and compute capability 9.0; print the card's
                      name and power limit (nvidia-smi); fp32 products in full fp32.
-2. build           - compile the six kernels from ``src/repro_torch`` (flash,
+2. build           - compile the eight kernels from ``src/repro_torch`` (flash,
                      decode and MLA decode attention, flash attention's
-                     backward, the add + norm, the SSD scan) with nvcc for
-                     sm_90a, one nvcc per source, all started together.
+                     backward, the add + norm and its backward, the SSD scan
+                     and its backward) with nvcc for sm_90a, one nvcc per
+                     source, all started together.
 3. kernels         - hold each attention kernel against its plain PyTorch version
                      (ref.py) at 2e-5 (f32) / 2e-2 (bf16) on the reference's test
                      shapes, prefill at hd 80, 128 and 24 (the bf16 wgmma kernel's
@@ -83,7 +84,16 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      decode rows. The launcher's one rule: a block a row, each
                      thread holding ceil(D / 4096) 8-wide chunks, just enough
                      threads in whole warps (128 of one chunk at D = 896, 320
-                     at 2560, 384 of two chunks at 6144).
+                     at 2560, 384 of two chunks at 6144). Then the add + norm's
+                     backward kernel against its plain version
+                     (``fused_add_rmsnorm_backward_reference``), each gradient
+                     within relative L2 1e-5 (f32) / 1e-2 (bf16), at qwen2's
+                     and zamba2's training rows (8 x 1024, 896 and 2560) and
+                     internvl2's width (1 x 768, 6144); timed in bf16 at the
+                     training rows beside its plain version, the plain
+                     autograd backward it replaced, the backward of the two
+                     calls ``x + d``, ``F.rms_norm`` (labelled as two calls)
+                     and its bound.
 5. kernels-ssd     - hold the SSD scan against its plain version at 1e-4 (f32) /
                      5e-2 (bf16) on the reference's shapes, a ragged chunk, a
                      dt = 0 padded tail, a nonzero initial state and, at the full
@@ -92,7 +102,17 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      branches), and the slices' shapes (mamba2 N = 128, zamba2
                      N = 64); time kernel and plain version there (no single
                      PyTorch call computes the scan, so there is no library time),
-                     and each bf16 pass's device time (torch.profiler).
+                     and each bf16 pass's device time (torch.profiler). Then
+                     the scan's backward kernel against its plain version
+                     (``ssd_backward_reference``), each gradient within
+                     relative L2 1e-4 (f32) / 2e-2 (bf16), at the reference's
+                     sweep (G 2 and 4 among it), chunks of 1 and 2, one chunk
+                     and three, an initial state with a final-state gradient,
+                     a dt = 0 padded tail (dx exactly 0 there) and mamba2's and
+                     zamba2's training calls (8 x 1024, 80 heads, N 128 and 64);
+                     timed in bf16 at the training calls beside its plain
+                     version, the plain autograd backward it replaced and its
+                     bound, with each pass's device time.
 5b. warming        - the worker's compiled-function path: the torch twins of
                      benchmarks/bench_warming.py's three functions (tanh x 2
                      of a 64x64, the sum of a 512x512 product, the port's
@@ -154,14 +174,13 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      (b) one ``build_train_step`` step with the counters set to
                      0 just before it launches exactly 48 flash attention and
                      48 add + norm calls (24 layers x forward and remat's
-                     recompute) and 24 of flash attention's backward kernel
-                     (the add + norm's backward is its plain version's
-                     gradient) and no decode attention or scan, and
-                     ``ref.mha_reference`` runs on no CUDA tensor there or in
-                     the timed steps; the step split by CUDA events into
-                     forward, backward (the attention backward kernel's and
-                     the plain add + norm backward's shares from one call
-                     each timed alone) and optimizer,
+                     recompute) and 24 of each of their backward kernels and
+                     no decode attention or scan, and ``ref.mha_reference``,
+                     ``ref.fused_add_rmsnorm_reference`` and
+                     ``ref.ssd_reference`` run on no CUDA tensor there, in the
+                     timed steps or in the trainer runs; the step split by
+                     CUDA events into forward, backward (each backward
+                     kernel's share from one call timed alone) and optimizer,
                      tokens/s, model FLOP utilisation against the bf16 dense
                      peak, peak allocated memory; (c) a ``Trainer`` runs 20
                      steps through a FunctionService (one endpoint, one worker)
@@ -169,7 +188,7 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      second Trainer on the same directory resumes at 10 and its
                      losses for steps 11-20 match the first's within 1e-2;
                      every loss finite, the last 5 below the first 5 on average,
-                     48 + 48 + 24 launches a step; (d) a bf16 checkpoint of the
+                     48 + 48 + 24 + 24 launches a step; (d) a bf16 checkpoint of the
                      weights restores to bf16 tensors equal to those saved.
 11. slice-ssm      - the same as slice for full-width mamba2-2.7b (prefills pad
                      384 to 512).
@@ -187,12 +206,13 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      f32 plain gradients at most 1.25 x the plain bf16 path's
                      own (both ~9% there: two bf16 paths cannot meet 0.05);
                      (b) one step launches exactly 128 `ssd` calls (64 forward
-                     + 64 remat) and nothing else, the step split into forward,
-                     backward (each plain scan backward's time a call beside
-                     the kernel forward) and optimizer, tokens/s, MFU, peak;
-                     (c) 10 steps through a ``Trainer`` on a FunctionService,
-                     the mean of the last 3 losses below the first 3's, 128
-                     launches a step.
+                     + 64 remat) and 64 of its backward kernel and nothing
+                     else, no plain version on the card, the step split into
+                     forward, backward (the backward kernel's time a call
+                     beside the kernel forward) and optimizer, tokens/s, MFU,
+                     peak; (c) 10 steps through a ``Trainer`` on a
+                     FunctionService, the mean of the last 3 losses below the
+                     first 3's, 128 + 64 launches a step.
 14. slice-hybrid   - the same for full-width zamba2-2.7b (54 Mamba2 layers in 9
                      groups of 6, one shared attention + MLP block before each).
 15. serve-hybrid   - the same for full-width bf16 zamba2-2.7b; the counters
@@ -206,7 +226,8 @@ order, each printing its lines; any failure raises and the exit code is not 0:
 17. train-hybrid   - the same for full-width zamba2-2.7b after fabric-hybrid:
                      108 `ssd`, 18 flash attention and 18 add + norm calls a
                      step (54 Mamba2 layers and 9 shared-block calls, each
-                     twice) and 9 of the attention backward kernel.
+                     twice), 54 of the scan's backward kernel and 9 each of the
+                     attention's and the add + norm's.
 18. slice-moe      - the same as slice for full-width qwen2-moe-a2.7b (60 routed
                      experts top-4 with capacity drop, a gated shared expert);
                      the f32 check runs 8 of its 24 layers (a depth cut: the
@@ -369,9 +390,10 @@ train-ssm and train-hybrid trainer runs, the shapes phase's timed runs, the
 warming phase's compiled LM loss and the mesh-decode, mesh-moe and
 mesh-steps phases' runs on a mesh; the fabric phases together must have
 launched every kernel of a single card's serving paths, mesh-steps those and
-flash attention's backward (which only training runs) too, and
+the three backward kernels (which only training runs) too, and
 mesh-decode the two partials kernels (which only a cache split by
-sequence over ranks runs).
+sequence over ranks runs). The whole script's wall, the build included, is
+printed before the summary.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.
@@ -440,7 +462,10 @@ SOURCES = {
     "flash_attention_backward":
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention_backward.cu",
     "fused_add_rmsnorm": "src/repro_torch/kernels/rmsnorm/csrc/fused_add_rmsnorm.cu",
+    "fused_add_rmsnorm_backward":
+        "src/repro_torch/kernels/rmsnorm/csrc/fused_add_rmsnorm_backward.cu",
     "ssd": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+    "ssd_backward": "src/repro_torch/kernels/ssd/csrc/ssd_backward.cu",
 }
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:107",
@@ -455,6 +480,10 @@ REPLACES = {
     "flash_attention_backward": "src/repro/kernels/flash_attention/ref.py:16",
     "fused_add_rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:30",
     "ssd": "src/repro/kernels/ssd/kernel.py:93",
+    # the add + norm's and the scan's gradients: the reference trains through
+    # jax.grad of their plain versions, the Pallas kernels having no VJP (F10)
+    "fused_add_rmsnorm_backward": "src/repro/kernels/rmsnorm/ref.py:10",
+    "ssd_backward": "src/repro/kernels/ssd/ref.py:25",
 }
 KERNEL_MODULES = (attn_kernel, rms_kernel, ssd_kernel)
 # kernels that run only where a decode cache is split by sequence over more
@@ -463,7 +492,7 @@ KERNEL_MODULES = (attn_kernel, rms_kernel, ssd_kernel)
 MESH_SEQ_KERNELS = ("decode_attention_partials", "mla_decode_attention_partials")
 # kernels that run only where autograd records a forward (the train phases and
 # mesh-steps' train steps): no serve or fabric path launches them
-TRAIN_KERNELS = ("flash_attention_backward",)
+TRAIN_KERNELS = ("flash_attention_backward", "fused_add_rmsnorm_backward", "ssd_backward")
 # decode over a sequence-sharded cache (F14): qwen2-0.5b's decode_32k row shape
 # and minicpm3-4b's absorbed MLA decode at its served shape, each cut into 2
 # and 4 shards; the first is the summary's row (bf16, a shard of 2).
@@ -503,11 +532,40 @@ SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}  # tests/test_kernels_ssd.
 SSD_SHAPE = (1, 512, 80, 64, 1, 128, 256)    # B, S, H, P, G, N, chunk
 # zamba2-2.7b's scan: the same heads over a state of N = 64
 HYBRID_SSD_SHAPE = (1, 512, 80, 64, 1, 64, 256)
+# the scan's backward kernel: held against ref.ssd_backward_reference on the
+# same tensors, each gradient within SSD_BWD_TOL (relative L2: f32 sums in
+# another order; bf16 rounds dx, dB and dC once, at the store). (B, S, H, P,
+# G, N, chunk), an initial state with a final-state gradient, a dt = 0 tail of
+# that many positions: the reference's sweep (G 2 and 4 among it), chunks of 1
+# and 2, one chunk and several, and the two training calls, which are timed
+SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+SSD_BWD_SHAPES = {
+    "sweep (1, 64, 2, 16) N 16, 4 chunks of 16": ((1, 64, 2, 16, 1, 16, 16), False, 0),
+    "sweep G 2 (2, 128, 4, 32) N 8, 4 chunks of 32": ((2, 128, 4, 32, 2, 8, 32), False, 0),
+    "sweep (1, 96, 6, 16) N 32, 3 chunks of 32": ((1, 96, 6, 16, 1, 32, 32), False, 0),
+    "sweep G 4 (2, 64, 8, 64) N 16, one chunk": ((2, 64, 8, 64, 4, 16, 64), False, 0),
+    "chunk 1, both states": ((2, 5, 80, 64, 1, 128, 1), True, 0),
+    "chunk 2, both states": ((1, 6, 80, 64, 1, 64, 2), True, 0),
+    "3 chunks of 256, both states": ((2, 768, 80, 64, 1, 128, 256), True, 0),
+    "a dt = 0 tail of 375 of 512, both states": ((1, 512, 80, 64, 1, 128, 256), True, 375),
+    "mamba2-2.7b": ((8, 1024, 80, 64, 1, 128, 256), False, 0),
+    "zamba2-2.7b": ((8, 1024, 80, 64, 1, 64, 256), False, 0),
+}
+SSD_BWD_TIMED = ("mamba2-2.7b", "zamba2-2.7b")
 RMS_TOL = {torch.float32: 1e-6, torch.bfloat16: 1e-2}  # tests/test_kernels_rmsnorm.py:10
 # the add + norm rows of the slices: a 512-token prefill and an 8-slot decode
 # step, at qwen2-0.5b's and zamba2-2.7b's d_model; the first is the summary's row
 RMS_SHAPES = ((1, 512, 2560), (8, 1, 2560), (1, 512, 896), (8, 1, 896),
               (1, 512, 2048), (8, 1, 2048), (1, 768, 6144), (8, 1, 6144))
+
+# the add + norm's backward kernel: held against
+# ref.fused_add_rmsnorm_backward_reference, each gradient within RMS_BWD_TOL
+# (relative L2), at qwen2-0.5b's and zamba2-2.7b's training rows (timed) and
+# internvl2-26b's width
+RMS_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+RMS_BWD_SHAPES = {"qwen2-0.5b": (8, 1024, 896), "zamba2-2.7b": (8, 1024, 2560),
+                  "internvl2-26b": (1, 768, 6144)}
+RMS_BWD_TIMED = ("qwen2-0.5b", "zamba2-2.7b")
 
 HYBRID_ARCH = "zamba2-2.7b"
 # bf16 slice of zamba2-2.7b, held as the mamba2 slice is: 54 Mamba2 layers each
@@ -621,9 +679,8 @@ TRAIN_RESUME_TOL = 1e-2     # a resumed run's losses against the straight run's
 # there, qwen2's 1.11)
 TRAIN_BF16_TRUTH_RATIO = 1.25
 # the train-ssm and train-hybrid phases: TRAIN_BATCH unless one step's peak
-# leaves under TRAIN_MIN_FREE_GIB free (the plain scan's backward at (8, 1024,
-# 80, 64) holds several fp32 (B, H, chunks, 256, 256) tensors, 671 MB each),
-# then TRAIN_SMALL_BATCH; TRAIN_SCAN_STEPS steps through the fabric
+# leaves under TRAIN_MIN_FREE_GIB free, then TRAIN_SMALL_BATCH;
+# TRAIN_SCAN_STEPS steps through the fabric
 TRAIN_MIN_FREE_GIB, TRAIN_SMALL_BATCH, TRAIN_SCAN_STEPS = 8, 4, 10
 
 # the shapes phase: the reference's assigned cells (launch/dryrun.py); each
@@ -1543,6 +1600,7 @@ def phase_kernels_rmsnorm() -> dict:
                            f"through the same ctypes path and cudaLaunchKernelEx): "
                            f"{floor_w:.4f} ms after a 256 MB write flush, {floor_r:.4f} ms "
                            "after a 256 MB read flush")
+    rows.update(_rms_backward_rows(gen))
     for D in (896, 2560):
         chain, products = rms_chain_ms(D, rms_kernel.fused_add_rmsnorm)
         say("kernels-rmsnorm", f"(8, 1, {D}) in a decode step's chain: {CHAIN_PAIRS} x "
@@ -1550,6 +1608,81 @@ def phase_kernels_rmsnorm() -> dict:
                                f"{chain:.4f} ms, the products alone {products:.4f} ms: "
                                f"marginal {(chain - products) / CHAIN_PAIRS:.4f} ms a norm "
                                "(bf16, one write flush before the chain)")
+    return rows
+
+
+def _rms_backward_case(gen, shape, dtype, eps=1e-6) -> tuple:
+    """``fused_add_rmsnorm_backward`` against
+    ``ref.fused_add_rmsnorm_backward_reference`` on the same tensors, each
+    gradient within RMS_BWD_TOL (relative L2). Returns (max abs err, the
+    call's tensors)."""
+    x, d, scale = _rms_case(gen, shape, dtype, eps)[1]
+    g_res, g_out = randn(gen, shape, dtype), randn(gen, shape, dtype)
+    args = (x, d, scale, g_res, g_out)
+    got = rms_kernel.fused_add_rmsnorm_backward(*args, eps)
+    torch.cuda.synchronize()
+    want = rms_ref.fused_add_rmsnorm_backward_reference(*args, eps)
+    errs = []
+    for name, g, w in zip(("dx", "ddelta", "dscale"), got, want):
+        g, w = g.float(), w.float()
+        rel = ((g - w).norm() / w.norm()).item()
+        if not torch.isfinite(g).all() or rel > RMS_BWD_TOL[dtype]:
+            raise AssertionError(f"fused_add_rmsnorm_backward {shape} {dtype}: {name} relative "
+                                 f"L2 {rel:.3e} > {RMS_BWD_TOL[dtype]} or non-finite")
+        errs.append((g - w).abs().max().item())
+    return max(errs), args
+
+
+def _rms_backward_rows(gen) -> dict:
+    """The add + norm's backward kernel (B13): held in f32 and bf16 at every
+    RMS_BWD_SHAPES entry; timed in bf16 at the training rows beside its plain
+    version, the plain autograd backward the train step ran before it
+    (``fused_add_rmsnorm_reference`` recomputed and differentiated), the
+    backward alone of the two PyTorch calls ``x + delta``, ``F.rms_norm``
+    (their forward run once) and the bound by bytes (x, delta, g_res, g_out
+    read and one dh written for dx and ddelta; scale read, dscale written).
+    Returns the summary's row (qwen2-0.5b's rows)."""
+    rows = {}
+    for label, shape in RMS_BWD_SHAPES.items():
+        errs = {dt: _rms_backward_case(gen, shape, dt)[0]
+                for dt in (torch.float32, torch.bfloat16)}
+        say("kernels-rmsnorm", f"fused_add_rmsnorm_backward {label} {shape}: max_abs_err "
+                               f"{errs[torch.float32]:.3e} (f32) / {errs[torch.bfloat16]:.3e} "
+                               f"(bf16), each gradient within relative L2 "
+                               f"{RMS_BWD_TOL[torch.float32]:g} / {RMS_BWD_TOL[torch.bfloat16]:g} "
+                               "of fused_add_rmsnorm_backward_reference")
+        if label not in RMS_BWD_TIMED:
+            continue
+        err, args = _rms_backward_case(gen, shape, torch.bfloat16)
+        x, d, scale, g_res, g_out = args
+        D = shape[-1]
+        n_bytes = 5 * x.numel() * 2 + 2 * D * 4
+        xs = [t.detach().requires_grad_() for t in (x, d, scale)]
+        xt, dt_, wt = (t.detach().requires_grad_() for t in (x, d, scale.to(x.dtype)))
+        res = xt + dt_
+        out = F.rms_norm(res, (D,), wt, 1e-6)
+        r = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: rms_kernel.fused_add_rmsnorm_backward(*args, 1e-6)),
+            plain_ms=cuda_ms(lambda: rms_ref.fused_add_rmsnorm_backward_reference(*args, 1e-6)),
+            autograd_ms=cuda_ms(lambda: torch.autograd.grad(
+                rms_ref.fused_add_rmsnorm_reference(*xs, 1e-6), xs, (g_res, g_out)), reps=10),
+            two_calls_ms=cuda_ms(lambda: torch.autograd.grad(
+                (res, out), (xt, dt_, wt), (g_res, g_out), retain_graph=True)),
+            library_ms=None,
+            bound=bound(n_bytes, 10 * x.numel(), torch.bfloat16),
+        )
+        say("kernels-rmsnorm", f"{label} fused_add_rmsnorm_backward bf16 {shape}: kernel "
+                               f"{r['ms']:.4f} ms, plain (fused_add_rmsnorm_backward_reference) "
+                               f"{r['plain_ms']:.4f} ms, the plain autograd backward it replaced "
+                               f"(forward recomputed + gradient) {r['autograd_ms']:.4f} ms, the "
+                               f"backward of two PyTorch calls (x + delta, F.rms_norm) "
+                               f"{r['two_calls_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms by "
+                               f"{r['bound'][1]} ({n_bytes / 1e6:.1f} MB); library: none (no "
+                               "single PyTorch call)")
+        rows.setdefault("fused_add_rmsnorm_backward", r)
+        del args, x, d, scale, g_res, g_out, xs, xt, dt_, wt, res, out
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1661,7 +1794,101 @@ def phase_kernels_ssd() -> dict:
           "dt = 0, from a nonzero initial state")
     row = _ssd_slice_row(gen, SSD_SHAPE, SSM_ARCH)
     _ssd_slice_row(gen, HYBRID_SSD_SHAPE, HYBRID_ARCH)
-    return {"ssd": row}
+    return {"ssd": row, **_ssd_backward_rows(gen)}
+
+
+_SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+
+
+def _ssd_backward_case(gen, shape, dtype, states: bool, pad: int) -> tuple:
+    """``ssd_backward`` against ``ref.ssd_backward_reference`` on the same
+    tensors: each gradient within SSD_BWD_TOL (relative L2), dx exactly 0 on
+    a dt = 0 tail. Returns (max abs err over the gradients, the call's
+    tensors)."""
+    B, S, H, P, G, N, chunk = shape
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, B, S, H, P, G, N, dtype)
+    dy = randn(gen, (B, S, H, P), dtype)
+    h0 = df = None
+    if states:
+        h0, df = (torch.randn((B, H, P, N), generator=gen, device=DEVICE) for _ in range(2))
+    if pad:
+        for t in (x, dt, Bm, Cm, dy):
+            t[:, S - pad:] = 0
+    args, kw = (x, dt, A, Bm, Cm, dy), dict(chunk=chunk, initial_state=h0, dfinal=df)
+    got = ssd_kernel.ssd_backward(*args, **kw)
+    torch.cuda.synchronize()
+    want = ssd_ref.ssd_backward_reference(*args, **kw)
+    what = f"ssd_backward x {(B, S, H, P)} G {G} N {N} chunk {chunk} {dtype}"
+    errs = []
+    for name, g, w in zip(_SSD_GRADS, got, want):
+        if w is None:
+            continue
+        g, w = g.float(), w.float()
+        rel = ((g - w).norm() / w.norm()).item()
+        if not torch.isfinite(g).all() or rel > SSD_BWD_TOL[dtype]:
+            raise AssertionError(f"{what}: {name} relative L2 {rel:.3e} > {SSD_BWD_TOL[dtype]} "
+                                 "or non-finite")
+        errs.append((g - w).abs().max().item())
+    if pad and got[0][:, S - pad:].count_nonzero():
+        raise AssertionError(f"{what}: dx is not 0 on the dt = 0 tail")
+    return max(errs), args
+
+
+def _ssd_backward_rows(gen) -> dict:
+    """The scan's backward kernel (B11): held in f32 and bf16 at every
+    SSD_BWD_SHAPES entry; timed in bf16 at the training calls beside its plain
+    version (``ssd_backward_reference``), the plain autograd backward the
+    train step ran before it (``ssd_reference`` recomputed and
+    differentiated) and the bound: the causal C B^T once per group, the four
+    other causal products and five c P N state products a head (S_k, D_k,
+    G B, G^T x, H^T dy), and the bytes (x, dy, B, C, dt, A read; dx, dB, dC,
+    ddt, dA written). Returns the summary's row (mamba2-2.7b's call)."""
+    rows = {}
+    for label, (shape, states, pad) in SSD_BWD_SHAPES.items():
+        errs = {dt: _ssd_backward_case(gen, shape, dt, states, pad)[0]
+                for dt in (torch.float32, torch.bfloat16)}
+        say("kernels-ssd", f"ssd_backward {label} {shape}: max_abs_err {errs[torch.float32]:.3e} "
+                           f"(f32) / {errs[torch.bfloat16]:.3e} (bf16), each gradient within "
+                           f"relative L2 {SSD_BWD_TOL[torch.float32]:g} / "
+                           f"{SSD_BWD_TOL[torch.bfloat16]:g} of ssd_backward_reference"
+                           + (", dx 0 on the tail" if pad else ""))
+        if label not in SSD_BWD_TIMED:
+            continue
+        B, S, H, P, G, N, chunk = shape
+        err, args = _ssd_backward_case(gen, shape, torch.bfloat16, False, 0)
+        x, dt, A, Bm, Cm, dy = args
+        nc, tri = S // chunk, chunk * (chunk + 1) // 2
+        macs = B * nc * (G * tri * N + H * (tri * (2 * N + 2 * P) + 5 * chunk * P * N))
+        per_head = B * nc * H * (tri * (3 * N + 2 * P) + 6 * chunk * P * N)
+        n_bytes = (3 * x.numel() + 4 * Bm.numel()) * 2 + (2 * dt.numel() + 2 * H) * 4
+        xs = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+        r = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: ssd_kernel.ssd_backward(*args, chunk=chunk)),
+            plain_ms=cuda_ms(lambda: ssd_ref.ssd_backward_reference(*args, chunk=chunk),
+                             reps=5),
+            autograd_ms=cuda_ms(lambda: torch.autograd.grad(
+                ssd_ref.ssd_reference(*xs, chunk=chunk)[0], xs, dy), reps=5),
+            library_ms=None,
+            bound=bound(n_bytes, 2 * macs, torch.bfloat16),
+        )
+        say("kernels-ssd", f"{label} ssd_backward bf16 {shape}: kernel {r['ms']:.4f} ms, plain "
+                           f"(ssd_backward_reference) {r['plain_ms']:.4f} ms, the plain autograd "
+                           f"backward it replaced (forward recomputed + gradient) "
+                           f"{r['autograd_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms by "
+                           f"{r['bound'][1]} ({2 * macs / 1e9:.2f} GFLOP; {2 * per_head / 1e9:.2f} "
+                           f"counting C B^T per head and six state products; "
+                           f"{n_bytes / 1e6:.1f} MB); library: none")
+        passes = _kernel_passes(lambda: ssd_kernel.ssd_backward(*args, chunk=chunk),
+                                pattern=r"\bssd_bwd_\w+")
+        say("kernels-ssd", f"{label} ssd_backward bf16 device time per pass (profiler, mean of "
+                           "20 calls, L2 flushed): " + (", ".join(
+                               f"{k} {ms * 1e3:.2f} us ({n:g} a call)"
+                               for k, (ms, n) in passes.items()) or "not measured"))
+        rows.setdefault("ssd_backward", r)
+        del args, x, dt, A, Bm, Cm, dy, xs
+        torch.cuda.empty_cache()
+    return rows
 
 
 # the previous design's times at the slices' shapes (one block per (row, head)
@@ -1925,8 +2152,12 @@ def _port_kernel(name: str):
         return "mla_decode_attention"
     if "decode_split_kernel" in name or "decode_combine_kernel" in name:
         return "decode_attention"
+    if "repro_torch_rmsnorm_bwd" in name:
+        return "fused_add_rmsnorm_backward"
     if "repro_torch_rmsnorm" in name:
         return "fused_add_rmsnorm"
+    if "repro_torch_ssd_bwd" in name:
+        return "ssd_backward"
     if "repro_torch_ssd" in name:
         return "ssd"
     if "repro_torch" in name and "flash_attention" in name:
@@ -2837,25 +3068,22 @@ def _forward_counts(cfg) -> dict:
 
 def _train_counts(cfg) -> dict:
     """Kernel calls of one train step (remat on): each forward call twice,
-    forward and recompute; attention's backward kernel once a forward call
-    of attention (the add + norm's and the scan's backwards are their plain
-    versions' gradients: no launch)."""
+    forward and recompute; each backward kernel once a forward call."""
     fwd = _forward_counts(cfg)
-    return {k: 2 * n for k, n in fwd.items()} | {"flash_attention_backward":
-                                                 fwd["flash_attention"]}
+    return {k: 2 * n for k, n in fwd.items()} | {
+        f"{k}_backward": fwd[k] for k in ("flash_attention", "fused_add_rmsnorm", "ssd")}
 
 
 def _backward_ms(model: Model, batch: int = TRAIN_BATCH) -> dict:
     """Each kernel on the model's training path at the training shapes:
-    {name: {"backward": device ms of one call of the backward the step runs,
-    "kind": "kernel" (attention's backward kernel) or "plain" (what
-    ``KernelWithPlainGrad.backward`` runs: the plain forward recomputed and
-    its gradient), "plain": that plain backward's ms (for attention the
-    path the kernel replaced), "kernel": the kernel forward's ms, "bound":
-    (the forward's least ms, "bytes" or "operations"), "library":
+    {name: {"backward": device ms of one call of its backward kernel,
+    "plain": the plain autograd backward it replaced (the plain forward
+    recomputed and differentiated), "kernel": the kernel forward's ms,
+    "bound": (the forward's least ms, "bytes" or "operations"), "library":
     {yardstick: ms}}}. The yardsticks: ``F.scaled_dot_product_attention``'s
     forward, its forward + backward and its backward alone (B10); the add +
-    norm's two calls ``x + delta`` and ``F.rms_norm``; none for the scan."""
+    norm's two calls ``x + delta`` and ``F.rms_norm``, forward and backward;
+    none for the scan."""
     cfg, gen = model.cfg, torch.Generator(device=DEVICE).manual_seed(5)
     dt = model.params["embed"]["tok"].dtype
     esz = torch.empty((), dtype=dt).element_size()
@@ -2880,7 +3108,6 @@ def _backward_ms(model: Model, batch: int = TRAIN_BATCH) -> dict:
         out["flash_attention"] = {
             "backward": cuda_ms(lambda: attn_kernel.flash_attention_backward(qd, kd, vd, o, god,
                                                                              lse)),
-            "kind": "kernel",
             "plain": plain,
             "kernel": cuda_ms(lambda: attn_kernel.flash_attention(qd, kd, vd)),
             # q, k, v read, o written; the causal QK^T and PV
@@ -2900,14 +3127,22 @@ def _backward_ms(model: Model, batch: int = TRAIN_BATCH) -> dict:
         plain = cuda_ms(lambda: torch.autograd.grad(
             rms_ref.fused_add_rmsnorm_reference(x, d, scale, cfg.norm_eps), (x, d, scale),
             (g_res, g_out)), reps=10)
+        xt, dt_, wt = (t.detach().requires_grad_() for t in (x, d, scale.to(dt)))
+        res = xt + dt_
+        normed = F.rms_norm(res, (cfg.d_model,), wt, cfg.norm_eps)
         out["fused_add_rmsnorm"] = {
-            "backward": plain, "kind": "plain", "plain": plain,
+            "backward": cuda_ms(lambda: rms_kernel.fused_add_rmsnorm_backward(
+                xd, dd, sd, g_res, g_out, cfg.norm_eps)),
+            "plain": plain,
             "kernel": cuda_ms(lambda: rms_kernel.fused_add_rmsnorm(xd, dd, sd, cfg.norm_eps)),
             # x and delta read, both outputs written, the fp32 scale read
             "bound": bound(4 * x.numel() * esz + scale.numel() * 4, 0, dt),
             "library": {"x + delta, F.rms_norm (two calls)": cuda_ms(
-                lambda: F.rms_norm(xd + dd, (cfg.d_model,), sd.to(dt), cfg.norm_eps))},
+                lambda: F.rms_norm(xd + dd, (cfg.d_model,), sd.to(dt), cfg.norm_eps)),
+                "their backward alone": cuda_ms(lambda: torch.autograd.grad(
+                    (res, normed), (xt, dt_, wt), (g_res, g_out), retain_graph=True))},
         }
+        del res, normed
     if counts["ssd"]:
         s = cfg.ssm
         H, P, G, N = s.n_heads(cfg.d_model), s.head_dim, s.n_groups, s.d_state
@@ -2916,10 +3151,11 @@ def _backward_ms(model: Model, batch: int = TRAIN_BATCH) -> dict:
         x = args[0]
         plain = cuda_ms(lambda: torch.autograd.grad(
             ssd_ref.ssd_reference(*args, chunk=s.chunk)[0], args, gy), reps=5)
+        detached = [t.detach() for t in args]
         out["ssd"] = {
-            "backward": plain, "kind": "plain", "plain": plain,
-            "kernel": cuda_ms(lambda: ssd_kernel.ssd(*(t.detach() for t in args),
-                                                     chunk=s.chunk)),
+            "backward": cuda_ms(lambda: ssd_kernel.ssd_backward(*detached, gy, chunk=s.chunk)),
+            "plain": plain,
+            "kernel": cuda_ms(lambda: ssd_kernel.ssd(*detached, chunk=s.chunk)),
             # x in, y out, B, C (the activation dtype), dt and A (fp32)
             "bound": bound((2 * x.numel() + 2 * B * S * G * N) * esz + (B * S * H + H) * 4,
                            _scan_flops(cfg, B, S), dt),
@@ -2968,23 +3204,38 @@ _KERNEL_WORDS = {"flash_attention": "attention", "fused_add_rmsnorm": "add + nor
                  "ssd": "scan"}
 
 
+# the plain versions that no step may run on a CUDA tensor: (module, name)
+PLAIN_VERSIONS = ((attn_ref, "mha_reference"), (rms_ref, "fused_add_rmsnorm_reference"),
+                  (ssd_ref, "ssd_reference"))
+
+
 @contextlib.contextmanager
-def _plain_attention_calls():
-    """Counts the calls of ``ref.mha_reference`` on CUDA tensors while open
-    (the wrappers and ``ops`` reach it through the module's attribute): the
-    plain attention, or its gradient, run on the card."""
-    calls = {"cuda": 0}
-    plain = attn_ref.mha_reference
+def _plain_calls():
+    """Counts the calls of each of PLAIN_VERSIONS on CUDA tensors while open
+    (the wrappers and ``ops`` reach them through the modules' attributes): a
+    plain version, or its gradient, run on the card. Yields {name: calls}."""
+    calls = {name: 0 for _, name in PLAIN_VERSIONS}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in PLAIN_VERSIONS]
 
-    def counted(q, *args, **kw):
-        calls["cuda"] += int(q.is_cuda)
-        return plain(q, *args, **kw)
+    def counted(name, plain):
+        def call(x, *args, **kw):
+            calls[name] += int(x.is_cuda)
+            return plain(x, *args, **kw)
+        return call
 
-    attn_ref.mha_reference = counted
+    for mod, name, plain in saved:
+        setattr(mod, name, counted(name, plain))
     try:
         yield calls
     finally:
-        attn_ref.mha_reference = plain
+        for mod, name, plain in saved:
+            setattr(mod, name, plain)
+
+
+def _check_plain_calls(tag: str, calls: dict, during: str) -> None:
+    if any(calls.values()):
+        raise AssertionError(f"{tag}: plain versions ran on the card during {during}: {calls}")
+    say(tag, f"plain versions on the card during {during}: {calls}")
 
 
 def _timed_steps(model: Model, state, data: dict, ocfg) -> tuple:
@@ -3030,7 +3281,7 @@ def _train_time_steps(tag: str, model: Model, batch: int = TRAIN_BATCH) -> None:
         step(params, state, data)
     torch.cuda.synchronize()
     need = _train_counts(cfg)
-    with _plain_attention_calls() as plain_calls:
+    with _plain_calls() as plain_calls:
         _reset_launches()
         _, _, m = step(params, state, data)
         torch.cuda.synchronize()
@@ -3038,15 +3289,10 @@ def _train_time_steps(tag: str, model: Model, batch: int = TRAIN_BATCH) -> None:
         if launches != need:
             raise AssertionError(f"{tag}: one train step launched {launches}, not {need}")
         say(tag, f"(b) one train step launched {launches}: the forward kernels twice a call "
-                 "(forward + remat recompute), attention's backward kernel once; the add + "
-                 "norm's and the scan's backwards are their plain versions' gradients")
+                 "(forward + remat recompute), each backward kernel once a call")
         torch.cuda.reset_peak_memory_stats()
         times, state = _timed_steps(model, state, data, ocfg)
-    if plain_calls["cuda"]:
-        raise AssertionError(f"{tag}: ref.mha_reference ran {plain_calls['cuda']} times on the "
-                             "card during the timed steps")
-    say(tag, f"ref.mha_reference on the card during (b) and the {TRAIN_TIMED_STEPS} timed "
-             f"steps: {plain_calls['cuda']} calls")
+    _check_plain_calls(tag, plain_calls, f"(b) and the {TRAIN_TIMED_STEPS} timed steps")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     del state
     fwd, bwd, optim = (float(np.median(c)) for c in zip(*times))
@@ -3057,9 +3303,7 @@ def _train_time_steps(tag: str, model: Model, batch: int = TRAIN_BATCH) -> None:
     parts = []
     for name, r in timed.items():
         n, word = need[name] // 2, _KERNEL_WORDS[name]
-        what = f"the {word} backward kernel" if r["kind"] == "kernel" else \
-            f"the plain {word} backward"
-        parts.append(f"{what} {r['backward']:.4f} ms a call alone, x {n} = "
+        parts.append(f"the {word} backward kernel {r['backward']:.4f} ms a call alone, x {n} = "
                      f"{n * r['backward']:.3f} ms, {n * r['backward'] / bwd:.1%} of it")
     say(tag, f"step (median of {TRAIN_TIMED_STEPS}, CUDA events) {total:.3f} ms: forward "
              f"{fwd:.3f}, backward {bwd:.3f} (remat's recompute included; "
@@ -3071,10 +3315,9 @@ def _train_time_steps(tag: str, model: Model, batch: int = TRAIN_BATCH) -> None:
              f"peak ({flops / PEAK_FLOPS[torch.bfloat16] * 1e3:.3f} ms at 989 TFLOP/s); peak "
              f"allocated {peak:.3f} GiB")
     for name, r in timed.items():
-        kernel = f"backward kernel {r['backward']:.4f} ms a call, the plain backward it " \
-            "replaced" if r["kind"] == "kernel" else "plain backward"
         say(tag, f"{name} at the training shape: kernel forward {r['kernel']:.4f} ms against "
-                 f"its bound {r['bound'][0]:.5f} ms by {r['bound'][1]}; {kernel} "
+                 f"its bound {r['bound'][0]:.5f} ms by {r['bound'][1]}; backward kernel "
+                 f"{r['backward']:.4f} ms a call, the plain backward it replaced "
                  f"{r['plain']:.4f} ms a call" + "".join(
                      f"; {k} {v:.4f} ms" for k, v in r["library"].items()))
     if not np.isfinite(float(m["loss"])):
@@ -3111,7 +3354,7 @@ def _train_resume(tag: str, model: Model) -> dict:
     losses must match the first run's; then a bf16 checkpoint's round trip.
     Returns the two runs' launches."""
     ocfg = train_opt.OptimizerConfig(warmup_steps=2, total_steps=TRAIN_STEPS)
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, _plain_calls() as plain_calls:
         ckpt = str(Path(tmp) / "ckpt")
         _reset_launches()
         _, first, wall = _train_run(model, ocfg, TRAIN_STEPS, ckpt)
@@ -3122,6 +3365,7 @@ def _train_resume(tag: str, model: Model) -> dict:
         shutil.rmtree(Path(ckpt) / f"step_{TRAIN_STEPS:08d}")
         start, second, wall2 = _train_run(model, ocfg, TRAIN_STEPS, ckpt)
         launches = _launch_counts()
+        _check_plain_calls(tag, plain_calls, "the two trainer runs")
         losses = [h["loss"] for h in first]
         resumed = [h["loss"] for h in second]
         if start != TRAIN_CKPT_EVERY or [h["step"] for h in second] != list(
@@ -3207,9 +3451,9 @@ def phase_train_scan(arch: str, tag: str) -> dict:
     """Full-width mamba2-2.7b or zamba2-2.7b trained on the card on its own
     model (bf16, seed 0, remat on, the reference's synthetic tokens), as the
     train phase trains qwen2: (a) kernel gradients against the plain path,
-    (b) the launches of one step and the step's time split, with each plain
-    backward's time a call; (c) TRAIN_SCAN_STEPS steps through a Trainer on
-    the fabric, the losses falling. Returns (c)'s launches."""
+    (b) the launches of one step and the step's time split, with each
+    backward kernel's time a call; (c) TRAIN_SCAN_STEPS steps through a
+    Trainer on the fabric, the losses falling. Returns (c)'s launches."""
     t0 = time.perf_counter()
     model = _train_model("bfloat16", arch)
     say(tag, f"{arch} bf16 at full width, S = {TRAIN_SEQ}, remat on, random weights from "
@@ -3222,8 +3466,10 @@ def phase_train_scan(arch: str, tag: str) -> dict:
     model = _train_model("bfloat16", arch)
     ocfg = train_opt.OptimizerConfig(warmup_steps=2, total_steps=TRAIN_SCAN_STEPS)
     _reset_launches()
-    _, history, wall = _train_run(model, ocfg, TRAIN_SCAN_STEPS, None, batch)
+    with _plain_calls() as plain_calls:
+        _, history, wall = _train_run(model, ocfg, TRAIN_SCAN_STEPS, None, batch)
     launches = _launch_counts()
+    _check_plain_calls(tag, plain_calls, "the trainer run")
     losses = [h["loss"] for h in history]
     early, late = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
     say(tag, f"(c) {TRAIN_SCAN_STEPS} steps of {batch} x {TRAIN_SEQ} through a "
@@ -4318,6 +4564,7 @@ def phase_mesh_dryrun() -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     name = phase_device()
     phase_build()
     rows = phase_kernels()
@@ -4391,6 +4638,7 @@ def main() -> int:
     phase_mesh_dryrun()
     if not all(launches.values()):
         raise AssertionError(f"launches {launches}: a kernel of the port ran on no main path")
+    say("main", f"wall {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     kernels = []
     for kname, r in rows.items():
         kernels.append({

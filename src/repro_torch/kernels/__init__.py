@@ -8,12 +8,12 @@ given a tensor on the CPU or on the meta device (a trace with no data, as
 
 Gradients: a kernel wrapper given CUDA inputs that autograd records (grad
 mode on and an input that requires grad) launches its kernel through an
-autograd Function, or raises where the kernel is on no training path
-(decode attention). Flash attention's Function
-(``flash_attention.kernel.FlashAttentionGrad``) has a backward kernel of its
-own; the add + norm and the SSD scan launch through ``KernelWithPlainGrad``,
-whose backward is the plain version's gradient, until their backward kernels
-come. A wrapper never returns an output without a ``grad_fn`` there.
+autograd Function whose backward is a kernel too
+(``flash_attention.kernel.FlashAttentionGrad``,
+``rmsnorm.kernel.AddRMSNormGrad``, ``ssd.kernel.SSDGrad``), or raises where
+the kernel is on no training path (decode attention). A wrapper never returns
+an output without a ``grad_fn`` there, and no CUDA tensor takes a plain
+version's gradient.
 
 Compiled code: each kernel's launch on CUDA tensors (its pointer checks, the
 ctypes call, the launch counter) is a ``launcher``, which ``torch.compile``
@@ -76,33 +76,3 @@ def refuse_grad(name: str, *tensors) -> None:
     if records_grad(*tensors):
         raise RuntimeError(f"{name} has no gradient on the card: it is on no training path; "
                            "call it under torch.no_grad() or on tensors that do not require grad")
-
-
-class KernelWithPlainGrad(torch.autograd.Function):
-    """``apply(kernel_fn, plain_fn, *inputs)``: the forward is ``kernel_fn(*inputs)``
-    (a hand-written kernel's launch); the backward recomputes ``plain_fn(*inputs)``
-    (its plain PyTorch version) from the saved inputs under grad and returns
-    its gradient for every input that needs one. Outputs are a tensor or a
-    tuple of tensors, the same for both functions.
-
-    The JAX package has no backward kernel and cannot differentiate its
-    forward ones, so the plain version's gradient is the reference here."""
-
-    @staticmethod
-    def forward(ctx, kernel_fn, plain_fn, *inputs):
-        ctx.plain_fn = plain_fn
-        ctx.save_for_backward(*inputs)
-        return kernel_fn(*inputs)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        needs = ctx.needs_input_grad[2:]
-        with torch.enable_grad():
-            xs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
-            outs = ctx.plain_fn(*xs)
-            outs = outs if isinstance(outs, tuple) else (outs,)
-            pairs = [(o, g) for o, g in zip(outs, grads) if g is not None and o.requires_grad]
-            wrt = [x for x in xs if x.requires_grad]
-            got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
-                                           allow_unused=True))
-        return (None, None, *(next(got) if n else None for n in needs))

@@ -179,7 +179,8 @@ def test_a_replay_adds_the_captured_calls_to_launches(cuda_device):
                                       "flash_attention_backward": 0,
                                       "decode_attention_partials": 0,
                                       "mla_decode_attention_partials": 0,
-                                      "fused_add_rmsnorm": G, "ssd": 0}
+                                      "fused_add_rmsnorm": G, "fused_add_rmsnorm_backward": 0,
+                                      "ssd": 0, "ssd_backward": 0}
     before = tengine.launch_counts()
     engine.submit(np.arange(7), max_new_tokens=4)
     engine.run_until_drained(timeout=120)
@@ -190,7 +191,8 @@ def test_a_replay_adds_the_captured_calls_to_launches(cuda_device):
         "flash_attention": G, "decode_attention": steps * G, "mla_decode_attention": 0,
         "flash_attention_backward": 0, "decode_attention_partials": 0,
         "mla_decode_attention_partials": 0,
-        "fused_add_rmsnorm": (1 + steps) * G, "ssd": cfg.n_layers}
+        "fused_add_rmsnorm": (1 + steps) * G, "fused_add_rmsnorm_backward": 0,
+        "ssd": cfg.n_layers, "ssd_backward": 0}
 
 
 def test_changing_kernel_impl_after_capture_raises(cuda_device):

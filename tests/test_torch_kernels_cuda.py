@@ -11,6 +11,8 @@ Tolerances are the reference's: 2e-5 f32, 2e-2 bf16 for attention
 (tests/test_kernels_ssd.py:10); 1e-6 f32, 1e-2 bf16 for the fused add +
 RMSNorm (tests/test_kernels_rmsnorm.py:10).
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -1008,10 +1010,9 @@ def test_model_kernel_path_matches_plain_path(arch, cuda_device):
 # ------------------------------------------------------------ gradients
 # Under autograd flash attention launches its kernel forward (which also
 # writes the log-sum-exp) and, backward, flash_attention_backward's kernel;
-# the add + norm and the scan launch their kernel forward through
-# ``KernelWithPlainGrad``, whose backward is the plain version's gradient
-# recomputed from the saved inputs; decode attention, on no training path,
-# raises.
+# the add + norm and the scan launch their kernel forward and, backward,
+# fused_add_rmsnorm_backward's and ssd_backward's kernels; decode attention,
+# on no training path, raises.
 # (id, (B, Sq, Skv, H, KV, dqk, dv), kwargs): small; qwen2-0.5b's and
 # zamba2-2.7b's training calls; minicpm3-4b's expanded prefill (dqk 96, dv
 # 64, its own scale); whisper-small's cross attention (64 queries over 1500
@@ -1034,10 +1035,22 @@ GRAD_RMS_SHAPES = [(2, 5, 64), (8, 1024, 896)]                            # smal
 GRAD_REL_L2 = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
-def _close_grads(got, want, dtype, tol):
-    for g, w in zip(got, want):
+def _close_grads(got, want, dtype, tol, summed=()):
+    """Each gradient within ``tol`` of autograd's, element by element; those
+    at the indices ``summed`` (sums over many rows or positions, which the
+    backward kernels take in another order than autograd's reductions) by
+    their relative L2 within ``tol`` and max |diff| within 1e-4 max |plain|
+    (f32) or ``tol`` max |plain| (bf16)."""
+    for i, (g, w) in enumerate(zip(got, want)):
         assert g is not None and g.dtype == w.dtype
-        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+        g, w = g.float(), w.float()
+        if i in summed:
+            rel = float((g - w).norm() / w.norm())
+            worst = float((g - w).abs().max()) / float(w.abs().max())
+            assert rel <= tol and worst <= (1e-4 if dtype == "float32" else tol), \
+                f"gradient {i}: relative L2 {rel:.3e}, max |diff| {worst:.3e} of max |plain|"
+        else:
+            torch.testing.assert_close(g, w, rtol=tol, atol=tol)
 
 
 def _grad_case(case, dtype, device, seed=7):
@@ -1151,18 +1164,83 @@ def test_flash_backward_refuses_what_it_does_not_take(cuda_device):
 @pytest.mark.parametrize("dtype", list(RMS_DTYPES))
 @pytest.mark.parametrize("shape", GRAD_RMS_SHAPES, ids=str)
 def test_fused_add_rmsnorm_gradients_are_the_plain_versions(shape, dtype, cuda_device):
+    """Under autograd one forward launch and one fused_add_rmsnorm_backward
+    launch; the gradients of x, delta and scale against autograd of the
+    plain version on the same inputs."""
     tdt, tol = RMS_DTYPES[dtype]
     x, d, scale = _rms_inputs(cuda_device, tdt, 8, shape)
     g_res, g_out = _rms_inputs(cuda_device, tdt, 9, shape)[:2]
     x, d, scale = (t.requires_grad_() for t in (x, d, scale))
-    before = rms_kernel.LAUNCHES["fused_add_rmsnorm"]
+    before = dict(rms_kernel.LAUNCHES)
     res, out = rms_kernel.fused_add_rmsnorm(x, d, scale, 1e-6)
-    assert rms_kernel.LAUNCHES["fused_add_rmsnorm"] == before + 1
     assert res.grad_fn is not None and out.grad_fn is not None
     got = torch.autograd.grad((res, out), (x, d, scale), (g_res, g_out))
+    torch.cuda.synchronize()
+    assert {n: rms_kernel.LAUNCHES[n] - before[n] for n in before} == {
+        "fused_add_rmsnorm": 1, "fused_add_rmsnorm_backward": 1}
     want = rms_ref.fused_add_rmsnorm_reference(x, d, scale, 1e-6)
+    # dscale sums over every row
     _close_grads(got, torch.autograd.grad(want, (x, d, scale), (g_res, g_out)), dtype,
-                 tol if dtype == "bfloat16" else 1e-5)
+                 tol if dtype == "bfloat16" else 1e-5, summed=(2,))
+
+
+# the add + norm backward kernel against its plain version: each gradient's
+# relative L2 (f32: sums in another order; bf16: dh rounded once, at the store)
+RMS_BWD_REL_L2 = {"float32": 1e-5, "bfloat16": 1e-2}
+# qwen2-0.5b's and zamba2-2.7b's training rows, internvl2-26b's width, decode
+# rows, a ragged count of rows, and x / delta with row strides
+RMS_BWD_SHAPES = [(8, 1024, 896), (8, 1024, 2560), (1, 768, 6144), (8, 1, 896), (1037, 64),
+                  (3, 5, 64)]
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("dtype", list(RMS_DTYPES))
+@pytest.mark.parametrize("shape", RMS_BWD_SHAPES, ids=str)
+def test_fused_add_rmsnorm_backward_kernel_matches_its_plain_version(shape, dtype, strided,
+                                                                     cuda_device):
+    """``fused_add_rmsnorm_backward`` against
+    ``ref.fused_add_rmsnorm_backward_reference`` on the same tensors (x and
+    delta strided rows with ``strided``, the output gradients transposed
+    views, which the wrapper makes contiguous); dx is ddelta; one launch;
+    two runs give the same bits."""
+    tdt, _ = RMS_DTYPES[dtype]
+    x, d, scale = _rms_inputs(cuda_device, tdt, 18, shape)
+    g_res, g_out = _rms_inputs(cuda_device, tdt, 19, shape)[:2]
+    if strided:
+        D = shape[-1]
+        wide = torch.zeros(shape[:-1] + (D + 16,), dtype=tdt, device=cuda_device)
+        wide[..., 8:8 + D] = x
+        x = wide[..., 8:8 + D]
+        g_out = g_out.transpose(0, -2).contiguous().transpose(0, -2) if len(shape) > 2 else g_out
+    before = rms_kernel.LAUNCHES["fused_add_rmsnorm_backward"]
+    got = rms_kernel.fused_add_rmsnorm_backward(x, d, scale, g_res, g_out, 1e-6)
+    torch.cuda.synchronize()
+    assert rms_kernel.LAUNCHES["fused_add_rmsnorm_backward"] == before + 1
+    assert got[0] is got[1] and got[0].dtype == tdt and got[2].dtype == torch.float32
+    want = rms_ref.fused_add_rmsnorm_backward_reference(x, d, scale, g_res, g_out, 1e-6)
+    for name, g, w in zip(("dx", "ddelta", "dscale"), got, want):
+        rel = float((g.float() - w.float()).norm() / w.float().norm())
+        assert rel <= RMS_BWD_REL_L2[dtype], f"{name}: relative L2 {rel:.3e}"
+    again = rms_kernel.fused_add_rmsnorm_backward(x, d, scale, g_res, g_out, 1e-6)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[2], got[2])
+
+
+def test_fused_add_rmsnorm_backward_refuses_what_it_does_not_take(cuda_device):
+    x, d, scale = _rms_inputs(cuda_device, torch.float32, 20, (4, 64))
+    g = torch.ones_like(x)
+    bwd = rms_kernel.fused_add_rmsnorm_backward
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        bwd(x.half(), d.half(), scale, g.half(), g.half())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        bwd(x[:, :60], d[:, :60], scale[:60], g[:, :60], g[:, :60])
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        bwd(x, d.cpu(), scale, g, g)
+    with pytest.raises(ValueError, match="g_res must be"):
+        bwd(x, d, scale, g.bfloat16(), g)
+    with pytest.raises(ValueError, match="g_out must be"):
+        bwd(x, d, scale, g, g[:2])
+    with pytest.raises(ValueError, match="scale must be"):
+        bwd(x, d, scale.double(), g, g)
 
 
 def test_decode_attention_and_ssd_raise_under_grad(cuda_device):
@@ -1191,9 +1269,10 @@ GRAD_SSD_SHAPES = [(2, 64, 4, 16, 2, 16, 32), (8, 1024, 80, 64, 1, 128, 256),
 @pytest.mark.parametrize("dtype", list(SSD_DTYPES))
 @pytest.mark.parametrize("shape", GRAD_SSD_SHAPES, ids=str)
 def test_ssd_gradients_are_the_plain_versions(shape, dtype, final_state, cuda_device):
-    """Under autograd the scan launches its kernel forward once and its
-    backward is ``ssd_reference``'s gradient for x, dt, A, B, C (and, with a
-    final state asked for, an initial state) with no launch."""
+    """Under autograd the scan launches its kernel forward once and
+    ssd_backward's kernel once; the gradients of x, dt, A, B, C (and, with a
+    final state asked for, an initial state) against autograd of
+    ``ssd_reference``."""
     B, S, H, P, G, N, chunk = shape
     tdt, tol = SSD_DTYPES[dtype]
     x, dt, A, B_, C_ = _ssd_inputs(cuda_device, tdt, 14, B, S, H, P, G, N)
@@ -1208,21 +1287,112 @@ def test_ssd_gradients_are_the_plain_versions(shape, dtype, final_state, cuda_de
     kw = dict(chunk=chunk, initial_state=init, return_final_state=final_state)
     gy = torch.randn(x.shape, generator=torch.Generator(cuda_device).manual_seed(16),
                      device=cuda_device).to(tdt)
-    before = ssd_kernel.LAUNCHES["ssd"]
+    before = dict(ssd_kernel.LAUNCHES)
     y, state = ssd_kernel.ssd(*inputs[:5], **kw)
-    assert ssd_kernel.LAUNCHES["ssd"] == before + 1
     assert y.grad_fn is not None and (state is not None) == final_state
     outs, grads = [y], [gy]
     if final_state:
         outs.append(state)
         grads.append(torch.ones_like(state))
     got = torch.autograd.grad(outs, inputs, grads)
-    assert ssd_kernel.LAUNCHES["ssd"] == before + 1       # the backward is plain
+    torch.cuda.synchronize()
+    assert {n: ssd_kernel.LAUNCHES[n] - before[n] for n in before} == {"ssd": 1,
+                                                                     "ssd_backward": 1}
     want_y, want_state = ssd_ref.ssd_reference(*inputs[:5], **kw)
     torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
     want = torch.autograd.grad([want_y] + ([want_state] if final_state else []), inputs,
                                grads)
-    _close_grads(got, want, dtype, tol)
+    # dA sums over every row and position, dB and dC over each group's heads
+    # (80 at G = 1) and the chunk's positions; ddt passes through the chunk's
+    # suffix sums of the cum gradient (up to 256 positions)
+    _close_grads(got, want, dtype, tol, summed=(1, 2, 3, 4))
+
+
+# the scan's backward kernel against its plain version: each gradient's
+# relative L2 (f32: every product an fp32 FMA, sums in another order; bf16:
+# dx, dB and dC rounded once, at the store)
+SSD_BWD_REL_L2 = {"float32": 1e-4, "bfloat16": 2e-2}
+# (id, (B, S, H, P, G, N, chunk), an initial state and a final-state gradient,
+# a dt = 0 padded tail of this many positions): the reference's sweep, G = 2,
+# chunks of 1 and 2, one chunk and several, a ragged chunk, both states, a
+# padded tail, and mamba2-2.7b's and zamba2-2.7b's training calls
+SSD_BWD_CASES = [
+    ("sweep-2-chunks", (1, 64, 2, 16, 1, 16, 16), False, 0),
+    ("sweep-G2", (2, 128, 4, 32, 2, 8, 32), False, 0),
+    ("sweep-3-chunks", (1, 96, 6, 16, 1, 32, 32), False, 0),
+    ("sweep-1-chunk-G4", (2, 64, 8, 64, 4, 16, 64), False, 0),
+    ("chunk-1", (2, 5, 80, 64, 1, 128, 1), True, 0),
+    ("chunk-2", (1, 6, 80, 64, 1, 64, 2), True, 0),
+    ("ragged-chunk-137", (1, 137, 8, 64, 1, 128, 137), False, 0),
+    ("states-3-chunks", (2, 768, 80, 64, 1, 128, 256), True, 0),
+    ("dt-0-tail", (1, 512, 80, 64, 1, 128, 256), True, 375),
+    ("mamba2-train", (8, 1024, 80, 64, 1, 128, 256), False, 0),
+    ("zamba2-train", (8, 1024, 80, 64, 1, 64, 256), False, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", list(SSD_DTYPES))
+@pytest.mark.parametrize("case", SSD_BWD_CASES, ids=[c[0] for c in SSD_BWD_CASES])
+def test_ssd_backward_kernel_matches_its_plain_version(case, dtype, cuda_device):
+    """``ssd_backward`` against ``ref.ssd_backward_reference`` on the same
+    tensors (x, B and C strided views at the sweep's first case; dy a
+    transposed view, which the wrapper makes contiguous); one launch; dx
+    exactly 0 on a dt = 0 tail; two runs give the same bits."""
+    _, (B, S, H, P, G, N, chunk), states, pad = case
+    tdt, _ = SSD_DTYPES[dtype]
+    x, dt, A, B_, C_ = _ssd_inputs(cuda_device, tdt, 21, B, S, H, P, G, N)
+    if case[0] == "sweep-2-chunks":
+        x = torch.cat([x, x], dim=-1)[..., :P]
+        B_ = torch.cat([B_, C_], dim=2)[:, :, :G]
+    gen = torch.Generator(cuda_device).manual_seed(22)
+    dy = torch.randn((B, S, P, H), generator=gen, device=cuda_device).to(tdt).transpose(2, 3)
+    h0 = df = None
+    if states:
+        h0, df = (torch.randn((B, H, P, N), generator=gen, device=cuda_device)
+                  for _ in range(2))
+    if pad:
+        for t in (x, dt, B_, C_, dy):
+            t[:, S - pad:] = 0
+    before = ssd_kernel.LAUNCHES["ssd_backward"]
+    got = ssd_kernel.ssd_backward(x, dt, A, B_, C_, dy, chunk=chunk, initial_state=h0,
+                                  dfinal=df)
+    torch.cuda.synchronize()
+    assert ssd_kernel.LAUNCHES["ssd_backward"] == before + 1
+    want = ssd_ref.ssd_backward_reference(x, dt, A, B_, C_, dy, chunk=chunk, initial_state=h0,
+                                          dfinal=df)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dinit"), got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        rel = float((g.float() - w.float()).norm() / w.float().norm())
+        assert rel <= SSD_BWD_REL_L2[dtype], f"{name}: relative L2 {rel:.3e}"
+    if pad:
+        assert torch.equal(got[0][:, S - pad:], torch.zeros_like(got[0][:, S - pad:]))
+    again = ssd_kernel.ssd_backward(x, dt, A, B_, C_, dy, chunk=chunk, initial_state=h0,
+                                    dfinal=df)
+    assert all(torch.equal(a, b) for a, b in zip(again, got) if a is not None)
+
+
+def test_ssd_backward_refuses_what_it_does_not_take(cuda_device):
+    x, dt, A, B_, C_ = _ssd_inputs(cuda_device, torch.float32, 23, 1, 32, 2, 16, 1, 16)
+    dy = torch.ones_like(x)
+    bwd = functools.partial(ssd_kernel.ssd_backward, chunk=16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        bwd(x.half(), dt, A, B_.half(), C_.half(), dy.half())
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        bwd(x, dt, A.cpu(), B_, C_, dy)
+    with pytest.raises(ValueError, match="dy must be"):
+        bwd(x, dt, A, B_, C_, dy.bfloat16())
+    with pytest.raises(ValueError, match="dy must be"):
+        bwd(x, dt, A, B_, C_, dy[:, :16])
+    with pytest.raises(ValueError, match="dfinal must be"):
+        bwd(x, dt, A, B_, C_, dy, dfinal=torch.zeros((1, 2, 16, 8), device=cuda_device))
+    with pytest.raises(ValueError, match="chunk 24 must be"):
+        ssd_kernel.ssd_backward(x, dt, A, B_, C_, dy, chunk=24)
+    with pytest.raises(ValueError, match="above the kernel's"):
+        big = torch.zeros((1, 32, 2, 80), device=cuda_device)
+        bwd(big, dt, A, B_, C_, torch.zeros_like(big))
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen2-moe-a2.7b", "minicpm3-4b",
@@ -1231,7 +1401,7 @@ def test_model_loss_backward_reaches_every_weight(arch, cuda_device):
     """A reduced model's loss backward through the kernels (remat on) gives
     every weight a nonzero gradient, close to the plain path's (f32), and
     launches flash attention and the add + norm twice a layer (forward and
-    recompute) and the attention backward kernel once."""
+    recompute) and their backward kernels once."""
     cfg = get_reduced(arch).with_(dtype="float32")
     model = Model(cfg, device=cuda_device).init(torch.Generator(cuda_device).manual_seed(0))
     model.requires_grad_(True)
@@ -1255,6 +1425,8 @@ def test_model_loss_backward_reaches_every_weight(arch, cuda_device):
             assert tkernel.LAUNCHES["flash_attention"] == 2 * per_forward
             assert tkernel.LAUNCHES["flash_attention_backward"] == per_forward
             assert rms_kernel.LAUNCHES["fused_add_rmsnorm"] == (0 if encdec else 2 * cfg.n_layers)
+            assert rms_kernel.LAUNCHES["fused_add_rmsnorm_backward"] == (
+                0 if encdec else cfg.n_layers)
             assert tkernel.LAUNCHES["decode_attention"] == 0
     for name, g, w in zip(names, grads["auto"], grads["ref"]):
         assert g is not None and float(g.abs().max()) > 0, f"{name} has no gradient"
@@ -1266,8 +1438,9 @@ def test_ssm_families_do_not_train_on_the_card_yet(arch, cuda_device):
     """The ssm and hybrid families train on the card: a reduced model's loss
     backward through the kernels (remat on) gives every weight a nonzero
     gradient close to the plain path's (f32), and launches the scan twice a
-    Mamba2 layer (forward and recompute), the hybrid's shared block's flash
-    attention and add + norm twice a group and the attention backward once."""
+    Mamba2 layer (forward and recompute) and its backward kernel once, the
+    hybrid's shared block's flash attention and add + norm twice a group and
+    their backward kernels once."""
     cfg = get_reduced(arch).with_(dtype="float32")
     model = Model(cfg, device=cuda_device).init(torch.Generator(cuda_device).manual_seed(0))
     model.requires_grad_(True)
@@ -1287,6 +1460,8 @@ def test_ssm_families_do_not_train_on_the_card_yet(arch, cuda_device):
             assert tkernel.LAUNCHES["flash_attention"] == 2 * groups
             assert tkernel.LAUNCHES["flash_attention_backward"] == groups
             assert rms_kernel.LAUNCHES["fused_add_rmsnorm"] == 2 * groups
+            assert rms_kernel.LAUNCHES["fused_add_rmsnorm_backward"] == groups
+            assert ssd_kernel.LAUNCHES["ssd_backward"] == cfg.n_layers
             assert tkernel.LAUNCHES["decode_attention"] == 0
     for name, g, w in zip(names, grads["auto"], grads["ref"]):
         assert g is not None and float(g.abs().max()) > 0, f"{name} has no gradient"

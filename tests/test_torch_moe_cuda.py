@@ -75,7 +75,9 @@ def test_graphed_moe_engine_equals_eager_engine(arch, dtype, cuda_device):
                                        "flash_attention_backward": 0,
                                        "decode_attention_partials": 0,
                                        "mla_decode_attention_partials": 0,
-                                       "fused_add_rmsnorm": L, "ssd": 0}
+                                       "fused_add_rmsnorm": L,
+                                       "fused_add_rmsnorm_backward": 0, "ssd": 0,
+                                       "ssd_backward": 0}
     assert _serve(graphed, prompts, n_new) == _serve(eager, prompts, n_new)
     assert graphed.steps == eager.steps
     for (name, g), (_, e) in zip(_leaves(graphed.cache), _leaves(eager.cache)):

@@ -126,5 +126,6 @@ def test_kernel_impl_on_a_cpu_tensor_raises():
 
 def test_reset_launches_zeroes_the_count():
     tkernel.LAUNCHES["fused_add_rmsnorm"] += 3
+    tkernel.LAUNCHES["fused_add_rmsnorm_backward"] += 2
     tkernel.reset_launches()
-    assert tkernel.LAUNCHES == {"fused_add_rmsnorm": 0}
+    assert tkernel.LAUNCHES == {"fused_add_rmsnorm": 0, "fused_add_rmsnorm_backward": 0}

@@ -432,7 +432,9 @@ def test_launch_counts_merges_every_kernel_wrapper(fresh_launches):
                                        "flash_attention_backward": 0,
                                        "decode_attention_partials": 0,
                                        "mla_decode_attention_partials": 0,
-                                       "fused_add_rmsnorm": 5, "ssd": 0}
+                                       "fused_add_rmsnorm": 5,
+                                       "fused_add_rmsnorm_backward": 0, "ssd": 0,
+                                       "ssd_backward": 0}
 
 
 def test_decode_graph_replay_adds_the_captured_launches(fresh_launches):
@@ -441,7 +443,8 @@ def test_decode_graph_replay_adds_the_captured_launches(fresh_launches):
     replays or counts anything."""
     captured = {"flash_attention": 0, "decode_attention": 24, "mla_decode_attention": 0,
                 "flash_attention_backward": 0, "decode_attention_partials": 0,
-                "mla_decode_attention_partials": 0, "fused_add_rmsnorm": 24, "ssd": 0}
+                "mla_decode_attention_partials": 0, "fused_add_rmsnorm": 24,
+                "fused_add_rmsnorm_backward": 0, "ssd": 0, "ssd_backward": 0}
     graph = DecodeGraph(_StandInGraph(), captured, "auto")
     before = tengine.launch_counts()
     for _ in range(3):

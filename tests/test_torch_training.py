@@ -37,11 +37,7 @@ from repro_torch import params as tparams  # noqa: E402
 from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.core import FunctionService  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
-from repro_torch.kernels import KernelWithPlainGrad, records_grad, refuse_grad  # noqa: E402
-from repro_torch.kernels.flash_attention import ref as attn_ref  # noqa: E402
-from repro_torch.kernels.rmsnorm import ref as rms_ref  # noqa: E402
-from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
-from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
+from repro_torch.kernels import records_grad, refuse_grad  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.model import AUX_COEF, REMAT_SAVED_OPS, Model  # noqa: E402
 from repro_torch.training import optimizer as opt  # noqa: E402
@@ -280,69 +276,7 @@ def test_serving_keeps_the_weights_frozen_and_the_cached_views():
         model.requires_grad_(False)
 
 
-# ----------------------------------------------- the kernels' autograd Function
-def test_kernel_function_backward_is_the_plain_gradient():
-    """``KernelWithPlainGrad`` with the plain version standing in for the
-    kernel: its gradients are autograd's of the plain version, for attention
-    (one output) and the add + norm (two, the f32 scale included)."""
-    r = np.random.default_rng(2)
-    t = lambda *s: torch.from_numpy(r.standard_normal(s).astype(np.float32)).requires_grad_()
-    q, k, v = t(2, 9, 4, 8), t(2, 9, 2, 8), t(2, 9, 2, 8)
-    go = torch.from_numpy(r.standard_normal((2, 9, 4, 8)).astype(np.float32))
-    fn = functools.partial(attn_ref.mha_reference, causal=True, kv_len=torch.tensor([9, 5]))
-    got = torch.autograd.grad(KernelWithPlainGrad.apply(fn, fn, q, k, v), (q, k, v), go)
-    want = torch.autograd.grad(fn(q, k, v), (q, k, v), go)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=0, atol=0)
-
-    x, d = t(3, 5, 16), t(3, 5, 16)
-    scale = torch.from_numpy(1 + r.random(16).astype(np.float32)).requires_grad_()
-    fn = functools.partial(rms_ref.fused_add_rmsnorm_reference, eps=1e-6)
-    g_res, g_out = t(3, 5, 16).detach(), t(3, 5, 16).detach()
-    got = torch.autograd.grad(KernelWithPlainGrad.apply(fn, fn, x, d, scale), (x, d, scale),
-                              (g_res, g_out))
-    want = torch.autograd.grad(fn(x, d, scale), (x, d, scale), (g_res, g_out))
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=0, atol=0)
-    # only the normed output used (the residual's gradient materialised as zeros)
-    (gx,) = torch.autograd.grad(KernelWithPlainGrad.apply(fn, fn, x, d, scale)[1].sum(), x)
-    (wx,) = torch.autograd.grad(fn(x, d, scale)[1].sum(), x)
-    torch.testing.assert_close(gx, wx, rtol=0, atol=0)
-
-
-@pytest.mark.parametrize("final_state", [False, True])
-@pytest.mark.parametrize("initial_state", [False, True])
-def test_ssd_function_backward_is_the_plain_gradient(initial_state, final_state):
-    """``ssd``'s Function with the plain version as both callables (the
-    wrapper's ``_outputs``: y alone without the final state): the gradients
-    of x, dt, A, B, C and the initial state are autograd's of
-    ``ssd_reference``."""
-    r = np.random.default_rng(4)
-    t = lambda *s: torch.from_numpy(r.standard_normal(s).astype(np.float32)).requires_grad_()
-    Bb, S_, H, P, G, N, chunk = 2, 12, 4, 8, 2, 6, 4
-    x, Bm, Cm = t(Bb, S_, H, P), t(Bb, S_, G, N), t(Bb, S_, G, N)
-    dt = torch.from_numpy(0.1 + r.random((Bb, S_, H)).astype(np.float32)).requires_grad_()
-    A = torch.from_numpy(-0.5 - r.random(H).astype(np.float32)).requires_grad_()
-    inputs = [x, dt, A, Bm, Cm] + ([t(Bb, H, P, N)] if initial_state else [])
-    kw = dict(chunk=chunk, return_final_state=final_state)
-    fn = ssd_kernel._outputs(ssd_ref.ssd_reference, **kw)
-    got = KernelWithPlainGrad.apply(fn, fn, *inputs)
-    want = fn(*inputs)
-    outs = (got, want) if not final_state else (got[0], want[0])
-    assert isinstance(outs[0], torch.Tensor)
-    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
-    gy = torch.from_numpy(r.standard_normal((Bb, S_, H, P)).astype(np.float32))
-    if final_state:
-        gs = torch.from_numpy(r.standard_normal((Bb, H, P, N)).astype(np.float32))
-        g_got = torch.autograd.grad(got, inputs, (gy, gs))
-        g_want = torch.autograd.grad(want, inputs, (gy, gs))
-    else:
-        g_got = torch.autograd.grad(got, inputs, gy)
-        g_want = torch.autograd.grad(want, inputs, gy)
-    for g, w in zip(g_got, g_want):
-        torch.testing.assert_close(g, w, rtol=0, atol=0)
-
-
+# ----------------------------------------------- the kernels' autograd helpers
 def test_records_grad_and_refuse_grad():
     a, b = torch.zeros(2), torch.zeros(2, requires_grad=True)
     assert not records_grad(a, None) and records_grad(a, b)
