@@ -772,19 +772,55 @@ def phase_device() -> str:
     return name
 
 
+# each kernel's ptxas report from phase_build, by kernel name
+BUILD_LOGS: dict = {}
+
+
+def _kernel_name(mangled: str) -> str:
+    """A mangled kernel name's function and its integer or type template
+    arguments (``attn_bwd_dq_kernel<1, 1>``), read from its length-prefixed
+    identifiers; the mangled name where none ends in ``_kernel``."""
+    found = None  # the last identifier that ends in _kernel: a hash's digits may fake an earlier one
+    for m in re.finditer(r"\d+", mangled):
+        for k in range(len(m.group(0))):
+            n = int(m.group(0)[k:])
+            ident = mangled[m.end():m.end() + n]
+            if n and len(ident) == n and ident.endswith("_kernel"):
+                found = (ident, mangled[m.end() + n:])
+    if found is None:
+        return mangled
+    ident, rest = found
+    args = rest[:rest.find("EEv") + 2] if rest.startswith("I") else ""
+    targs = re.findall(r"Li(\d+)E", args) or (
+        ["bf16"] if "bfloat16" in args else ["float"] if args.startswith("If") else [])
+    return ident + (f"<{', '.join(targs)}>" if targs else "")
+
+
+def ptxas_lines(log: str) -> list:
+    """(kernel, line) for each registers or spill line of an ``-Xptxas -v``
+    report (its other notes, such as where ptxas fences wgmma, left out)."""
+    out, kernel = [], ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = _kernel_name(line.split("'")[1] if "'" in line else line.strip())
+        elif re.search(r"Used \d+ registers|spill (stores|loads)", line):
+            out.append((kernel, line.replace("ptxas info    :", "").strip()))
+    return out
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     sources = {name: src for mod in KERNEL_MODULES for name, src in mod.SOURCES.items()}
     info = _build.build(list(sources.values()))   # one nvcc per source, all at once
+    BUILD_LOGS.update({name: info[src]["log"] for name, src in sources.items()})
     for mod in KERNEL_MODULES:
         mod.build()                                # loads the libraries just built
     wall = time.perf_counter() - t0
     for name, src in sources.items():
         r = info[src]
         say("build", f"{name}: {r['seconds']:.1f} s -> {Path(r['path']).name}")
-        for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                say("build", f"  ptxas: {line.strip()}")
+        for kernel, line in ptxas_lines(r["log"]):
+            say("build", f"  ptxas: {kernel}: {line}")
     say("build", f"{len(sources)} kernels built in {wall:.1f} s wall "
                  "(one nvcc per source, in parallel)")
 
@@ -1453,7 +1489,8 @@ def _flash_backward_case(gen, shape, dtype) -> tuple:
     """``flash_attention_backward`` on the forward kernel's (o, lse) at
     ``shape`` (a BWD_*_SHAPES entry) against ``ref.mha_backward_reference``
     on the same tensors: each gradient within BWD_TOL (relative L2), exact
-    zeros for a row of length 0; the forward's lse against the plain one.
+    zeros for a row of length 0, the same bits from a second call; the
+    forward's lse against the plain one.
     Returns (max_abs_err over dq, dk, dv, lse's max abs difference, the
     call's tensors and kwargs)."""
     B, Sq, Skv, H, KV, dqk, dv, kw = shape
@@ -1463,9 +1500,12 @@ def _flash_backward_case(gen, shape, dtype) -> tuple:
     v, do = randn(gen, (B, Skv, KV, dv), dtype), randn(gen, (B, Sq, H, dv), dtype)
     o, lse = attn_kernel._flash_launch(q, k, v, with_lse=True, **kw)
     got = attn_kernel.flash_attention_backward(q, k, v, o, do, lse, **kw)
+    again = attn_kernel.flash_attention_backward(q, k, v, o, do, lse, **kw)
     torch.cuda.synchronize()
-    want = attn_ref.mha_backward_reference(q, k, v, o, do, lse, **kw)
     what = f"flash backward {(B, Sq, Skv, H, KV, dqk, dv)} {kw} {dtype}"
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError(f"{what}: two calls on the same inputs gave other bits")
+    want = attn_ref.mha_backward_reference(q, k, v, o, do, lse, **kw)
     errs = []
     for name, g, w in zip("qkv", got, want):
         g, w = g.float(), w.float()
@@ -1496,8 +1536,12 @@ def _flash_backward_rows(gen) -> dict:
     autograd backward the train step ran before it (``mha_reference``
     recomputed and differentiated), SDPA's backward alone (its forward run
     once, the graph retained) and the bound of the five products (S, dP, dV,
-    dQ, dK) and the bytes (q, k, v, o, dO, lse read, dq, dk, dv written).
+    dQ, dK) and the bytes (q, k, v, o, dO, lse read, dq, dk, dv written),
+    with each pass's device time (profiler); two calls give the same bits at
+    every shape. Prints the build's registers and spills of its kernels.
     Returns the summary's row (the first timed shape)."""
+    for kernel, line in ptxas_lines(BUILD_LOGS.get("flash_attention_backward", "")):
+        say("kernels", f"flash_attention_backward build: {kernel}: {line}")
     rows = {}
     for label, shape in list(BWD_TIMED_SHAPES.items()) + list(BWD_HELD_SHAPES.items()):
         errs = {dt: _flash_backward_case(gen, shape, dt)[:2]
@@ -1535,10 +1579,17 @@ def _flash_backward_rows(gen) -> dict:
                        f"ms, plain autograd backward (forward recomputed + gradient) "
                        f"{r['autograd_ms']:.4f} ms, SDPA backward alone {r['library_ms']:.4f} "
                        f"ms, bound {r['bound'][0]:.5f} ms by {r['bound'][1]} ({flops / 1e9:.2f} "
-                       f"GFLOP, {n_bytes / 1e6:.1f} MB); device launches a call: the dQ "
-                       f"pass, the dK/dV pass ({H * B * -(-Skv // 64)} blocks of 128 threads, "
-                       f"one per query head and 64-key tile){', the GQA sum' if H > KV else ''}"
-                       f" on {torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+                       f"GFLOP, {n_bytes / 1e6:.1f} MB); the same bits from two calls")
+        passes = _kernel_passes(
+            lambda: attn_kernel.flash_attention_backward(q, k, v, o, do, lse, **kw),
+            pattern=r"\battn_bwd_\w+")
+        say("kernels", f"{label} flash_attention_backward bf16 device time per pass (profiler, "
+                       f"mean of 20 calls, L2 flushed; "
+                       f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs; a "
+                       "pass launched as a programmatic dependent counts its wait for the one "
+                       "before it): "
+                       + (", ".join(f"{k} {ms * 1e3:.2f} us ({n:g} a call)"
+                                    for k, (ms, n) in passes.items()) or "not measured"))
         rows.setdefault("flash_attention_backward", r)
         del q, k, v, o, do, lse, qg, kg, vg, qt, kt, vt, sdpa_out
         torch.cuda.empty_cache()
@@ -1898,7 +1949,7 @@ SSD_PR14_MS = {SSM_ARCH: 0.5117, HYBRID_ARCH: 0.3837}
 
 def _kernel_passes(fn, calls: int = 20, pattern: str = r"\bssd_\w+") -> dict:
     """{kernel name: (device ms per call, device launches per call)} of each
-    kernel whose name matches ``pattern`` (the SSD scan's passes), from
+    kernel whose name matches ``pattern`` (by default the SSD scan's passes), from
     torch.profiler over `calls` calls, each after a 256 MB write that
     flushes the L2."""
     from torch.autograd import DeviceType

@@ -60,11 +60,7 @@
 // natural-log log-sum-exp of its scaled, masked scores (-inf for a row with
 // no valid key), which flash_attention_backward.cu reads. Both kernels write
 // it from their final max and sum, one store a row; a null pointer skips it.
-#include <cstdio>
-
-#include <cuda.h>  // CUtensorMap and the driver's enums; the entry point comes from the runtime
-
-#include "common.cuh"
+#include "hopper.cuh"  // TMA, mbarriers, wgmma and the tensor maps
 
 namespace repro_torch {
 namespace {
@@ -257,121 +253,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, flo
 
 // ------------------------------------------------------------------ bf16: wgmma + TMA
 constexpr int kWgThreads = 128;                     // one warpgroup
-constexpr int kSlabCols = 64;                       // hd columns per box: one 128-byte row
-constexpr int kSlabBytes = kBlockK * kSlabCols * 2; // 8 KB: one 64 x 64 bf16 box
-constexpr int kSwizzleAtom = 1024;                  // 8 rows x 128 bytes
-static_assert(kBlockQ == 64 && kBlockK == 64, "one m64n64 wgmma per tile");
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-}
-
-// The issuing thread's arrival, and the bytes the barrier's phase waits for.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Waits for the phase after `parity` to complete. A phase that never completes
-// (a copy that was never issued, a wrong byte count) traps after ~2 s, so the
-// launch fails with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  long long start = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) start = clock64();
-    else if (clock64() - start > 4000000000ll) __trap();
-  }
-}
-
-// One 64 x 64 box at (column c0, row c1, head c2, batch c3) of `map` into dst.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand (layout type 1):
-// start address, leading and stride byte offsets, all in 16-byte units. The
-// atoms are 1024-byte aligned, so the base offset field stays 0.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
-         (uint64_t(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of wgmma accumulators across
-// the asynchronous instructions (the registers change behind its back).
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(a[i / 4][i % 4])::"memory");
-}
-
-#define REPRO_D32                                                                       \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define REPRO_D32_OPERANDS(d)                                                           \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),  \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),       \
-      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),    \
-      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),    \
-      "+f"(d[31])
-
-// d (64 x 64, f32) += A (64 x 16, K-major in smem) * B (16 x 64, K-major in smem)
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : REPRO_D32_OPERANDS(d)
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// d (64 x 64, f32) += A (64 x 16, bf16 pairs in registers) * B (16 x 64, MN-major in smem)
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : REPRO_D32_OPERANDS(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
+static_assert(kBlockQ == kTileRows && kBlockK == kTileRows, "one m64n64 wgmma per tile");
 
 size_t smem_bytes_bf16(int qk_slabs, int v_slabs) {
   // Q and two K stages of `qk_slabs` boxes each, two V stages of `v_slabs`;
@@ -614,63 +496,6 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         *reinterpret_cast<uint32_t*>(o1 + col) =
             pack_bf16(acc[s][4 * j + 2] * inv1, acc[s][4 * j + 3] * inv1);
     }
-}
-
-// cuTensorMapEncodeTiled, fetched from the driver through the runtime, so the
-// library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-D map over (hd, S, heads, B) of a bf16 tensor with element strides
-// {batch, sequence, head}; 64 x 64 boxes, 128-byte swizzle, zeros out of bounds.
-bool make_map(CUtensorMap* map, const void* ptr, int hd, int S, int heads, int B,
-              const int64_t* strides) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) {
-    fprintf(stderr, "flash_attention: cuTensorMapEncodeTiled is not available\n");
-    return false;
-  }
-  const cuuint64_t dims[4] = {cuuint64_t(hd), cuuint64_t(S), cuuint64_t(heads), cuuint64_t(B)};
-  const int sizes[3] = {S, heads, B};
-  const int64_t elem_strides[3] = {strides[1], strides[2], strides[0]};
-  cuuint64_t byte_strides[3];
-  for (int i = 0; i < 3; ++i)  // a stride of an axis of size 1 is never used
-    byte_strides[i] = cuuint64_t(sizes[i] == 1 ? 16 : elem_strides[i] * 2);
-  const cuuint32_t box[4] = {kSlabCols, kBlockK, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                            dims, byte_strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) {
-    fprintf(stderr,
-            "flash_attention: cuTensorMapEncodeTiled failed (CUresult %d) for dims "
-            "(%d, %d, %d, %d), strides {%lld, %lld, %lld}\n",
-            int(r), hd, S, heads, B, (long long)strides[0], (long long)strides[1],
-            (long long)strides[2]);
-    return false;
-  }
-  return true;
 }
 
 template <int kQkSlabs, int kVSlabs>

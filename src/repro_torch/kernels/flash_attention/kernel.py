@@ -309,7 +309,7 @@ def _flash_backward_launch(q, k, v, o, do, lse, *, causal: bool, q_offset, kv_le
     dq, dk, dv_ = (torch.empty(t.shape, dtype=q.dtype, device=q.device) for t in (q, k, v))
     lens = None if kv_len is None else _lengths(kv_len, B, q.device)
     lib = _lib("flash_attention_backward")
-    # rowsum(do * o) and, under GQA, each query head's fp32 dk | dv
+    # each row's lse (log2 units) and rowsum(do * o), and under GQA fp32 dk | dv partials
     scratch = torch.empty(lib.flash_attention_backward_scratch(B, Sq, Skv, H, KV, dqk, dv),
                           dtype=torch.float32, device=q.device)
     err = lib.flash_attention_backward_launch(

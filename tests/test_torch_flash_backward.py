@@ -14,9 +14,13 @@ kernels' place: ``torch.autograd.gradcheck`` in float64, ``None`` for inputs
 that need no gradient, and under ``torch.utils.checkpoint`` (a forward, a
 recompute and one backward) equal to autograd of ``mha_reference`` within
 1e-5. The card's tests hold the kernels to these plain versions
-(tests/test_torch_kernels_cuda.py).
+(tests/test_torch_kernels_cuda.py). The launcher's host plan
+(``csrc/flash_backward_plan.cuh``, plain C++) is compiled with the host
+compiler and held here: each key tile's query tiles against the masks, the
+scratch's size, and the bf16 dK/dV pass's sub-group rule.
 """
 import functools
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -240,3 +244,111 @@ def test_wrappers_on_cpu_take_the_plain_versions():
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert tkernel.LAUNCHES == before
+
+
+# --------------------------------------------------------------------- host plan
+# The card's launcher plans its scratch and the bf16 dK/dV pass's sub-groups
+# with ``csrc/flash_backward_plan.cuh``, plain C++: compiled here with the host
+# compiler and called through ctypes, so the rules the card runs are the ones
+# held.
+PLAN_SHIM = """
+#include "flash_backward_plan.cuh"
+using namespace repro_torch::bwd_plan;
+extern "C" {
+int64_t plan_scratch(int B, int Sq, int Skv, int H, int KV, int dqk, int dv) {
+  return scratch_floats(B, Sq, Skv, H, KV, dqk, dv);
+}
+int plan_subgroups(int B, int Sq, int Skv, int H, int KV, int causal, int q_offset, int slots) {
+  return subgroups(B, Sq, Skv, H, KV, causal, q_offset, slots);
+}
+int plan_query_tiles(int t, int Sq, int causal, int q_offset) {
+  return query_tiles(t, Sq, causal, q_offset);
+}
+}
+"""
+# (B, Sq, Skv, H, KV, dqk, dv, causal): the families' training calls, whisper's
+# cross attention, MLA's prefill and shapes off the 64-row tile
+PLAN_SHAPES = [(8, 1024, 1024, 14, 2, 64, 64, 1), (8, 1024, 1024, 32, 32, 80, 80, 1),
+               (1, 768, 768, 48, 8, 128, 128, 1), (1, 64, 1500, 12, 12, 64, 64, 0),
+               (1, 512, 512, 40, 40, 96, 64, 1), (3, 100, 164, 8, 2, 64, 64, 1),
+               (2, 70, 90, 6, 6, 24, 16, 0), (1, 24, 24, 7, 1, 8, 8, 1),
+               (1, 256, 256, 16, 1, 64, 64, 1)]
+
+
+@pytest.fixture(scope="module")
+def plan(tmp_path_factory):
+    import ctypes
+    import shutil
+    import subprocess
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the plan header")
+    csrc = Path(tkernel.__file__).parent / "csrc"
+    d = tmp_path_factory.mktemp("plan")
+    (d / "shim.cpp").write_text(PLAN_SHIM)
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{csrc}", "-o",
+                    str(d / "libplan.so"), str(d / "shim.cpp")], check=True)
+    lib = ctypes.CDLL(str(d / "libplan.so"))
+    lib.plan_scratch.restype = ctypes.c_int64
+    return lib
+
+
+def _longest_and_total(B, Sq, Skv, H, KV, causal, q_offset, lib):
+    tiles = [lib.plan_query_tiles(t, Sq, causal, q_offset) for t in range(-(-Skv // 64))]
+    return max(tiles), B * H * sum(tiles)
+
+
+@pytest.mark.parametrize("q_offset", [0, 64, -40, 200])
+@pytest.mark.parametrize("causal", [1, 0])
+def test_plan_query_tiles_are_those_that_see_the_key_tile(plan, causal, q_offset):
+    """Key tile t's query tiles: every 64-row tile from the first whose rows
+    see one of its keys, by the masks of ``ref.mha_reference``."""
+    Sq, Skv = 200, 330
+    for t in range(-(-Skv // 64)):
+        keys = np.arange(64 * t, min(64 * t + 64, Skv))
+        rows = np.arange(Sq)
+        sees = (keys[None, :] <= rows[:, None] + q_offset) if causal else \
+            np.ones((Sq, keys.size), bool)
+        first = np.flatnonzero(sees.any(axis=1))
+        want = 0 if first.size == 0 else -(-Sq // 64) - first[0] // 64
+        assert plan.plan_query_tiles(t, Sq, causal, q_offset) == want
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_plan_scratch_holds_every_pass(plan, shape):
+    """The scratch: lse in log2 units and Delta, each Sq rounded up to the
+    64-row tile a (row, query head), so a tile's 64 values are one aligned
+    copy; under GQA the f32 passes' fp32 dK | dV of every query head."""
+    B, Sq, Skv, H, KV, dqk, dv, _ = shape
+    rows = B * H * -(-Sq // 64) * 64
+    want = 2 * rows + (0 if H == KV else B * Skv * H * (dqk + dv))
+    assert plan.plan_scratch(B, Sq, Skv, H, KV, dqk, dv) == want
+    assert rows % 64 == 0 and rows >= B * H * Sq
+
+
+@pytest.mark.parametrize("slots", [264, 396, 132, 40])
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_plan_subgroups_are_the_fewest_that_balance_the_pass(plan, shape, slots):
+    """The sub-groups of a KV head's G query heads: 1 without GQA; else the
+    fewest s for which the longest block (ceil(G / s) heads times the most
+    query tiles a key tile sees) walks no more tiles than an even share of
+    the pass over ``slots`` blocks, or G when none does."""
+    B, Sq, Skv, H, KV, _, _, causal = shape
+    G = H // KV
+    s = plan.plan_subgroups(B, Sq, Skv, H, KV, causal, 0, slots)
+    longest, total = _longest_and_total(B, Sq, Skv, H, KV, causal, 0, plan)
+    share = -(-total // slots)
+    fits = [n for n in range(1, G) if -(-G // n) * longest <= share]
+    assert 1 <= s <= G
+    assert s == (1 if G == 1 else fits[0] if fits else G)
+    assert plan.plan_subgroups(B, Sq, Skv, H, KV, causal, 0, 0) == 1
+
+
+def test_plan_subgroups_at_the_training_calls(plan):
+    """qwen2-0.5b's call (G 7) splits into 3 sub-groups at two blocks a SM
+    of 132 SMs and 4 at three (the hd-64 pass's), internvl2-26b's (G 6, hd
+    128, two blocks a SM) into 6; zamba2-2.7b (G 1) stays whole."""
+    assert plan.plan_subgroups(8, 1024, 1024, 14, 2, 1, 0, 264) == 3
+    assert plan.plan_subgroups(8, 1024, 1024, 14, 2, 1, 0, 396) == 4
+    assert plan.plan_subgroups(1, 768, 768, 48, 8, 1, 0, 264) == 6
+    assert plan.plan_subgroups(8, 1024, 1024, 32, 32, 1, 0, 264) == 1

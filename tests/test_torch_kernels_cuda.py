@@ -1094,15 +1094,33 @@ def test_flash_gradients_are_the_plain_versions(case, dtype, cuda_device):
             assert worst <= 1e-4 * float(w.abs().max()), f"d{name}: max |diff| {worst:.3e}"
 
 
+# head dims that fill a 64-column slab in part (8, 48) or in full (64), then a
+# narrow second slab (72, 80: 16 columns; 96: 32) or a full one (112, 128),
+# dqk != dv both ways (one head dim's slab zero-filled for the other's), causal
+# and not, with lengths and a q_offset
+BWD_WIDTH_CASES = [
+    ("width-8", (2, 96, 96, 4, 2, 8, 8), {"causal": True}),
+    ("width-72", (2, 130, 130, 4, 2, 72, 72), {"causal": True}),
+    ("width-80-lengths", (2, 100, 170, 6, 3, 80, 80), {"causal": False, "kv_len": [170, 93]}),
+    ("dqk-72-dv-80", (1, 128, 128, 4, 4, 72, 80), {"causal": True}),
+    ("dqk-80-dv-72", (1, 128, 200, 4, 2, 80, 72), {"causal": True, "q_offset": 72}),
+    ("dqk-8-dv-128", (1, 70, 70, 4, 1, 8, 128), {"causal": True}),
+    ("dqk-128-dv-8", (1, 70, 70, 4, 1, 128, 8), {"causal": False}),
+    ("dqk-112-dv-48", (2, 64, 64, 6, 2, 112, 48), {"causal": True}),
+    ("width-96", (1, 128, 160, 6, 2, 96, 96), {"causal": False, "kv_len": 131}),
+    ("dqk-64-dv-80", (2, 100, 100, 4, 4, 64, 80), {"causal": True}),
+]
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("case", [c for c in GRAD_FLASH_CASES if c[0] in
-                                  ("small", "mla-prefill", "kv_len-q_offset", "padded-noncausal")],
-                         ids=str)
+@pytest.mark.parametrize("case", GRAD_FLASH_CASES + BWD_WIDTH_CASES, ids=str)
 def test_flash_backward_kernel_matches_its_plain_version(case, dtype, cuda_device):
     """``flash_attention_backward`` on the forward kernel's (o, lse) against
-    ``ref.mha_backward_reference`` on the same tensors, and the kernel's lse
-    against ``ref.mha_forward_with_lse_reference``'s (-inf where a row sees
-    no key)."""
+    ``ref.mha_backward_reference`` on the same tensors, at every family's
+    training shape (``chip_smoke.BWD_TIMED_SHAPES``, ``BWD_HELD_SHAPES``)
+    and the head dims of BWD_WIDTH_CASES, and the kernel's lse against
+    ``ref.mha_forward_with_lse_reference``'s (-inf where a row sees no
+    key)."""
     tdt, tol = DTYPES[dtype]
     (q, k, v), go, kw = _grad_case(case, dtype, cuda_device, seed=8)
     q, k, v = (t.detach() for t in (q, k, v))
@@ -1120,6 +1138,53 @@ def test_flash_backward_kernel_matches_its_plain_version(case, dtype, cuda_devic
     for name, g, w in zip("qkv", got, want):
         rel = float((g.float() - w.float()).norm() / w.float().norm())
         assert rel <= GRAD_REL_L2[dtype], f"d{name}: relative L2 {rel:.3e}"
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_backward_on_strided_views_of_one_projection(dtype, cuda_device):
+    """q, k and v as the model hands them: views of one fused projection
+    (B, S, H + 2 KV, hd), strided along the sequence and the heads; the
+    gradients equal the kernel's on contiguous copies bit for bit, and hold
+    to the plain version."""
+    tdt, _ = DTYPES[dtype]
+    B, S, H, KV, hd = 2, 200, 14, 2, 64
+    qkv, go = _inputs(cuda_device, tdt, 21, (B, S, H + 2 * KV, hd), (B, S, H, hd))
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    assert not q.is_contiguous() and not k.is_contiguous()
+    o, lse = tkernel._flash_launch(q, k, v, causal=True, q_offset=None, kv_len=None,
+                                   scale=None, with_lse=True)
+    got = tkernel.flash_attention_backward(q, k, v, o, go, lse)
+    dense = tkernel.flash_attention_backward(q.contiguous(), k.contiguous(), v.contiguous(), o,
+                                             go, lse)
+    torch.cuda.synchronize()
+    want = tref.mha_backward_reference(q, k, v, o, go, lse)
+    for name, g, c, w in zip("qkv", got, dense, want):
+        assert torch.equal(g, c), f"d{name} differs from the contiguous inputs'"
+        rel = float((g.float() - w.float()).norm() / w.float().norm())
+        assert rel <= GRAD_REL_L2[dtype], f"d{name}: relative L2 {rel:.3e}"
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", [
+    ("mha", (2, 256, 256, 4, 4, 64, 64), {"causal": True}),
+    ("gqa-7", (2, 256, 256, 14, 2, 64, 64), {"causal": True}),
+    ("gqa-6-hd128", (1, 192, 192, 12, 2, 128, 128), {"causal": True}),
+    ("zero-row", (3, 100, 164, 8, 2, 80, 80), {"causal": True, "q_offset": 64,
+                                              "kv_len": [0, 37, 164]}),
+], ids=lambda c: c[0])
+def test_flash_backward_gives_the_same_bits_twice(case, dtype, cuda_device):
+    """Two calls on the same inputs give the same bits (no atomics: the
+    1-rank mesh train steps are held bit-equal to the unsharded ones), with
+    and without GQA, and with a row of kv_len 0."""
+    (q, k, v), go, kw = _grad_case(case, dtype, cuda_device, seed=23)
+    q, k, v = (t.detach() for t in (q, k, v))
+    full = dict(causal=True, q_offset=None, kv_len=None, scale=None) | kw
+    o, lse = tkernel._flash_launch(q, k, v, with_lse=True, **full)
+    first = tkernel.flash_attention_backward(q, k, v, o, go, lse, **kw)
+    for _ in range(3):
+        again = tkernel.flash_attention_backward(q, k, v, o, go, lse, **kw)
+        for name, a, b in zip("qkv", first, again):
+            assert torch.equal(a, b), f"d{name} differs between two calls"
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

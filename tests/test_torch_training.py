@@ -566,11 +566,15 @@ def test_trainer_through_faas_service():
 
 
 def test_train_launcher_exits_zero_on_the_cpu(tmp_path):
+    # one intra-op thread: beside other test processes that each run torch on
+    # every core, a launcher with torch's default of a thread a core spent
+    # minutes waiting on its own threads (an 8-core host: 300 s for 10 of 50
+    # steps beside five such processes; 49 s at one thread there, 12 s alone)
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--reduced", "--device", "cpu",
          "--ckpt", str(tmp_path / "ckpt"), "--history-out", str(tmp_path / "h.json")],
         capture_output=True, text=True, timeout=300, cwd=ROOT,
-        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"},
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "loss" in proc.stdout and (tmp_path / "h.json").exists()

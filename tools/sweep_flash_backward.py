@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
 """Time the attention backward kernel (``csrc/flash_attention_backward.cu``)
-on the card against other designs of it and against SDPA's backward.
+on the card against other builds and designs of it and against SDPA's
+backward.
 
-    python tools/sweep_flash_backward.py [--baseline DIR/flash_attention_backward.cu ...] \\
-        [--held] [--json OUT]
+    python tools/sweep_flash_backward.py [--define REPRO_BWD_PDL=0 ...] \
+        [--baseline DIR/flash_attention_backward.cu ...] [--held] [--json OUT]
 
-Builds the source as the port builds it ("current") and each ``--baseline``
-source (another design's file with the same C interface and its
-``common.cuh``, e.g. unpacked from an earlier commit by ``git archive``,
-named by its directory), one nvcc each, at once, into
+Builds the source as the port builds it ("current", with the headers beside
+it: ``hopper.cuh``, ``flash_backward_plan.cuh``, ``common.cuh``), once for
+each ``--define`` (a ``-D`` flag, e.g. ``REPRO_BWD_PDL=0``: the passes as
+plain launches, so the profiler times each apart) and each ``--baseline``
+source (another design's file with the same C interface and the headers it
+includes, e.g. the earlier ``mma.sync`` design with its ``common.cuh``,
+unpacked from a commit by ``git archive``, named by its directory), one nvcc
+each, at once, into
 ``build/repro_torch_kernels/sweep/``. Each build is held to
 ``ref.mha_backward_reference`` in f32 and bf16 (``chip_smoke.BWD_TOL``,
 relative L2) at a small causal GQA shape and, bf16, at the timed shapes.
@@ -47,16 +52,18 @@ from repro_torch.kernels.flash_attention import kernel as attn_kernel  # noqa: E
 NAME = "flash_attention_backward"
 
 
-def build_all(baselines) -> dict:
-    """{build name: loaded library}; the baselines compile while the current
+def build_all(defines, baselines) -> dict:
+    """{build name: loaded library}; the variants compile while the current
     library builds."""
     out_dir = _build.BUILD_DIR / "sweep"
     out_dir.mkdir(parents=True, exist_ok=True)
+    src = attn_kernel.SOURCES[NAME]
+    variants = [(d, src, [f"-D{d}"]) for d in defines]
+    variants += [(Path(b).resolve().parent.name, Path(b), []) for b in baselines]
     procs = {}
-    for source in map(Path, baselines):
-        name = source.resolve().parent.name
-        lib = out_dir / f"lib{NAME}-{name}.so"
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(source)]
+    for name, source, flags in variants:
+        lib = out_dir / f"lib{NAME}-{name.replace('=', '_')}.so"
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-o", str(lib), str(source)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), lib)
     info = attn_kernel.build()[NAME]
@@ -67,12 +74,8 @@ def build_all(baselines) -> dict:
             raise RuntimeError(f"nvcc failed for {name}:\n{logs[name]}")
         libs[name] = attn_kernel.load(NAME, path)
     for name, log in logs.items():
-        entry = ""
-        for line in log.splitlines():
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1][-60:]
-            elif "registers" in line or "spill" in line:
-                print(f"[build] {name} {entry}: {line.strip()}", flush=True)
+        for kernel, line in cs.ptxas_lines(log):
+            print(f"[build] {name} {kernel}: {line}", flush=True)
     return libs
 
 
@@ -82,9 +85,11 @@ def use(lib) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--define", action="append", default=[],
+                    help="a -D setting of a variant build, e.g. REPRO_BWD_PDL=0 (repeatable)")
     ap.add_argument("--baseline", action="append", default=[],
                     help="a flash_attention_backward.cu with the same C interface (with the "
-                         "common.cuh it includes beside it), named by its directory (repeatable)")
+                         "headers it includes beside it), named by its directory (repeatable)")
     ap.add_argument("--held", action="store_true",
                     help="also time chip_smoke.BWD_HELD_SHAPES (internvl2's hd 128 among them)")
     ap.add_argument("--json", type=Path, help="write every reading here")
@@ -92,7 +97,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("sweep_flash_backward: needs a CUDA card")
     cs.phase_device()                                       # prints name and power limit
-    libs = build_all(args.baseline)
+    libs = build_all(args.define, args.baseline)
     names = list(libs)
     gen = torch.Generator(device=cs.DEVICE).manual_seed(12)
     small = (2, 200, 200, 6, 2, 64, 64, {"kv_len": [200, 77]})
