@@ -108,11 +108,14 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      relative L2 1e-4 (f32) / 2e-2 (bf16), at the reference's
                      sweep (G 2 and 4 among it), chunks of 1 and 2, one chunk
                      and three, an initial state with a final-state gradient,
-                     a dt = 0 padded tail (dx exactly 0 there) and mamba2's and
-                     zamba2's training calls (8 x 1024, 80 heads, N 128 and 64);
-                     timed in bf16 at the training calls beside its plain
-                     version, the plain autograd backward it replaced and its
-                     bound, with each pass's device time.
+                     a dt = 0 padded tail (dx exactly 0 there), mamba2's and
+                     zamba2's training calls (8 x 1024, 80 heads, N 128 and 64),
+                     53 heads (split unevenly into the bf16 pass's sub-groups)
+                     and G = 8; timed in bf16 at the training calls beside its
+                     plain version, the plain autograd backward it replaced
+                     and its bound (the regrouped gradient's, the first design's count
+                     beside it), with each pass's device time, the build's
+                     registers and spills, the sub-groups and the scratch.
 5b. warming        - the worker's compiled-function path: the torch twins of
                      benchmarks/bench_warming.py's three functions (tanh x 2
                      of a 64x64, the sum of a 512x512 product, the port's
@@ -537,7 +540,8 @@ HYBRID_SSD_SHAPE = (1, 512, 80, 64, 1, 64, 256)
 # another order; bf16 rounds dx, dB and dC once, at the store). (B, S, H, P,
 # G, N, chunk), an initial state with a final-state gradient, a dt = 0 tail of
 # that many positions: the reference's sweep (G 2 and 4 among it), chunks of 1
-# and 2, one chunk and several, and the two training calls, which are timed
+# and 2, one chunk and several, the two training calls, which are timed, a
+# prime head count (the bf16 pass's sub-groups cannot divide it) and G = 8
 SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SSD_BWD_SHAPES = {
     "sweep (1, 64, 2, 16) N 16, 4 chunks of 16": ((1, 64, 2, 16, 1, 16, 16), False, 0),
@@ -550,6 +554,8 @@ SSD_BWD_SHAPES = {
     "a dt = 0 tail of 375 of 512, both states": ((1, 512, 80, 64, 1, 128, 256), True, 375),
     "mamba2-2.7b": ((8, 1024, 80, 64, 1, 128, 256), False, 0),
     "zamba2-2.7b": ((8, 1024, 80, 64, 1, 64, 256), False, 0),
+    "53 heads, unevenly split into sub-groups": ((4, 1024, 53, 64, 1, 128, 256), False, 0),
+    "G 8 over 80 heads, both states": ((2, 1024, 80, 64, 8, 64, 256), True, 0),
 }
 SSD_BWD_TIMED = ("mamba2-2.7b", "zamba2-2.7b")
 RMS_TOL = {torch.float32: 1e-6, torch.bfloat16: 1e-2}  # tests/test_kernels_rmsnorm.py:10
@@ -778,15 +784,18 @@ BUILD_LOGS: dict = {}
 
 def _kernel_name(mangled: str) -> str:
     """A mangled kernel name's function and its integer or type template
-    arguments (``attn_bwd_dq_kernel<1, 1>``), read from its length-prefixed
-    identifiers; the mangled name where none ends in ``_kernel``."""
-    found = None  # the last identifier that ends in _kernel: a hash's digits may fake an earlier one
+    arguments (``attn_bwd_dq_kernel<1, 1>``, ``ssd_bwd_chunk_bf16<128>``), read
+    from its length-prefixed identifiers; the mangled name where none ends in
+    ``_kernel`` or starts with ``ssd_``."""
+    found = None  # the last such identifier: a hash's digits may fake an earlier one
     for m in re.finditer(r"\d+", mangled):
         for k in range(len(m.group(0))):
             n = int(m.group(0)[k:])
             ident = mangled[m.end():m.end() + n]
-            if n and len(ident) == n and ident.endswith("_kernel"):
+            if n and len(ident) == n and (ident.endswith("_kernel")
+                                          or ident.startswith("ssd_")):
                 found = (ident, mangled[m.end() + n:])
+                break  # the longest length the digits can give
     if found is None:
         return mangled
     ident, rest = found
@@ -1890,10 +1899,17 @@ def _ssd_backward_rows(gen) -> dict:
     SSD_BWD_SHAPES entry; timed in bf16 at the training calls beside its plain
     version (``ssd_backward_reference``), the plain autograd backward the
     train step ran before it (``ssd_reference`` recomputed and
-    differentiated) and the bound: the causal C B^T once per group, the four
-    other causal products and five c P N state products a head (S_k, D_k,
-    G B, G^T x, H^T dy), and the bytes (x, dy, B, C, dt, A read; dx, dB, dC,
-    ddt, dA written). Returns the summary's row (mamba2-2.7b's call)."""
+    differentiated) and the bound. The bound counts the regrouped gradient:
+    the causal C B^T, W^T C and W B once a group, the causal dy . x^T and
+    M^T dy and five c P N state products a head (S_k, D_k, G B, G^T x, H^T
+    dy), and the bytes (x, dy, B, C, dt, A read; dx, dB, dC, ddt, dA
+    written); beside it the first design's count (C B^T once a group, four causal
+    products and five state products a head). Prints the build's registers
+    and spills, each pass's device time, the bf16 sub-group count and the
+    scratch. Returns the summary's row (mamba2-2.7b's call)."""
+    for kernel, line in ptxas_lines(BUILD_LOGS.get("ssd_backward", "")):
+        say("kernels-ssd", f"ssd_backward build: {kernel}: {line}")
+    lib = ssd_kernel._lib("ssd_backward")
     rows = {}
     for label, (shape, states, pad) in SSD_BWD_SHAPES.items():
         errs = {dt: _ssd_backward_case(gen, shape, dt, states, pad)[0]
@@ -1909,8 +1925,8 @@ def _ssd_backward_rows(gen) -> dict:
         err, args = _ssd_backward_case(gen, shape, torch.bfloat16, False, 0)
         x, dt, A, Bm, Cm, dy = args
         nc, tri = S // chunk, chunk * (chunk + 1) // 2
-        macs = B * nc * (G * tri * N + H * (tri * (2 * N + 2 * P) + 5 * chunk * P * N))
-        per_head = B * nc * H * (tri * (3 * N + 2 * P) + 6 * chunk * P * N)
+        macs = B * nc * (3 * G * tri * N + H * (2 * tri * P + 5 * chunk * P * N))
+        macs_first = B * nc * (G * tri * N + H * (tri * (2 * N + 2 * P) + 5 * chunk * P * N))
         n_bytes = (3 * x.numel() + 4 * Bm.numel()) * 2 + (2 * dt.numel() + 2 * H) * 4
         xs = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm)]
         r = dict(
@@ -1923,13 +1939,21 @@ def _ssd_backward_rows(gen) -> dict:
             library_ms=None,
             bound=bound(n_bytes, 2 * macs, torch.bfloat16),
         )
+        old_bound = bound(n_bytes, 2 * macs_first, torch.bfloat16)
         say("kernels-ssd", f"{label} ssd_backward bf16 {shape}: kernel {r['ms']:.4f} ms, plain "
                            f"(ssd_backward_reference) {r['plain_ms']:.4f} ms, the plain autograd "
                            f"backward it replaced (forward recomputed + gradient) "
                            f"{r['autograd_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms by "
-                           f"{r['bound'][1]} ({2 * macs / 1e9:.2f} GFLOP; {2 * per_head / 1e9:.2f} "
-                           f"counting C B^T per head and six state products; "
-                           f"{n_bytes / 1e6:.1f} MB); library: none")
+                           f"{r['bound'][1]} ({2 * macs / 1e9:.2f} GFLOP, the regrouped "
+                           f"gradient; {n_bytes / 1e6:.1f} MB); the first design's count "
+                           f"{2 * macs_first / 1e9:.2f} GFLOP, {old_bound[0]:.5f} ms by "
+                           f"{old_bound[1]}; library: none")
+        s = lib.ssd_backward_subgroups(1, B, S, H, G, N, chunk)
+        floats = lib.ssd_backward_scratch(1, B, S, H, P, G, N, chunk)
+        say("kernels-ssd", f"{label} ssd_backward bf16 plan: {s} sub-groups of "
+                           f"{-(-(H // G) // s)} heads a chunk-local block, scratch "
+                           f"{floats * 4 / 1e6:.1f} MB (the first design: "
+                           f"{(2 * B * nc * H * P * N + 2 * B * S * H * N) * 4 / 1e6:.1f} MB)")
         passes = _kernel_passes(lambda: ssd_kernel.ssd_backward(*args, chunk=chunk),
                                 pattern=r"\bssd_bwd_\w+")
         say("kernels-ssd", f"{label} ssd_backward bf16 device time per pass (profiler, mean of "

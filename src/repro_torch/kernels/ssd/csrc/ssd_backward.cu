@@ -6,54 +6,75 @@
 // kernel.py:93) has no VJP: the reference trains through jax.grad of its plain
 // `ssd_reference` (src/repro/kernels/ssd/ref.py:25). This file computes that
 // gradient's explicit formulas; ref.ssd_backward_reference is its plain
-// version, pass by pass.
+// version, pass by pass as the bf16 path runs them.
 //
 // Notation, per row b, head h (group g = h / (H / G)) and chunk k of c
 // positions: a_t = dt_t A_h, cum the inclusive cumulative sum of a inside the
 // chunk, cl = cum_{c-1}, L_ij = exp(cum_i - cum_j) for i >= j, H_k (P x N)
 // the state entering chunk k and G_{k+1} the loss's gradient with respect to
-// the state leaving it. Four passes, in stream order:
+// the state leaving it; CB_ij = C_i . B_j (one a group), QL^h_ij =
+// (dy_i . x_j) L_ij, M^h_ij = CB_ij L_ij and W_ij = sum_{h in g} dt_j QL^h_ij.
+// The gradient, regrouped so that nothing per head is summed over a group:
+//   dx_j  = dt_j [sum_{i>=j} M_ij dy_i + exp(cl - cum_j) G B_j]        (a head)
+//   dB_j  = sum_{i>=j} W_ij C_i + sum_h dt_j exp(cl - cum_j) G^T x_j    (a group)
+//   dC_i  = sum_{j<=i} W_ij B_j + sum_h exp(cum_i) H_k^T dy_i           (a group)
+//   ddt_j = (the column sum j of QL o CB) + V_j, V_j = exp(cl - cum_j) x_j . G B_j
+//           (the direct term, B_j . dB^h_j / dt_j), plus A_h da_j
+//   dcum_t = (the row sum t of W^h o CB) - dt_t (ddt_t's direct term) + Y_t,
+//           Y_t = exp(cum_t) C_t . H_k^T dy_t; the last position also gains
+//           sum_j dt_j V_j + exp(cl) <G_{k+1}, H_k>
+// with W^h_ij = dt_j QL^h_ij, da_t = sum_{s>=t} dcum_s (a suffix sum in the
+// chunk) and dA_h = sum_t dt_t da_t over rows and chunks.
 //
-//  1. `ssd_bwd_chunk_state` (`_bf16`), one block per (chunk, head) x row: the chunk's
-//     own state S_k = sum_j dt_j exp(cl - cum_j) x_j B_j^T (as forward pass 1)
-//     and D_k = sum_i exp(cum_i) dy_i C_i^T, both (P x c)(c x N), and the
-//     chunk's decay exp(cl).
-//  2. `ssd_bwd_state_pass`, one thread per state entry (P N of them) per head
-//     x row, in order over the chunks (the loads of 8 chunks issued at once): H_{k+1} = exp(cl_k) H_k + S_k forward,
-//     then G_k = D_k + exp(cl_k) G_{k+1} backward from G_nc = dfinal (or 0),
-//     each written over its pass-1 input (S_k's slot takes H_k, D_k's takes
-//     G_{k+1}); dinit = G_0. Recomputing the states here, as FlashAttention
+// bfloat16, six launches in stream order:
+//  1. `ssd_bwd_chunk_state_bf16`, a block of two warpgroups per (chunk, head)
+//     x row: the chunk's own state S_k = sum_j dt_j exp(cl - cum_j) x_j B_j^T
+//     (warpgroup 0, k < nc - 1) and D_k = sum_i exp(cum_i) dy_i C_i^T
+//     (warpgroup 1, k > 0; chunk 0's into dinit where it is asked for), both
+//     (P x c)(c x N), through a two-stage ring; the decay exp(cl) and cum.
+//  2. `ssd_bwd_state_pass_bf16`, a thread per state entry per head x row: G_{k+1}
+//     backward, written in fp32 over D_{k+1} and as a bf16 plane (B, nc, H, P,
+//     N), dinit = G_0; then H_k forward as a bf16 plane, and <G_{k+1}, H_k>
+//     summed per block. Recomputing the states here, as FlashAttention
 //     recomputes P, leaves ssd.cu and the served forward as they are.
-//  3. `ssd_bwd_chunk` (`_bf16`), one block per (chunk, head) x row, with
-//     M_ij = (C_i . B_j) L_ij and QL_ij = (dy_i . x_j) L_ij:
-//       dx_j  = dt_j [sum_{i>=j} M_ij dy_i + exp(cl - cum_j) G B_j]
-//       dB_j  = dt_j [sum_{i>=j} QL_ij C_i + exp(cl - cum_j) G^T x_j]
-//       dC_i  = sum_{j<=i} QL_ij dt_j B_j + exp(cum_i) H_k^T dy_i
-//       ddt_j = B_j . (dB_j / dt_j)  (the direct term, summed before dt_j)
-//     and the gradient of cum: dcum_t = C_t . dC_t - B_t . dB_t, and the last
-//     position's also gains sum_j dt_j exp(cl - cum_j) B_j . G^T x_j +
-//     exp(cl) <G_{k+1}, H_k>. Then da_t = sum_{s>=t} dcum_s (a suffix sum in
-//     the chunk), ddt_t += A_h da_t and the block's share of dA_h is
-//     sum_t dt_t da_t. A first loop over 64-row j tiles walks the i tiles at
-//     or below the diagonal for dx and dB; a second over i tiles walks the j
-//     tiles for dC (recomputing dy_i . x_j: a c x c x P product more, rather
-//     than a chunk's c x N accumulator of dC, which shared memory cannot hold
-//     beside the tiles). G_{k+1} and then H_k sit in shared memory.
-//  4. `ssd_bwd_group_sum` and `ssd_bwd_dA`: dB and dC summed over each
-//     group's heads from pass 3's per-head fp32 partials (B, S, H, N), and dA
-//     over rows and chunks from the per-(row, chunk, head) partials.
+//  3. `ssd_bwd_chunk_bf16`, a block of two warpgroups per (head sub-group,
+//     group, chunk, 64-row j tile) x row, j tile 0's blocks first: C_i B_j^T
+//     once for the block's heads; per head and i tile S^T = x_j dy_i^T, then
+//     dx_j (M^T dy_i on register A fragments), ddt's direct term, V_j, the row
+//     sums of W^h o CB per j tile, and the head's share of W added in head
+//     order into the sub-group's fp32 W strip in shared memory, written out as
+//     one partial a sub-group. The next dy tile (and the next head's x_j, plane
+//     of G and scalars) stages by cp.async while a tile computes.
+//  4. `ssd_bwd_group_bf16`, a block of two warpgroups per (64-row tile t,
+//     group, chunk) x row: the sub-groups' W partials summed in order, dC_t =
+//     W_t. B + sum_h exp(cum_t) dy_t H_k (warpgroup 0, with each head's Y_t) and
+//     dB_t = W_.t^T C + sum_h dt_t exp(cl - cum_t) x_t G_{k+1} (warpgroup 1).
+//  5. `ssd_bwd_tail`, a block per (chunk, head) x row: dcum, its suffix sums,
+//     ddt and the block's share of dA.
+//  6. `ssd_bwd_dA`: dA over rows and chunks.
+// Every product of passes 1, 3 and 4 is `wgmma.m64n64k16` from
+// 128-byte-swizzled tiles (wgmma.cuh), fp32 accumulators. Where a bf16 value
+// is rounded: the inputs x, B, C, dy are bf16; x_j dt_j exp(cl - cum_j) and
+// dy_i exp(cum_i) (pass 1's operands), C B^T (kept in shared memory for the
+// heads), M^T = CB^T o L^T (the A operand of dx), the planes of G_{k+1} and
+// H_k, and W (summed in fp32 over every head of the group, then rounded once)
+// each enter their products as one bf16 value (no hi + lo pairs: every
+// gradient holds 2e-2 relative L2 without them); dx, dB and dC once, at the
+// store. The scalar sums (ddt's terms, dcum, <G,
+// H>) run in fp32 on the accumulators. The sub-group count (how many heads a
+// pass-3 block walks) and the scratch come from ssd_backward_plan.cuh.
+//
+// float32 runs the gradient unregrouped, every product an fp32 FMA on CUDA
+// cores (4 x 4 and 4 x 8 register tiles a thread; it must hold 1e-4 against
+// the plain version, which TF32 cannot), five launches: chunk states and D_k
+// (`ssd_bwd_chunk_state`); state passing (`ssd_bwd_state_pass`, H_k and
+// G_{k+1} over them in fp32); the chunk-local gradients a block per (chunk,
+// head) x row (`ssd_bwd_chunk`: dx, and each head's fp32 partials of dB and
+// dC, (B, S, H, N)); their sums over each group's heads (`ssd_bwd_group_sum`);
+// dA (`ssd_bwd_dA`).
 // Every sum runs in a fixed order (no atomics), so every output is the same
 // bit for bit from run to run: the mesh's 1-rank train step is held equal to
 // the unsharded one.
-//
-// Passes 1 and 3 come in two forms. float32: every product an fp32 FMA on
-// CUDA cores, 4 x 4 and 4 x 8 register tiles a thread fed from shared memory
-// (it must hold 1e-4 against the plain version, which TF32 cannot). bfloat16:
-// every product on `mma.sync` tensor cores from bf16 tiles in shared memory
-// (the section "bf16 passes 1 and 3" below), the fp32 intermediates that
-// enter a product split into bf16 hi + lo pairs; the epilogues (masks,
-// exponentials, row sums) run in fp32 on the accumulator fragments. dx, dB
-// and dC are rounded to bf16 once, at the store.
 //
 // Numerics, as in the forward: L is formed from the difference cum_i - cum_j,
 // never as a ratio of exponentials, and masked with a select; rows past the
@@ -62,32 +83,36 @@
 // they are.
 //
 // What bounds it: at mamba2-2.7b's training call (x (8, 1024, 80, 64) bf16,
-// B/C (8, 1024, 1, 128), chunk 256) the gradient needs ~119 GFLOP (the causal
-// C B^T once per group, four other causal c x c products and five c P N
-// state products a head) and moves ~265 MB: bound by operations, 0.12 ms at
-// the tensor cores' dense rate. The bf16 passes execute more than those
-// operations (64-row tiles at the diagonal, dy . x twice, the hi + lo
-// products), at far below the rate: `mma.sync` from `ldmatrix` with a barrier between staging
-// and use, two blocks a SM. The per-head fp32 partials of dB and dC add
-// 2 x 335 MB of traffic (written by pass 3, read by pass 4) at G = 1. A
-// block that walks a group's heads (no partials) and `wgmma` are later work
-// (PERF.md, ROADMAP).
+// B/C (8, 1024, 1, 128), chunk 256) the regrouped gradient needs 76.1 GFLOP
+// (the causal C B^T, W^T C and W B once a group; two causal c x c x P
+// products and five c P N state products a head, 0.077 ms at the tensor
+// cores' dense rate) and moves 265.3 MB (0.079 ms): bound by bytes.
+// Measured on an H100 (PERF.md): the chunk-local pass is the longest and
+// waits rather than computes (one block of two warpgroups a SM, coupled tile
+// by tile by W's ordered adds).
 //
 // Layout: x (B, S, H, P), B/C (B, S, G, N) with any strides for the first
 // three axes and a unit stride on the last; dt (B, S, H) fp32, any strides;
 // A (H,) fp32; dy (B, S, H, P) contiguous in x's dtype; initial_state and
 // dfinal (B, H, P, N) fp32 contiguous or null. Outputs, contiguous: dx like x,
 // ddt (B, S, H) fp32, dA (H,) fp32, dB and dC (B, S, G, N) in x's dtype,
-// dinit (B, H, P, N) fp32 or null. Scratch: ssd_backward_scratch floats. The
-// file is self-contained (no header shared with the other kernels), so its
-// library hash covers everything it compiles.
+// dinit (B, H, P, N) fp32 or null. Scratch: ssd_backward_scratch floats, its
+// pieces as ssd_backward_plan.cuh lays them out. The file includes only the
+// headers beside it (wgmma.cuh, ssd_backward_plan.cuh), so its library hash
+// covers everything it compiles.
 #include <cstdint>
 #include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "ssd_backward_plan.cuh"
+#include "wgmma.cuh"
+
 namespace repro_torch_ssd_bwd {
 namespace {
+
+using namespace repro_torch_ssd_hw;
+namespace plan = repro_torch::ssd_bwd_plan;
 
 // dtype codes passed from Python (kernel.py _DTYPE_CODES)
 constexpr int kFloat32 = 0;
@@ -108,9 +133,6 @@ constexpr int kSumThreads = 256;      // pass 4
 // one thread per chunk position in the scans
 static_assert(kThreads == kMaxChunk && kMaxChunk % kTile == 0, "tile layout");
 
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-// round to nearest even, as torch's .to(bfloat16)
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // cum[0..kMaxChunk) -> its inclusive prefix sums, as ssd.cu's inclusive_scan
 // (the same order of additions, so cum matches the forward's bit for bit).
@@ -716,14 +738,14 @@ ssd_bwd_chunk(const float* __restrict__ x, const float* __restrict__ dt,
 
 // Pass 4a: dB (blockIdx.y 0) or dC (1) of (row, position, group, n) as the sum
 // of its group's heads' partials, in head order.
-template <typename T>
 __global__ void __launch_bounds__(kSumThreads)
 ssd_bwd_group_sum(const float* __restrict__ dB_part, const float* __restrict__ dC_part,
-                  T* __restrict__ dB, T* __restrict__ dC, int64_t rows, int H, int G, int N) {
+                  float* __restrict__ dB, float* __restrict__ dC, int64_t rows, int H, int G,
+                  int N) {
   const int64_t e = int64_t(blockIdx.x) * kSumThreads + threadIdx.x;  // over rows x G x N
   if (e >= rows * G * N) return;
   const float* src = blockIdx.y == 0 ? dB_part : dC_part;
-  T* dst = blockIdx.y == 0 ? dB : dC;
+  float* dst = blockIdx.y == 0 ? dB : dC;
   const int n = static_cast<int>(e % N);
   const int64_t rg = e / N;
   const int g = static_cast<int>(rg % G);
@@ -732,7 +754,7 @@ ssd_bwd_group_sum(const float* __restrict__ dB_part, const float* __restrict__ d
   const float* p = src + (row * H + int64_t(g) * rep) * N + n;
   float s = 0.f;
   for (int r = 0; r < rep; ++r) s += p[int64_t(r) * N];
-  st(dst + e, s);
+  dst[e] = s;
 }
 
 // Pass 4b: dA_h as the sum of the (row, chunk) partials, in order.
@@ -745,601 +767,1087 @@ ssd_bwd_dA(const float* __restrict__ dA_part, float* __restrict__ dA, int64_t pa
   dA[h] = s;
 }
 
-// ---- bf16 passes 1 and 3 on tensor cores
-// Every product is `mma.sync.m16n8k16` (bf16 in, fp32 accumulators) on tiles
-// in shared memory, read by `ldmatrix` (`.trans` for a tile stored k-major).
-// The inputs x, B, C and dy enter as the bf16 values they are; every operand
-// that is an fp32 intermediate (the scores M and QL, the states G_{k+1} and
-// H_k, x_j dt_j exp(cl - cum_j) and dy_i exp(cum_i)) enters as the sum of two
-// bf16 terms hi = bf16(v), lo = bf16(v - hi), two products, so ~16 bits of it
-// survive (as forward pass 1 splits x w). The head width P is zero-padded to
-// kPadP = 64 columns and the state width N to NP (64 or 128), rows past the
-// chunk's length to the 64-row tile: the padding is zero and adds nothing.
-// Eight warps cover a 64-row output tile as 4 (rows) x 2 (column halves).
-using bf16 = __nv_bfloat16;
+// ---- bf16 passes
+// Passes 1, 3 and 4 run every product on `wgmma` from 128-byte-swizzled
+// tiles (wgmma.cuh). The head width P is
+// zero-padded to kPadP = 64 columns and the state width N to NP (64 or 128),
+// rows past the chunk's length to the 64-row tile: the padding is zero and
+// adds nothing.
 constexpr int kPadP = kMaxP;  // P zero-padded to 64 columns
-constexpr int kSkew = 8;      // bf16 padding per shared row: ldmatrix rows hit distinct banks
+constexpr int kWG = 128;      // threads of a warpgroup
+constexpr int kSlab = kTile * 64;  // bf16 elements of a swizzled 64 x 64 tile (8 KB)
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// four 8x8 bf16 matrices; lane l gives the address of row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-// d += a b: a 16x16 (row), b 16x8 (col), bf16 in, fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d (this warp's 16 rows from m0 by NT n8 tiles from n0) += A B over k in
-// [0, K), both operands bf16 in shared memory: A stored [m][k] (AK false) or
-// [k][m] (AK true) with row length lda; B stored [n][k] (BK false) or [k][n]
-// (BK true) with row length ldb. Accumulator d[t][e] is row
-// m0 + lane / 4 + 8 (e / 2), column n0 + 8 t + 2 (lane % 4) + e % 2.
-template <int NT, bool AK, bool BK>
-__device__ __forceinline__ void warp_mma(float (&d)[NT][4], const bf16* a, int lda,
-                                         const bf16* b, int ldb, int m0, int n0, int K,
-                                         int lane) {
-  static_assert(NT % 2 == 0, "B fragments come two n8 tiles at a time");
-  const int r = lane & 7, half = (lane >> 3) & 1, quad = lane >> 4;
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t af[4];
-    if (AK) ldsm_x4_t(af, a + (k0 + r + quad * 8) * lda + m0 + half * 8);
-    else ldsm_x4(af, a + (m0 + r + half * 8) * lda + k0 + quad * 8);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      const int nb = n0 + np * 16;
-      uint32_t bf[4];
-      if (BK) ldsm_x4_t(bf, b + (k0 + r + half * 8) * ldb + nb + quad * 8);
-      else ldsm_x4(bf, b + (nb + r + quad * 8) * ldb + k0 + half * 8);
-      mma_bf16(d[2 * np], af, bf[0], bf[1]);
-      mma_bf16(d[2 * np + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&d)[NT][4]) {
-#pragma unroll
-  for (int t = 0; t < NT; ++t) d[t][0] = d[t][1] = d[t][2] = d[t][3] = 0.f;
-}
-
-// v as the pair (hi, lo) of bf16 with hi + lo ~ v
-__device__ __forceinline__ void split(float v, bf16& hi, bf16& lo) {
-  hi = __float2bfloat16(v);
-  lo = __float2bfloat16(v - __bfloat162float(hi));
-}
-
-// Copies rows [r0, r0 + kTile) of a (rows, cols) bf16 matrix at src (row
-// stride `stride` elements) into shared memory at dst (row length ld), zero
-// past `valid` rows and past `cols` up to `cols_pad` (a multiple of 8), and
-// scaled by w[row] in fp32 into the (hi, lo) pair at dst and lo_dst where
-// w is given. With `vec`, 16-byte loads.
-__device__ __forceinline__ void stage_rows(bf16* dst, bf16* lo_dst, int ld, const bf16* src,
-                                           int64_t stride, int r0, int valid, int cols,
-                                           int cols_pad, bool vec, const float* w, int tid) {
-  const int per_row = cols_pad / 8;
-  for (int e = tid; e < kTile * per_row; e += kThreads) {
-    const int r = e / per_row, c = (e - r * per_row) * 8;
-    alignas(16) bf16 v[8];
-    if (r0 + r < valid && c < cols) {
-      const bf16* s = src + int64_t(r0 + r) * stride + c;
-      if (vec) {
-        *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(s);
-      } else {
-#pragma unroll
-        for (int q = 0; q < 8; ++q) v[q] = c + q < cols ? s[q] : __float2bfloat16(0.f);
-      }
-    } else {
-#pragma unroll
-      for (int q = 0; q < 8; ++q) v[q] = __float2bfloat16(0.f);
-    }
-    if (w != nullptr) {
-      const float wr = w[r];
-      alignas(16) bf16 lo[8];
-#pragma unroll
-      for (int q = 0; q < 8; ++q) split(__bfloat162float(v[q]) * wr, v[q], lo[q]);
-      *reinterpret_cast<uint4*>(lo_dst + r * ld + c) = *reinterpret_cast<const uint4*>(lo);
-    }
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = *reinterpret_cast<const uint4*>(v);
-  }
-}
+// Pass 1 in bf16: S_k = sum_j (dt_j exp(cl - cum_j) x_j)^T B_j (chunks k <
+// nc - 1: the last one's never enters a state) and D_k = sum_i (exp(cum_i)
+// dy_i)^T C_i (chunks k > 0, and chunk 0's into d0 where the initial state's
+// gradient is asked for), both (P x c)(c x N), a block of two warpgroups per
+// (chunk, head) x row: warpgroup 0 forms S_k, warpgroup 1 D_k, each as
+// wgmma (M = P, K = the chunk's rows, both operands MN-major) over 64-row
+// tiles through a two-stage ring: B_j or C_i by cp.async, x_j or dy_i loaded
+// into registers a tile ahead, scaled in fp32 and rounded once to bf16 at the
+// store. Also the chunk's decay and cum, which the later passes read.
+template <int NP>
+struct StateSmem {  // byte offsets from the 1024-aligned base
+  static constexpr size_t a = 0;                              // (w x)_j or (exp(cum) dy)_i
+  static constexpr size_t bt = size_t(kSlab) * 2;             // B_j or C_i: 64 x NP
+  static constexpr size_t stage = bt + size_t(kTile) * NP * 2;
+  static constexpr size_t scal = 2 * 2 * stage;               // two warpgroups, two stages
+  static constexpr size_t total = scal + 3 * kMaxChunk * 4 + 1024;
+  static_assert(stage % 1024 == 0, "swizzled tiles on 1024-byte atoms");
+};
 
 template <int NP>
-size_t chunk_state_bf16_smem() {
-  return (2 * size_t(kTile) * (kPadP + kSkew) * 2 + 2 * size_t(kTile) * (NP + kSkew)) *
-             sizeof(bf16) +
-         3 * kMaxChunk * sizeof(float);
-}
-
-// Pass 1 in bf16: S_k = sum_j (dt_j exp(cl - cum_j) x_j)^T B_j and
-// D_k = sum_i (exp(cum_i) dy_i)^T C_i, both (P x c)(c x N) over 64-row tiles
-// of the chunk; this warp's 16 rows of P by NP / 2 columns of N.
-template <int NP>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(2 * kWG, 2)
 ssd_bwd_chunk_state_bf16(const bf16* __restrict__ x, const float* __restrict__ dt,
                          const float* __restrict__ A, const bf16* __restrict__ Bm,
                          const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
                          float* __restrict__ states, float* __restrict__ dstates,
-                         float* __restrict__ decay, int S, int H, int P, int G, int N,
+                         float* __restrict__ d0, float* __restrict__ decay,
+                         float* __restrict__ cum_out, int S, int H, int P, int G, int N,
                          int chunk, int vec_x, int vec_b, int vec_c, int vec_dy, int64_t x_sb,
                          int64_t x_ss, int64_t x_sh, int64_t dt_sb, int64_t dt_ss,
                          int64_t dt_sh, int64_t b_sb, int64_t b_ss, int64_t b_sg,
                          int64_t c_sb, int64_t c_ss, int64_t c_sg) {
-  constexpr int ldp = kPadP + kSkew, ldn = NP + kSkew, NT = NP / 16;
+  using L = StateSmem<NP>;
+  constexpr int NS = NP / 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Xh = reinterpret_cast<bf16*>(smem_raw);  // [kTile][ldp]: x_j w_j, hi and lo
-  bf16* Xl = Xh + kTile * ldp;
-  bf16* Yh = Xl + kTile * ldp;                   // [kTile][ldp]: dy_i exp(cum_i), hi and lo
-  bf16* Yl = Yh + kTile * ldp;
-  bf16* Bs = Yl + kTile * ldp;                   // [kTile][ldn]
-  bf16* Cs = Bs + kTile * ldn;
-  float* cum = reinterpret_cast<float*>(Cs + kTile * ldn);
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* cum = reinterpret_cast<float*>(base + L::scal);
   float* wx = cum + kMaxChunk;  // dt_j exp(cl - cum_j)
   float* wy = wx + kMaxChunk;   // exp(cum_i)
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int m0 = (warp & 3) * 16, n0 = (warp >> 2) * (NP / 2);
-  const int nc = S / chunk;
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & (kWG - 1), lane = tid & 31;
+  const int wwarp = wt >> 5;
+  const int nc = S / chunk, nt = plan::tiles(chunk);
   const int k = blockIdx.x / H, h = blockIdx.x - k * H, b = blockIdx.y;
   const int g = h / (H / G);
-  const int s0 = k * chunk;
-  const bf16* xb = x + b * x_sb + int64_t(s0) * x_ss + h * x_sh;
-  const float* dtb = dt + b * dt_sb + h * dt_sh;
-  const bf16* Bb = Bm + b * b_sb + int64_t(s0) * b_ss + g * b_sg;
-  const bf16* Cb = Cm + b * c_sb + int64_t(s0) * c_ss + g * c_sg;
-  const int64_t dy_ss = int64_t(H) * P;
-  const bf16* dyb = dy + (int64_t(b) * S + s0) * dy_ss + int64_t(h) * P;
+  const int64_t s0 = int64_t(k) * chunk;
+  const int64_t bkh = (int64_t(b) * nc + k) * H + h;
 
-  const float d = tid < chunk ? dtb[(s0 + tid) * dt_ss] : 0.f;
+  const float d = tid < chunk ? dt[b * dt_sb + (s0 + tid) * dt_ss + h * dt_sh] : 0.f;
   cum[tid] = d * A[h];
   inclusive_scan(cum, tid);
   const float cl = cum[chunk - 1];
+  if (tid < chunk) cum_out[bkh * chunk + tid] = cum[tid];
+  if (tid == 0) decay[bkh] = expf(cl);
   wx[tid] = tid < chunk ? d * expf(cl - cum[tid]) : 0.f;
   wy[tid] = tid < chunk ? expf(cum[tid]) : 0.f;
-
-  float sacc[NT][4], dacc[NT][4];
-  zero(sacc);
-  zero(dacc);
-  const int n_tiles = (chunk + kTile - 1) / kTile;
-  for (int jt = 0; jt < n_tiles; ++jt) {
+  __syncthreads();
+  // warpgroup 0: S_k from x and B; warpgroup 1: D_k from dy and C
+  const bool act = wg == 0 ? k < nc - 1 : k > 0 || d0 != nullptr;
+  if (!act) return;  // the same in the whole warpgroup; no block-wide barrier follows
+  const float* w = wg == 0 ? wx : wy;
+  const bf16* asrc = wg == 0 ? x + b * x_sb + s0 * x_ss + h * x_sh
+                             : dy + (int64_t(b) * S + s0) * H * P + int64_t(h) * P;
+  const int64_t a_ss = wg == 0 ? x_ss : int64_t(H) * P;
+  const bool vec_a = wg == 0 ? vec_x : vec_dy;
+  const bf16* bsrc = wg == 0 ? Bm + b * b_sb + s0 * b_ss + g * b_sg
+                             : Cm + b * c_sb + s0 * c_ss + g * c_sg;
+  const int64_t b_stride = wg == 0 ? b_ss : c_ss;
+  const bool vec_bc = wg == 0 ? vec_b : vec_c;
+  unsigned char* mine = base + wg * 2 * L::stage;
+  const auto a_tile = [&](int st) { return reinterpret_cast<bf16*>(mine + st * L::stage + L::a); };
+  const auto b_tile = [&](int st) { return reinterpret_cast<bf16*>(mine + st * L::stage + L::bt); };
+  const auto sw64 = [](int r, int c) { return sw128(r, c, kTile); };
+  // this thread's 4 rows x 8 columns of an A tile: elements 8 e .. 8 e + 7 of
+  // row e / 8, e = wt + 128 q
+  uint4 raw[4];
+  const auto load_a = [&](int jt) {
     const int j0 = jt * kTile;
-    __syncthreads();  // the previous tile is no longer read (and wx, wy are written)
-    stage_rows(Xh, Xl, ldp, xb, x_ss, j0, chunk, P, kPadP, vec_x, wx + j0, tid);
-    stage_rows(Yh, Yl, ldp, dyb, dy_ss, j0, chunk, P, kPadP, vec_dy, wy + j0, tid);
-    stage_rows(Bs, nullptr, ldn, Bb, b_ss, j0, chunk, N, NP, vec_b, nullptr, tid);
-    stage_rows(Cs, nullptr, ldn, Cb, c_ss, j0, chunk, N, NP, vec_c, nullptr, tid);
-    __syncthreads();
-    // (x w)^T B: A = Xs stored [j][p] (k-major), B = Bs stored [j][n] (k-major)
-    warp_mma<NT, true, true>(sacc, Xh, ldp, Bs, ldn, m0, n0, kTile, lane);
-    warp_mma<NT, true, true>(sacc, Xl, ldp, Bs, ldn, m0, n0, kTile, lane);
-    warp_mma<NT, true, true>(dacc, Yh, ldp, Cs, ldn, m0, n0, kTile, lane);
-    warp_mma<NT, true, true>(dacc, Yl, ldp, Cs, ldn, m0, n0, kTile, lane);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int e = wt + kWG * q, r = e >> 3, c = (e & 7) * 8;
+      alignas(16) bf16 v[8];
+      if (j0 + r < chunk && c < P) {
+        const bf16* src = asrc + (j0 + r) * a_ss + c;
+        if (vec_a) {
+          *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(src);
+        } else {
+#pragma unroll
+          for (int u = 0; u < 8; ++u) v[u] = c + u < P ? src[u] : __float2bfloat16(0.f);
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) v[u] = __float2bfloat16(0.f);
+      }
+      raw[q] = *reinterpret_cast<const uint4*>(v);
+    }
+  };
+  const auto store_a = [&](int jt, int st) {  // w_row x_row, rounded once
+    const int j0 = jt * kTile;
+    bf16* dst = a_tile(st);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int e = wt + kWG * q, r = e >> 3, c = (e & 7) * 8;
+      const float wr = w[j0 + r];
+      const uint32_t* rw = reinterpret_cast<const uint32_t*>(&raw[q]);
+      uint4 o;
+      uint32_t* ow = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float2 f = unpack_bf16(rw[u]);
+        ow[u] = pack_bf16(f.x * wr, f.y * wr);
+      }
+      *reinterpret_cast<uint4*>(dst + sw64(r, c)) = o;
+    }
+  };
+  const auto stage_b = [&](int jt, int st) {
+    const int j0 = jt * kTile;
+    stage_tile<kWG>(b_tile(st), sw64, bsrc + j0 * b_stride, b_stride, kTile,
+                    min(kTile, chunk - j0), N, NP, vec_bc, wt);
+  };
+
+  float acc[NS][32];  // rows p, columns n
+#pragma unroll
+  for (int ns = 0; ns < NS; ++ns) zero_acc(acc[ns]);
+  stage_b(0, 0);
+  cp_async_commit();
+  load_a(0);
+  store_a(0, 0);
+  for (int jt = 0; jt < nt; ++jt) {
+    const int st = jt & 1;
+    const bool more = jt + 1 < nt;
+    if (more) {  // the next tile: B or C by cp.async, x or dy into registers
+      stage_b(jt + 1, st ^ 1);
+      cp_async_commit();
+      load_a(jt + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait_all();
+    }
+    fence_async_shared();
+    bar_sync(1 + wg, kWG);  // tile jt is in shared memory; tile jt - 1 is no longer read
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int ns = 0; ns < NS; ++ns)
+        wgmma_ss_tt(acc[ns], mnmajor_desc(a_tile(st), kTile, 0, kk),
+                    mnmajor_desc(b_tile(st), kTile, ns, kk));
+    wgmma_commit_wait();
+#pragma unroll
+    for (int ns = 0; ns < NS; ++ns) fence_regs(acc[ns]);
+    if (more) store_a(jt + 1, st ^ 1);
   }
-  const int64_t base = ((int64_t(b) * nc + k) * H + h) * P * N;
+  const int64_t PN = int64_t(P) * N;
+  float* out = wg == 0 ? states + ((int64_t(b) * (nc - 1) + k) * H + h) * PN
+               : k > 0 ? dstates + ((int64_t(b) * (nc - 1) + k - 1) * H + h) * PN
+                       : d0 + (int64_t(b) * H + h) * PN;
 #pragma unroll
-  for (int t = 0; t < NT; ++t)
+  for (int r = 0; r < 2; ++r) {
+    const int p = 16 * wwarp + (lane >> 2) + 8 * r;
+    if (p >= P) continue;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int p = m0 + (lane >> 2) + (e >> 1) * 8, n = n0 + t * 8 + 2 * (lane & 3) + (e & 1);
-      if (p < P && n < N) {
-        states[base + int64_t(p) * N + n] = sacc[t][e];
-        dstates[base + int64_t(p) * N + n] = dacc[t][e];
+    for (int ns = 0; ns < NS; ++ns)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int n = ns * 64 + 8 * q + 2 * (lane & 3);
+        if (n >= N) continue;
+        const float v0 = acc[ns][4 * q + 2 * r], v1 = acc[ns][4 * q + 2 * r + 1];
+        if (n + 1 < N && (N & 1) == 0) {
+          *reinterpret_cast<float2*>(out + int64_t(p) * N + n) = make_float2(v0, v1);
+        } else {
+          out[int64_t(p) * N + n] = v0;
+          if (n + 1 < N) out[int64_t(p) * N + n + 1] = v1;
+        }
+      }
+  }
+}
+
+// Pass 2 in bf16: per state entry e of (row b, head h), over the chunks: the
+// gradients G_{k+1} backward (from G_nc = dfinal, or 0), each written over
+// D_{k+1}'s slot in fp32 and as the bf16 plane (B, nc, H, P, N) the later
+// passes stage, and dinit = G_0 over D_0; then the states H_k forward, as the
+// bf16 plane of H_k, with <G_{k+1}, H_k> summed per block (in a fixed order)
+// into ghpart. The fp32 H_k is never stored. kStateChunks chunks a batch:
+// their loads are issued together, and their <G, H> sums share one barrier.
+constexpr int kStateChunks = 4;
+__global__ void __launch_bounds__(kPassThreads, 4)
+ssd_bwd_state_pass_bf16(const float* __restrict__ states, float* __restrict__ dstates,
+                        const float* __restrict__ decay, const float* __restrict__ init,
+                        const float* __restrict__ dfinal, float* __restrict__ dinit,
+                        bf16* __restrict__ gplane, bf16* __restrict__ hplane,
+                        float* __restrict__ ghpart, int nc, int H, int PN) {
+  constexpr int kWarps = kPassThreads / 32;
+  __shared__ float red[kStateChunks][kWarps];
+  const int tid = threadIdx.x, e = blockIdx.x * kPassThreads + tid;
+  const bool in = e < PN;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int64_t bh = int64_t(b) * H + h;
+  // slot m of the fp32 pieces (m < nc - 1), chunk k of the planes, per entry
+  const auto slot = [&](int m) { return ((int64_t(b) * (nc - 1) + m) * H + h) * PN + e; };
+  const auto plane = [&](int k) { return ((int64_t(b) * nc + k) * H + h) * PN + e; };
+  const auto dec = [&](int k) { return decay[(int64_t(b) * nc + k) * H + h]; };
+
+  const float gnc = in && dfinal != nullptr ? dfinal[bh * PN + e] : 0.f;
+  float gv = gnc;  // G_{k+1} at chunk k
+  if (in) {
+    for (int k1 = nc - 1; k1 >= 0; k1 -= kStateChunks) {
+      float dv[kStateChunks], cv[kStateChunks];
+#pragma unroll
+      for (int q = 0; q < kStateChunks; ++q) {
+        const int k = k1 - q;
+        dv[q] = cv[q] = 0.f;
+        if (k >= 0) {
+          cv[q] = dec(k);
+          dv[q] = k > 0 ? dstates[slot(k - 1)] : dinit != nullptr ? dinit[bh * PN + e] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kStateChunks; ++q) {
+        const int k = k1 - q;
+        if (k < 0) break;
+        gplane[plane(k)] = __float2bfloat16(gv);
+        if (k > 0) {
+          gv = fmaf(cv[q], gv, dv[q]);  // G_k
+          dstates[slot(k - 1)] = gv;
+        } else if (dinit != nullptr) {
+          dinit[bh * PN + e] = fmaf(cv[q], gv, dv[q]);
+        }
       }
     }
-  if (tid == 0) decay[(int64_t(b) * nc + k) * H + h] = expf(cl);
+  }
+  float hv = in && init != nullptr ? init[bh * PN + e] : 0.f;  // H_k at chunk k
+  for (int k0 = 0; k0 < nc; k0 += kStateChunks) {  // the same trip count in every thread
+    float sv[kStateChunks], gk[kStateChunks], cv[kStateChunks], part[kStateChunks];
+#pragma unroll
+    for (int q = 0; q < kStateChunks; ++q) {
+      const int k = k0 + q;
+      sv[q] = gk[q] = cv[q] = 0.f;
+      if (k < nc && in) {
+        cv[q] = dec(k);
+        if (k < nc - 1) {
+          sv[q] = states[slot(k)];
+          gk[q] = dstates[slot(k)];  // G_{k+1}, written above by this thread
+        } else {
+          gk[q] = gnc;
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kStateChunks; ++q) {
+      if (in && k0 + q < nc) hplane[plane(k0 + q)] = __float2bfloat16(hv);
+      part[q] = hv * gk[q];
+      hv = fmaf(hv, cv[q], sv[q]);
+    }
+    // each chunk's sum over the block: the warps' sums, then theirs in order
+#pragma unroll
+    for (int q = 0; q < kStateChunks; ++q) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) part[q] += __shfl_xor_sync(0xffffffffu, part[q], off);
+      if ((tid & 31) == 0) red[q][tid >> 5] = part[q];
+    }
+    __syncthreads();
+    if (tid < kStateChunks && k0 + tid < nc) {
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) t += red[tid][w];
+      ghpart[((int64_t(b) * nc + k0 + tid) * H + h) * gridDim.x + blockIdx.x] = t;
+    }
+    __syncthreads();  // red is read before the next batch writes it
+  }
 }
 
+// ---- pass 3 in bf16: the chunk-local gradients of a sub-group's heads
+// A block of two warpgroups owns a 64-row j tile of one (chunk, row, group)
+// and one sub-group of the group's heads; warpgroup w walks heads w, w + 2,
+// ... of the sub-group. Shared by both: B_j, C_i B_j^T for every i tile at or
+// after the j tile (computed once for all the heads, kept in bf16), and
+// the strip W[i >= j0][j] of the heads' scores summed in fp32, which the two
+// warpgroups add into in head order (hardware barriers 3 and 4 pass the turn).
+// Per head and i tile: S^T = x_j dy_i^T on wgmma (rows j, columns i); then,
+// with L^T, the mask and dt_j in registers, QL^T = S^T o L^T, the head's share
+// of W (dt_j QL^T), the row sums of QL^T o CB^T (ddt's direct term) and the
+// column sums of W^h o CB^T (the row sums of W^h o CB for the cum gradient's
+// i rows, one partial per j tile), and M^T = CB^T o L^T, rounded to bf16 as
+// the register A operand of dx_j += M^T dy_i. The dx accumulator starts as
+// exp(cl - cum_j) G B_j (wgmma over N from the bf16 plane of G_{k+1}), and
+// V_j = exp(cl - cum_j) x_j . G B_j comes from it.
 template <int NP>
-size_t chunk_bf16_smem() {
-  constexpr int ldn = NP + kSkew, ldp = kPadP + kSkew, lds = kTile + kSkew;
-  return (2 * size_t(kPadP) * ldn        // G_{k+1}, then H_k: hi and lo
-          + 2 * size_t(kTile) * ldn      // Cs (i rows), Bs (j rows)
-          + 2 * size_t(kTile) * ldp      // Ys (dy, i rows), Xs (x, j rows)
-          + 2 * size_t(kTile) * lds) *   // a score tile (M, then QL): hi and lo
-             sizeof(bf16) +
-         (5 * kMaxChunk + kThreads / 32 + 4 * kTile) * sizeof(float);
-}
+struct ChunkSmem {  // byte offsets from the 1024-aligned base
+  static constexpr size_t bs = 0;                                       // B_j: 64 x NP
+  static constexpr size_t cb = bs + size_t(kTile) * NP * 2;             // C B^T: 4 tiles, bf16
+  static constexpr size_t ws = cb + 4 * size_t(kSlab) * 2;              // W: 4 tiles, fp32
+  static constexpr size_t wg0 = ws + 4 * size_t(kSlab) * 4;             // warpgroup 0's region
+  // in a warpgroup's region: x_j, G_{k+1} (NP / 64 slabs), two dy_i slots;
+  // two heads' cum and dt (the chunk's); the column sums of a tile, per warp
+  static constexpr size_t xs = 0, gs = xs + size_t(kSlab) * 2;
+  static constexpr size_t ys = gs + size_t(NP / 64) * kSlab * 2;
+  static constexpr size_t scal = ys + 2 * size_t(kSlab) * 2;
+  static constexpr size_t red = scal + 4 * size_t(kMaxChunk) * 4;
+  static constexpr size_t per_wg = red + 4 * 64 * 4;
+  static constexpr size_t total = wg0 + 2 * per_wg + 1024;  // + alignment to a 1024-byte atom
+  static_assert(wg0 % 1024 == 0 && per_wg % 1024 == 0, "swizzled tiles on 1024-byte atoms");
+  static_assert(2 * size_t(kTile) * NP * 2 <= scal, "the C tiles of the setup fit the tile region");
+};
 
-// Pass 3 in bf16: pass 3's products on tensor cores; its epilogues run on the
-// accumulator fragments.
 template <int NP>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(2 * kWG, 1)
 ssd_bwd_chunk_bf16(const bf16* __restrict__ x, const float* __restrict__ dt,
-                   const float* __restrict__ A, const bf16* __restrict__ Bm,
-                   const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
-                   const float* __restrict__ h_in, const float* __restrict__ g_out,
-                   bf16* __restrict__ dx, float* __restrict__ ddt, float* __restrict__ dB_part,
-                   float* __restrict__ dC_part, float* __restrict__ dA_part, int S, int H,
-                   int P, int G, int N, int chunk, int vec_x, int vec_b, int vec_c, int vec_dy,
-                   int64_t x_sb, int64_t x_ss, int64_t x_sh, int64_t dt_sb, int64_t dt_ss,
-                   int64_t dt_sh, int64_t b_sb, int64_t b_ss, int64_t b_sg, int64_t c_sb,
-                   int64_t c_ss, int64_t c_sg) {
-  constexpr int ldn = NP + kSkew, ldp = kPadP + kSkew, lds = kTile + kSkew;
-  // n8 tiles in a warp's column half of N, of P, of a 64-column score tile
-  constexpr int NTN = NP / 16, NTP = kPadP / 16, NTS = kTile / 16;
+                   const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
+                   const bf16* __restrict__ dy, const float* __restrict__ cum_in,
+                   const bf16* __restrict__ gplane, bf16* __restrict__ dx,
+                   float* __restrict__ pdt, float* __restrict__ pv, float* __restrict__ rpart,
+                   float* __restrict__ wpart, int S, int H, int P, int G, int N, int chunk,
+                   int n_sub, int sub_heads, int vec_x, int vec_b, int vec_c, int vec_dy,
+                   int vec_g, int64_t x_sb, int64_t x_ss, int64_t x_sh, int64_t dt_sb,
+                   int64_t dt_ss, int64_t dt_sh, int64_t b_sb, int64_t b_ss, int64_t b_sg,
+                   int64_t c_sb, int64_t c_ss, int64_t c_sg) {
+  using L = ChunkSmem<NP>;
+  constexpr int KN = NP / 16;  // 16-wide k-steps over N
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Gh = reinterpret_cast<bf16*>(smem_raw);  // [kPadP][ldn]: G_{k+1}, then H_k
-  bf16* Gl = Gh + kPadP * ldn;
-  bf16* Cs = Gl + kPadP * ldn;                   // [kTile][ldn]: C_i
-  bf16* Bs = Cs + kTile * ldn;                   // [kTile][ldn]: B_j
-  bf16* Ys = Bs + kTile * ldn;                   // [kTile][ldp]: dy_i
-  bf16* Xs = Ys + kTile * ldp;                   // [kTile][ldp]: x_j
-  bf16* Mh = Xs + kTile * ldp;                   // [kTile][lds]: M_ij, then QL_ij (dt_j)
-  bf16* Ml = Mh + kTile * lds;
-  float* cum = reinterpret_cast<float*>(Ml + kTile * lds);
-  float* dts = cum + kMaxChunk;
-  float* pdt = dts + kMaxChunk;  // ddt's direct term, per position
-  float* pdc = pdt + kMaxChunk;  // dcum, per position
-  float* pu = pdc + kMaxChunk;   // U_j = dt_j exp(cl - cum_j) B_j . G^T x_j
-  float* red = pu + kMaxChunk;
-  float* rowp = red + kThreads / 32;  // [2 sums][2 column halves][kTile rows]
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* Bs = reinterpret_cast<bf16*>(base + L::bs);
+  uint4* CBs = reinterpret_cast<uint4*>(base + L::cb);  // [tile][4][kWG]: 32 bf16 a thread
+  float4* Ws = reinterpret_cast<float4*>(base + L::ws);  // [tile][8][kWG]: 32 floats a thread
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & (kWG - 1), lane = tid & 31;
+  const int wwarp = wt >> 5;
+  unsigned char* mine = base + L::wg0 + wg * L::per_wg;
+  bf16* Xs = reinterpret_cast<bf16*>(mine + L::xs);
+  bf16* Gs = reinterpret_cast<bf16*>(mine + L::gs);
+  bf16* Ys = reinterpret_cast<bf16*>(mine + L::ys);
+  float* scal = reinterpret_cast<float*>(mine + L::scal);  // [2 heads][cum, dt][kMaxChunk]
+  float* red = reinterpret_cast<float*>(mine + L::red);    // [4 warps][64 columns]
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp & 3) * 16, wn = warp >> 2;  // this warp's rows; its column half
-  const int nc = S / chunk;
-  const int k = blockIdx.x / H, h = blockIdx.x - k * H, b = blockIdx.y;
-  const int g = h / (H / G);
-  const int s0 = k * chunk;
-  const float Ah = A[h];
-  const bf16* xb = x + b * x_sb + int64_t(s0) * x_ss + h * x_sh;
-  const float* dtb = dt + b * dt_sb + h * dt_sh;
-  const bf16* Bb = Bm + b * b_sb + int64_t(s0) * b_ss + g * b_sg;
-  const bf16* Cb = Cm + b * c_sb + int64_t(s0) * c_ss + g * c_sg;
-  const int64_t dy_ss = int64_t(H) * P;
-  const bf16* dyb = dy + (int64_t(b) * S + s0) * dy_ss + int64_t(h) * P;
-  const int64_t bk = int64_t(b) * nc + k;
-  const float* Gk = g_out + (bk * H + h) * P * N;
-  const float* Hk = h_in + (bk * H + h) * P * N;
-  const int64_t row0 = (int64_t(b) * S + s0) * H + h;  // position 0's row in (B, S, H, *)
+  const int nc = S / chunk, nt = plan::tiles(chunk), npairs = plan::pairs(chunk);
+  // j tile 0's blocks first: they walk the most i tiles
+  int rest = blockIdx.x;
+  const int sg = rest % n_sub;
+  rest /= n_sub;
+  const int g = rest % G;
+  rest /= G;
+  const int k = rest % nc, jt = rest / nc, b = blockIdx.y;
+  const int rep = H / G, h_first = g * rep + sg * sub_heads;
+  const int h_count = min(sub_heads, rep - sg * sub_heads);
+  const int n_i = nt - jt, j0 = jt * kTile;
+  const int64_t s0 = int64_t(k) * chunk, PN = int64_t(P) * N, dy_ss = int64_t(H) * P;
+  const auto sw64 = [](int r, int c) { return sw128(r, c, kTile); };
 
-  {
-    const float d = tid < chunk ? dtb[(s0 + tid) * dt_ss] : 0.f;
-    dts[tid] = d;
-    cum[tid] = d * Ah;
-    pdt[tid] = pdc[tid] = pu[tid] = 0.f;
+  // ---- B_j; C_i B_j^T of each i tile (warpgroup w: tiles jt + w, jt + w + 2)
+  stage_tile<2 * kWG>(Bs, sw64, Bm + b * b_sb + (s0 + j0) * b_ss + g * b_sg, b_ss, kTile,
+                      min(kTile, chunk - j0), N, NP, vec_b, tid);
+  for (int u = 0; u < 2; ++u) {
+    const int i0 = (jt + wg + 2 * u) * kTile;
+    if (i0 < chunk)
+      stage_tile<kWG>(Xs + u * kTile * NP, sw64, Cm + b * c_sb + (s0 + i0) * c_ss + g * c_sg,
+                      c_ss, kTile, min(kTile, chunk - i0), N, NP, vec_c, wt);
   }
-  const auto stage_state = [&](const float* src) {  // zero past P and N
-    for (int e = tid; e < kPadP * NP; e += kThreads) {
-      const int p = e / NP, n = e - p * NP;
-      split(p < P && n < N ? src[p * N + n] : 0.f, Gh[p * ldn + n], Gl[p * ldn + n]);
-    }
-  };
-  stage_state(Gk);
-  inclusive_scan(cum, tid);
-  const float cl = cum[chunk - 1];
-  const int n_tiles = (chunk + kTile - 1) / kTile;
-
-  // the scores of the tile pair (i0, j0) into (hi, lo) pairs at sh, sl:
-  // v[i][j] L_ij (times dt_j with `with_dt`), zero above the diagonal and past
-  // the chunk
-  const auto store_scores = [&](float (&v)[NTS][4], bf16* sh, bf16* sl, int i0, int j0,
-                                bool with_dt) {
+  cp_async_commit();
+  cp_async_wait_all();
+  fence_async_shared();
+  __syncthreads();
+  for (int u = 0; u < 2; ++u) {
+    const int it = jt + wg + 2 * u;
+    if (it >= nt) break;  // the same in the whole warpgroup
+    float acc[32];
+    zero_acc(acc);
+    wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < NTS; ++t)
+    for (int ks = 0; ks < KN; ++ks)
+      wgmma_ss(acc, kmajor_desc(Bs, kTile, ks), kmajor_desc(Xs + u * kTile * NP, kTile, ks));
+    wgmma_commit_wait();
+    fence_regs(acc);
+    uint4* dst = CBs + (it - jt) * 4 * kWG + wt;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = wm + (lane >> 2) + (e >> 1) * 8, j = wn * 32 + t * 8 + 2 * (lane & 3) + (e & 1);
-        const int gi = i0 + i, gj = j0 + j;
-        float L = gi >= gj && gi < chunk ? expf(cum[gi] - cum[gj]) : 0.f;
-        if (with_dt) L *= dts[gj];
-        split(v[t][e] * L, sh[i * lds + j], sl[i * lds + j]);
-      }
-  };
-  // the sum over the 4 lanes of a fragment row (lanes l ^ 1, l ^ 2), the same
-  // in each, then this warp's column half's partial into rowp[which]
-  const auto row_partial = [&](float v, int which, int row) {
-    v += __shfl_xor_sync(0xffffffffu, v, 1);
-    v += __shfl_xor_sync(0xffffffffu, v, 2);
-    if ((lane & 3) == 0) rowp[(which * 2 + wn) * kTile + row] = v;
-  };
-
-  // ---- dx and dB, one 64-row j tile at a time, over the i tiles at or below it
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int j0 = jt * kTile;
-    __syncthreads();  // the previous j tile's Bs, Xs and rowp are no longer read
-    stage_rows(Bs, nullptr, ldn, Bb, b_ss, j0, chunk, N, NP, vec_b, nullptr, tid);
-    stage_rows(Xs, nullptr, ldp, xb, x_ss, j0, chunk, P, kPadP, vec_x, nullptr, tid);
-    float adx[NTP][4], aE[NTN][4];  // rows j; columns p of this warp's half, n of its half
-    zero(adx);
-    zero(aE);
-    for (int it = jt; it < n_tiles; ++it) {
-      const int i0 = it * kTile;
-      __syncthreads();  // the previous i tile's Cs, Ys and scores are no longer read
-      stage_rows(Cs, nullptr, ldn, Cb, c_ss, i0, chunk, N, NP, vec_c, nullptr, tid);
-      stage_rows(Ys, nullptr, ldp, dyb, dy_ss, i0, chunk, P, kPadP, vec_dy, nullptr, tid);
-      __syncthreads();
-      float sc[NTS][4], sq[NTS][4];  // (C_i . B_j) and (dy_i . x_j): rows i, columns j
-      zero(sc);
-      zero(sq);
-      warp_mma<NTS, false, false>(sc, Cs, ldn, Bs, ldn, wm, wn * 32, NP, lane);
-      warp_mma<NTS, false, false>(sq, Ys, ldp, Xs, ldp, wm, wn * 32, kPadP, lane);
-      // adx[j][p] += sum_i M_ij dy_i[p], then aE[j][n] += sum_i QL_ij C_i[n]:
-      // the two score tiles take turns in one buffer (two blocks fit a SM)
-      store_scores(sc, Mh, Ml, i0, j0, false);
-      __syncthreads();
-      warp_mma<NTP, true, true>(adx, Mh, lds, Ys, ldp, wm, wn * 32, kTile, lane);
-      warp_mma<NTP, true, true>(adx, Ml, lds, Ys, ldp, wm, wn * 32, kTile, lane);
-      __syncthreads();
-      store_scores(sq, Mh, Ml, i0, j0, false);
-      __syncthreads();
-      warp_mma<NTN, true, true>(aE, Mh, lds, Cs, ldn, wm, wn * (NP / 2), kTile, lane);
-      warp_mma<NTN, true, true>(aE, Ml, lds, Cs, ldn, wm, wn * (NP / 2), kTile, lane);
-    }
-    // the state terms of the j rows: (G B_j)[p] and (G^T x_j)[n]
-    float gb[NTP][4], gx[NTN][4];
-    zero(gb);
-    zero(gx);
-    warp_mma<NTP, false, false>(gb, Bs, ldn, Gh, ldn, wm, wn * 32, NP, lane);
-    warp_mma<NTP, false, false>(gb, Bs, ldn, Gl, ldn, wm, wn * 32, NP, lane);
-    warp_mma<NTN, false, true>(gx, Xs, ldp, Gh, ldn, wm, wn * (NP / 2), kPadP, lane);
-    warp_mma<NTN, false, true>(gx, Xs, ldp, Gl, ldn, wm, wn * (NP / 2), kPadP, lane);
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {  // the fragment's two rows
-      const int j = wm + (lane >> 2) + hr * 8, gj = j0 + j;
-      const bool in = gj < chunk;
-      const float w = expf(cl - cum[gj]), d = dts[gj];
-#pragma unroll
-      for (int t = 0; t < NTP; ++t)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int p = wn * 32 + t * 8 + 2 * (lane & 3) + c;
-          if (in && p < P)
-            dx[(row0 + int64_t(gj) * H) * P + p] =
-                __float2bfloat16(d * fmaf(w, gb[t][hr * 2 + c], adx[t][hr * 2 + c]));
-        }
-      float bdot = 0.f, udot = 0.f;
-#pragma unroll
-      for (int t = 0; t < NTN; ++t)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int n = wn * (NP / 2) + t * 8 + 2 * (lane & 3) + c;
-          const float pre = fmaf(w, gx[t][hr * 2 + c], aE[t][hr * 2 + c]);  // dB_j / dt_j
-          const float bn = __bfloat162float(Bs[j * ldn + n]);  // 0 past N
-          bdot = fmaf(bn, pre, bdot);
-          udot = fmaf(bn, gx[t][hr * 2 + c], udot);
-          if (in && n < N) dB_part[(row0 + int64_t(gj) * H) * N + n] = d * pre;
-        }
-      row_partial(bdot, 0, j);
-      row_partial(udot, 1, j);
-    }
-    __syncthreads();
-    if (tid < kTile && j0 + tid < chunk) {
-      const int gj = j0 + tid;
-      const float bdot = rowp[0 * kTile + tid] + rowp[1 * kTile + tid];
-      const float udot = rowp[2 * kTile + tid] + rowp[3 * kTile + tid];
-      const float d = dts[gj];
-      pdt[gj] = bdot;
-      pdc[gj] = -d * bdot;  // - B_j . dB_j
-      pu[gj] = d * expf(cl - cum[gj]) * udot;
-    }
+    for (int q = 0; q < 4; ++q)
+      dst[q * kWG] = make_uint4(pack_bf16(acc[8 * q], acc[8 * q + 1]),
+                                pack_bf16(acc[8 * q + 2], acc[8 * q + 3]),
+                                pack_bf16(acc[8 * q + 4], acc[8 * q + 5]),
+                                pack_bf16(acc[8 * q + 6], acc[8 * q + 7]));
   }
+  for (int e = tid; e < n_i * 8 * kWG; e += 2 * kWG) Ws[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();  // C B^T and W's zeros are written; the C tiles' region is free
 
-  // ---- H_k in place of G_{k+1}, and <G_{k+1}, H_k> from the fp32 values
-  __syncthreads();  // the j loop's reads of Gh and Gl are done
-  float gh = 0.f;
-  for (int e = tid; e < P * N; e += kThreads) gh = fmaf(Gk[e], Hk[e], gh);
-  stage_state(Hk);
-  gh = block_sum(gh, red, tid);  // its barriers also publish H_k
-
-  // ---- dC, one 64-row i tile at a time, over the j tiles at or above it
-  for (int it = 0; it < n_tiles; ++it) {
+  // ---- the heads, warpgroup w taking every other one
+  const int n_steps = (h_count + 1) / 2;
+  const int wbar = 1 + wg;  // this warpgroup's own barrier
+  const auto head_of = [&](int m) { return h_first + 2 * m + wg; };
+  const auto active = [&](int m) { return m < n_steps && 2 * m + wg < h_count; };
+  const auto stage_dy = [&](int hh, int it, int slot) {
     const int i0 = it * kTile;
-    __syncthreads();  // the previous i tile's Cs, Ys and rowp are no longer read
-    stage_rows(Cs, nullptr, ldn, Cb, c_ss, i0, chunk, N, NP, vec_c, nullptr, tid);
-    stage_rows(Ys, nullptr, ldp, dyb, dy_ss, i0, chunk, P, kPadP, vec_dy, nullptr, tid);
-    float aF[NTN][4];  // rows i, columns n of this warp's half
-    zero(aF);
-    for (int jt = 0; jt <= it; ++jt) {
-      const int j0 = jt * kTile;
-      __syncthreads();  // the previous j tile's Bs, Xs and scores are no longer read
-      stage_rows(Bs, nullptr, ldn, Bb, b_ss, j0, chunk, N, NP, vec_b, nullptr, tid);
-      stage_rows(Xs, nullptr, ldp, xb, x_ss, j0, chunk, P, kPadP, vec_x, nullptr, tid);
-      __syncthreads();
-      float sq[NTS][4];
-      zero(sq);
-      warp_mma<NTS, false, false>(sq, Ys, ldp, Xs, ldp, wm, wn * 32, kPadP, lane);
-      store_scores(sq, Mh, Ml, i0, j0, true);
-      __syncthreads();
-      // aF[i][n] += sum_j QL_ij dt_j B_j[n]
-      warp_mma<NTN, false, true>(aF, Mh, lds, Bs, ldn, wm, wn * (NP / 2), kTile, lane);
-      warp_mma<NTN, false, true>(aF, Ml, lds, Bs, ldn, wm, wn * (NP / 2), kTile, lane);
+    stage_tile<kWG>(Ys + slot * kSlab, sw64, dy + ((int64_t(b) * S + s0 + i0) * H + hh) * P,
+                    dy_ss, kTile, min(kTile, chunk - i0), P, kPadP, vec_dy, wt);
+  };
+  // x_j, the bf16 plane of G_{k+1} and the chunk's cum and dt of head hh
+  const auto stage_head = [&](int hh, int buf) {
+    stage_tile<kWG>(Xs, sw64, x + b * x_sb + (s0 + j0) * x_ss + hh * x_sh, x_ss, kTile,
+                    min(kTile, chunk - j0), P, kPadP, vec_x, wt);
+    stage_tile<kWG>(Gs, sw64, gplane + ((int64_t(b) * nc + k) * H + hh) * PN, N, kTile, P, N,
+                    NP, vec_g, wt);
+    float* c = scal + buf * 2 * kMaxChunk;
+    const int64_t bkh = (int64_t(b) * nc + k) * H + hh;
+    for (int t = wt; t < kMaxChunk; t += kWG) {
+      if (t < chunk) {
+        cp_async4(c + t, cum_in + bkh * chunk + t);
+        cp_async4(c + kMaxChunk + t, dt + b * dt_sb + (s0 + t) * dt_ss + hh * dt_sh);
+      } else {
+        c[t] = c[kMaxChunk + t] = 0.f;
+      }
     }
-    // the state term of the i rows: (H_k^T dy_i)[n]
-    float hy[NTN][4];
-    zero(hy);
-    warp_mma<NTN, false, true>(hy, Ys, ldp, Gh, ldn, wm, wn * (NP / 2), kPadP, lane);
-    warp_mma<NTN, false, true>(hy, Ys, ldp, Gl, ldn, wm, wn * (NP / 2), kPadP, lane);
+  };
+
+  if (active(0)) {
+    stage_head(head_of(0), 0);
+    stage_dy(head_of(0), jt, 0);
+  }
+  cp_async_commit();
+  if (wg == 1) bar_arrive(4, 2 * kWG);  // warpgroup 0 adds first
+
+  const int rj0 = 16 * wwarp + (lane >> 2);  // this thread's rows of the j tile: rj0, rj0 + 8
+  int v = 0;                                 // dy tiles this warpgroup has walked
+  for (int m = 0; m < n_steps; ++m) {
+    const bool act = active(m);  // the same in the whole warpgroup
+    const int hh = head_of(m);
+    const int64_t bkh = (int64_t(b) * nc + k) * H + hh;
+    const float* cum = scal + (m & 1) * 2 * kMaxChunk;
+    const float* dts = cum + kMaxChunk;
+    cp_async_wait_all();
+    fence_async_shared();
+    bar_sync(wbar, kWG);  // x_j, G, the first dy tile and the scalars have landed
+    const float cl = cum[chunk - 1];
+    float cumj[2], dtj[2], wj[2], rs[2] = {0.f, 0.f}, vd[2] = {0.f, 0.f};
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int i = wm + (lane >> 2) + hr * 8, gi = i0 + i;
-      const bool in = gi < chunk;
-      const float e = expf(cum[gi]);
-      float cdot = 0.f;
+    for (int r = 0; r < 2; ++r) {
+      const int gj = j0 + rj0 + 8 * r;
+      cumj[r] = cum[gj];
+      dtj[r] = dts[gj];
+      wj[r] = gj < chunk ? __expf(cl - cumj[r]) : 0.f;
+    }
+    float dxa[32];
+    if (act) {
+      // G B_j (rows j, columns p), V_j, then exp(cl - cum_j) G B_j as dx's start
+      zero_acc(dxa);
+      wgmma_fence();
 #pragma unroll
-      for (int t = 0; t < NTN; ++t)
+      for (int ks = 0; ks < KN; ++ks)
+        wgmma_ss(dxa, kmajor_desc(Bs, kTile, ks), kmajor_desc(Gs, kTile, ks));
+      wgmma_commit_wait();
+      fence_regs(dxa);
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int n = wn * (NP / 2) + t * 8 + 2 * (lane & 3) + c;
-          const float v = fmaf(e, hy[t][hr * 2 + c], aF[t][hr * 2 + c]);  // dC_i
-          cdot = fmaf(__bfloat162float(Cs[i * ldn + n]), v, cdot);
-          if (in && n < N) dC_part[(row0 + int64_t(gi) * H) * N + n] = v;
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 xv = unpack_bf16(*reinterpret_cast<const uint32_t*>(
+              Xs + sw128(rj0 + 8 * r, 8 * t + 2 * (lane & 3), kTile)));
+          vd[r] = fmaf(xv.x, dxa[4 * t + 2 * r], fmaf(xv.y, dxa[4 * t + 2 * r + 1], vd[r]));
         }
-      row_partial(cdot, 0, i);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        vd[r] += __shfl_xor_sync(0xffffffffu, vd[r], 1);
+        vd[r] += __shfl_xor_sync(0xffffffffu, vd[r], 2);
+        vd[r] *= wj[r];
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dxa[i] *= wj[(i >> 1) & 1];
+      fence_regs(dxa);
     }
-    __syncthreads();
-    if (tid < kTile && i0 + tid < chunk)
-      pdc[i0 + tid] += rowp[tid] + rowp[kTile + tid];  // + C_i . dC_i
+
+    for (int it = jt; it < nt; ++it, ++v) {
+      const int slot = v & 1, i0 = it * kTile, tl = it - jt;
+      const bool last = it == nt - 1;
+      if (it > jt) {
+        cp_async_wait_all();
+        fence_async_shared();
+        bar_sync(wbar, kWG);  // dy_i has landed; the other slot is no longer read
+      }
+      if (!last) {  // this head's next dy tile
+        if (act) stage_dy(hh, it + 1, slot ^ 1);
+        cp_async_commit();
+      }
+      const bf16* Yi = Ys + slot * kSlab;
+      float sa[32];
+      if (act) {  // S^T = x_j dy_i^T
+        zero_acc(sa);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss(sa, kmajor_desc(Xs, kTile, kk), kmajor_desc(Yi, kTile, kk));
+        wgmma_commit_wait();
+        fence_regs(sa);
+      }
+      if (last) {  // the next head's x_j, G, scalars and first dy tile, once every warp has read x_j
+        bar_sync(wbar, kWG);
+        if (active(m + 1)) {
+          stage_head(head_of(m + 1), (m + 1) & 1);
+          stage_dy(head_of(m + 1), jt, slot ^ 1);
+        }
+        cp_async_commit();
+      }
+
+      float cs[16];
+      uint32_t ma[4][4];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) cs[i] = 0.f;
+      if (act) {
+        uint4 cbv[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) cbv[q] = CBs[(tl * 4 + q) * kWG + wt];
+        const uint32_t* cbw = reinterpret_cast<const uint32_t*>(cbv);
+        float mv[32];
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int gj = j0 + rj0 + 8 * r;
+            const float2 cb = unpack_bf16(cbw[2 * t + r]);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int vv = 4 * t + 2 * r + e;
+              const int gi = i0 + 8 * t + 2 * (lane & 3) + e;
+              const float l = gi >= gj && gi < chunk ? __expf(cum[gi] - cumj[r]) : 0.f;
+              const float cbe = e ? cb.y : cb.x;
+              const float ql = sa[vv] * l;
+              const float q = ql * cbe;
+              rs[r] += q;
+              cs[2 * t + e] = fmaf(dtj[r], q, cs[2 * t + e]);
+              sa[vv] = dtj[r] * ql;  // this head's share of W^T
+              mv[vv] = cbe * l;      // M^T
+            }
+          }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          pack_a(ma[kk], mv, kk);
+          fence_regs(ma[kk]);
+        }
+      }
+      // the column sums over this warp's 16 rows: lanes that share lane % 4
+      // share columns; each step halves the sums a lane holds, so lane l ends
+      // with columns 2 l and 2 l + 1
+      {
+        float c8[8], c4[4];
+        const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          c8[i] = (b4 ? cs[8 + i] : cs[i]) +
+                  __shfl_xor_sync(0xffffffffu, b4 ? cs[i] : cs[8 + i], 16);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          c4[i] = (b3 ? c8[4 + i] : c8[i]) +
+                  __shfl_xor_sync(0xffffffffu, b3 ? c8[i] : c8[4 + i], 8);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          red[wwarp * 64 + 2 * lane + i] =
+              (b2 ? c4[2 + i] : c4[i]) + __shfl_xor_sync(0xffffffffu, b2 ? c4[i] : c4[2 + i], 4);
+      }
+      // this head's share of W, added in head order: warpgroup 0 waits for
+      // warpgroup 1's previous add (barrier 4), warpgroup 1 for 0's (barrier 3)
+      bar_sync(wg == 0 ? 4 : 3, 2 * kWG);
+      if (act) {
+        float4* wp = Ws + tl * 8 * kWG + wt;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          float4 w = wp[q * kWG];
+          w.x += sa[4 * q];
+          w.y += sa[4 * q + 1];
+          w.z += sa[4 * q + 2];
+          w.w += sa[4 * q + 3];
+          wp[q * kWG] = w;
+        }
+      }
+      bar_arrive(wg == 0 ? 3 : 4, 2 * kWG);
+      if (act) {  // dx_j += M^T dy_i
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb(dxa, ma[kk], mnmajor_desc(Yi, kTile, 0, kk));
+        wgmma_commit_wait();
+        fence_regs(dxa);
+        // the row sums of W^h o CB over this j tile, for the i rows
+        if (wt < kTile && i0 + wt < chunk)
+          rpart[(bkh * nt + jt) * chunk + i0 + wt] =
+              red[wt] + red[64 + wt] + red[128 + wt] + red[192 + wt];
+      }
+    }
+
+    if (act) {  // dx, ddt's direct term and V of the j rows
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        const int gj = j0 + rj0 + 8 * r;
+        if (gj >= chunk) continue;
+        bf16* dr = dx + ((int64_t(b) * S + s0 + gj) * H + hh) * P;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const int p = 8 * t + 2 * (lane & 3);
+          if (p >= P) continue;
+          const float v0 = dtj[r] * dxa[4 * t + 2 * r], v1 = dtj[r] * dxa[4 * t + 2 * r + 1];
+          if (p + 1 < P && (P & 1) == 0) {
+            *reinterpret_cast<__nv_bfloat162*>(dr + p) = __floats2bfloat162_rn(v0, v1);
+          } else {
+            dr[p] = __float2bfloat16(v0);
+            if (p + 1 < P) dr[p + 1] = __float2bfloat16(v1);
+          }
+        }
+        if ((lane & 3) == 0) {
+          pdt[bkh * chunk + gj] = rs[r] + vd[r];
+          pv[bkh * chunk + gj] = vd[r];
+        }
+      }
+    }
+  }
+  if (wg == 0) bar_sync(4, 2 * kWG);  // warpgroup 1's last add
+  __syncthreads();
+  // the sub-group's W^T tiles (it, jt), in the fragment order
+  const int64_t wbase = ((int64_t(b) * nc + k) * G + g) * n_sub + sg;
+  for (int e = tid; e < n_i * 8 * kWG; e += 2 * kWG) {
+    const int tl = e / (8 * kWG);
+    reinterpret_cast<float4*>(wpart)[(wbase * npairs + plan::pair_index(jt + tl, jt)) * 8 * kWG +
+                                     e % (8 * kWG)] = Ws[e];
+  }
+}
+
+// ---- pass 4 in bf16: dB and dC of one 64-row tile t of a (chunk, row, group)
+// Warpgroup 0 forms dC_t = sum_{j <= t} W_tj B_j + sum_h exp(cum_t) dy_t H_k
+// (and each head's Y_t = exp(cum_t) C_t . H_k^T dy_t); warpgroup 1 forms
+// dB_t = sum_{i >= t} W_it^T C_i + sum_h dt_t exp(cl - cum_t) x_t G_{k+1}.
+// W is the sub-groups' partials summed in order and rounded once to bf16;
+// the state sums run one wgmma group a head (K = P) from the bf16 planes,
+// each head's product scaled per row in registers, the heads' operands
+// staged kHeadStages - 1 heads ahead through a cp.async ring. The two
+// warpgroups run the same control flow (a warpgroup with fewer W tiles
+// multiplies a zero tile), so ptxas need not serialise their wgmma.
+constexpr int kHeadStages = 4;
+template <int NP>
+struct GroupSmem {  // byte offsets from the 1024-aligned base
+  static constexpr size_t tile = size_t(kTile) * NP * 2;  // a 64 x NP bf16 tile
+  static constexpr size_t ct = 0;                         // C_t, for each head's Y_t
+  static constexpr size_t region = ct + tile;
+  // the region holds first B_j (j <= t) and C_i (i >= t), nt + 1 tiles, the
+  // W tiles W_tj and W_it^T and a zero one; then, per warpgroup, the heads'
+  // ring: dy_t or x_t and the plane of H_k or G_{k+1}
+  static constexpr size_t wtiles = region + 5 * tile;
+  static constexpr size_t setup_end = wtiles + 6 * size_t(kSlab) * 2;
+  static constexpr size_t stage = size_t(kSlab) * 2 + tile;
+  static constexpr size_t ring_end = region + 2 * kHeadStages * stage;
+  static constexpr size_t scal = setup_end > ring_end ? setup_end : ring_end;
+  static constexpr int kScal = 132;  // floats a stage: cum and dt of 64 rows, cl
+  static constexpr size_t total = scal + 2 * kHeadStages * kScal * 4 + 1024;
+  static_assert(region % 1024 == 0 && stage % 1024 == 0, "swizzled tiles on 1024-byte atoms");
+};
+
+template <int NP>
+__global__ void __launch_bounds__(2 * kWG, 1)
+ssd_bwd_group_bf16(const bf16* __restrict__ x, const float* __restrict__ dt,
+                   const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
+                   const bf16* __restrict__ dy, const float* __restrict__ cum_in,
+                   const bf16* __restrict__ gplane, const bf16* __restrict__ hplane,
+                   const float* __restrict__ wpart, float* __restrict__ py,
+                   bf16* __restrict__ dB, bf16* __restrict__ dC, int S, int H, int P, int G,
+                   int N, int chunk, int n_sub, int vec_x, int vec_b, int vec_c, int vec_dy,
+                   int vec_g, int64_t x_sb, int64_t x_ss, int64_t x_sh, int64_t dt_sb,
+                   int64_t dt_ss, int64_t dt_sh, int64_t b_sb, int64_t b_ss, int64_t b_sg,
+                   int64_t c_sb, int64_t c_ss, int64_t c_sg) {
+  using L = GroupSmem<NP>;
+  constexpr int NS = NP / 64;  // 64-column slabs of N
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* Ct = reinterpret_cast<bf16*>(base + L::ct);
+  bf16* Tb = reinterpret_cast<bf16*>(base + L::region);  // slot u: 64 x NP
+  bf16* Wt = reinterpret_cast<bf16*>(base + L::wtiles);  // slot u: 64 x 64; slot 5 zeros
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & (kWG - 1), lane = tid & 31;
+  const int wwarp = wt >> 5;
+  bf16* ring = reinterpret_cast<bf16*>(base + L::region + wg * kHeadStages * L::stage);
+  float* scal = reinterpret_cast<float*>(base + L::scal) + wg * kHeadStages * L::kScal;
+
+  const int nc = S / chunk, nt = plan::tiles(chunk), npairs = plan::pairs(chunk);
+  const int t = blockIdx.x % nt, g = (blockIdx.x / nt) % G, k = blockIdx.x / (nt * G);
+  const int b = blockIdx.y, rep = H / G;
+  const int t0 = t * kTile, valid = min(kTile, chunk - t0);
+  const int64_t s0 = int64_t(k) * chunk, PN = int64_t(P) * N;
+  const auto sw64 = [](int r, int c) { return sw128(r, c, kTile); };
+  // slot u < nt + 1: B_u for u <= t (warpgroup 0), C_{u - 1} for u > t (warpgroup 1)
+  const auto tile = [&](int u) { return Tb + u * kTile * NP; };
+  const auto wtile = [&](int u) { return Wt + u * kSlab; };
+
+  for (int u = 0; u <= nt; ++u) {
+    const int r0 = (u <= t ? u : u - 1) * kTile;
+    if (u <= t)
+      stage_tile<2 * kWG>(tile(u), sw64, Bm + b * b_sb + (s0 + r0) * b_ss + g * b_sg, b_ss,
+                          kTile, min(kTile, chunk - r0), N, NP, vec_b, tid);
+    else
+      stage_tile<2 * kWG>(tile(u), sw64, Cm + b * c_sb + (s0 + r0) * c_ss + g * c_sg, c_ss,
+                          kTile, min(kTile, chunk - r0), N, NP, vec_c, tid);
+  }
+  stage_tile<2 * kWG>(Ct, sw64, Cm + b * c_sb + (s0 + t0) * c_ss + g * c_sg, c_ss, kTile, valid,
+                      N, NP, vec_c, tid);
+  cp_async_commit();
+  for (int e = tid; e < kSlab / 8; e += 2 * kWG)
+    reinterpret_cast<uint4*>(wtile(5))[e] = make_uint4(0u, 0u, 0u, 0u);
+  // W's tiles: warpgroup 0 the pairs (t, j <= t) transposed, as W_tj (rows t);
+  // warpgroup 1 the pairs (i >= t, t) as they are, W_it^T (rows t). The
+  // partials hold W^T (rows j, columns i) in pass 3's fragment order.
+  const int n_mine = wg == 0 ? t + 1 : nt - t;  // this warpgroup's W tiles
+  const int u_first = wg == 0 ? 0 : t + 1;
+  {
+    const int64_t wbase = ((int64_t(b) * nc + k) * G + g) * n_sub;
+    const int rj0 = 16 * wwarp + (lane >> 2), c0 = 2 * (lane & 3);
+    for (int q = 0; q < n_mine; ++q) {
+      const int u = u_first + q;
+      const int pair = wg == 0 ? plan::pair_index(t, u) : plan::pair_index(u - 1, t);
+      bf16* dst = wtile(u);
+#pragma unroll
+      for (int v4 = 0; v4 < 8; ++v4) {
+        float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int sg = 0; sg < n_sub; ++sg) {
+          const float4 pw = reinterpret_cast<const float4*>(
+              wpart)[((wbase + sg) * npairs + pair) * 8 * kWG + v4 * kWG + wt];
+          s.x += pw.x;
+          s.y += pw.y;
+          s.z += pw.z;
+          s.w += pw.w;
+        }
+        // s holds columns 8 v4 + c0, + 1 of rows rj0 and rj0 + 8
+        const float vals[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int rj = rj0 + 8 * r, ci = 8 * v4 + c0;
+          if (wg == 0) {
+            dst[sw64(ci, rj)] = __float2bfloat16(vals[2 * r]);
+            dst[sw64(ci + 1, rj)] = __float2bfloat16(vals[2 * r + 1]);
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(dst + sw64(rj, ci)) =
+                __floats2bfloat162_rn(vals[2 * r], vals[2 * r + 1]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait_all();
+  fence_async_shared();
+  __syncthreads();
+
+  float acc[NS][32];  // dC_t (warpgroup 0) or dB_t (warpgroup 1): rows t, columns n
+#pragma unroll
+  for (int ns = 0; ns < NS; ++ns) zero_acc(acc[ns]);
+  wgmma_fence();
+  for (int q = 0; q < max(t + 1, nt - t); ++q) {  // the same count in both warpgroups
+    const bool real = q < n_mine;
+    const bf16* wq = wtile(real ? u_first + q : 5);
+    const bf16* bq = tile(real ? u_first + q : 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int ns = 0; ns < NS; ++ns)
+        wgmma_ss_tb(acc[ns], kmajor_desc(wq, kTile, kk), mnmajor_desc(bq, kTile, ns, kk));
+  }
+  wgmma_commit_wait();
+#pragma unroll
+  for (int ns = 0; ns < NS; ++ns) fence_regs(acc[ns]);
+  __syncthreads();  // the setup tiles are read: the region takes the heads' rings
+
+  // ---- the state sums, a head at a time
+  const bf16* plane = wg == 0 ? hplane : gplane;
+  const bf16* asrc = wg == 0 ? dy + (int64_t(b) * S + s0 + t0) * H * P
+                             : x + b * x_sb + (s0 + t0) * x_ss;
+  const int64_t a_ss = wg == 0 ? int64_t(H) * P : x_ss, a_sh = wg == 0 ? P : x_sh;
+  const int vec_a = wg == 0 ? vec_dy : vec_x;
+  const auto stage = [&](int u) {  // head g rep + u into stage u % kHeadStages
+    if (u >= rep) return;
+    const int hh = g * rep + u, st = u % kHeadStages;
+    bf16* A = ring + st * (L::stage / 2);
+    stage_tile<kWG>(A, sw64, asrc + hh * a_sh, a_ss, kTile, valid, P, kPadP, vec_a, wt);
+    stage_tile<kWG>(A + kSlab, sw64, plane + ((int64_t(b) * nc + k) * H + hh) * PN, N, kTile,
+                    P, N, NP, vec_g, wt);
+    float* c = scal + st * L::kScal;
+    const int64_t bkh = (int64_t(b) * nc + k) * H + hh;
+    if (wt < kTile) {
+      if (wt < valid) {
+        cp_async4(c + wt, cum_in + bkh * chunk + t0 + wt);
+        cp_async4(c + kTile + wt, dt + b * dt_sb + (s0 + t0 + wt) * dt_ss + hh * dt_sh);
+      } else {
+        c[wt] = c[kTile + wt] = 0.f;
+      }
+    } else if (wt == kTile) {
+      cp_async4(c + 2 * kTile, cum_in + bkh * chunk + chunk - 1);
+    }
+  };
+  const int rt0 = 16 * wwarp + (lane >> 2);  // this thread's rows of the tile: rt0, rt0 + 8
+#pragma unroll
+  for (int u = 0; u < kHeadStages - 1; ++u) {
+    stage(u);
+    cp_async_commit();
+  }
+  for (int u = 0; u < rep; ++u) {
+    const int hh = g * rep + u, st = u % kHeadStages;
+    cp_async_wait<kHeadStages - 2>();
+    fence_async_shared();
+    bar_sync(1 + wg, kWG);  // head u's operands have landed; head u - 1's stage is free
+    stage(u + kHeadStages - 1);
+    cp_async_commit();
+    const bf16* A = ring + st * (L::stage / 2);
+    float ah[NS][32];
+#pragma unroll
+    for (int ns = 0; ns < NS; ++ns) zero_acc(ah[ns]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int ns = 0; ns < NS; ++ns)
+        wgmma_ss_tb(ah[ns], kmajor_desc(A, kTile, kk), mnmajor_desc(A + kSlab, kTile, ns, kk));
+    wgmma_commit_wait();
+#pragma unroll
+    for (int ns = 0; ns < NS; ++ns) fence_regs(ah[ns]);
+    const float* c = scal + st * L::kScal;
+    const float cl = c[2 * kTile];
+    float f[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rt = rt0 + 8 * r;
+      // Y_t (kept by warpgroup 0): C_t . H_k^T dy_t, exp(cum_t) after
+      float yd = 0.f;
+#pragma unroll
+      for (int ns = 0; ns < NS; ++ns)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const float2 cv = unpack_bf16(*reinterpret_cast<const uint32_t*>(
+              Ct + sw64(rt, ns * 64 + 8 * q + 2 * (lane & 3))));
+          yd = fmaf(cv.x, ah[ns][4 * q + 2 * r], fmaf(cv.y, ah[ns][4 * q + 2 * r + 1], yd));
+        }
+      yd += __shfl_xor_sync(0xffffffffu, yd, 1);
+      yd += __shfl_xor_sync(0xffffffffu, yd, 2);
+      const float e = __expf(c[rt]);
+      f[r] = wg == 0 ? e : c[kTile + rt] * __expf(cl - c[rt]);
+      if (wg == 0 && (lane & 3) == 0 && rt < valid)
+        py[((int64_t(b) * nc + k) * H + hh) * chunk + t0 + rt] = e * yd;
+    }
+#pragma unroll
+    for (int ns = 0; ns < NS; ++ns)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[ns][i] = fmaf(f[(i >> 1) & 1], ah[ns][i], acc[ns][i]);
   }
 
-  chunk_tail(pdc, pdt, pu, dts, red, cl, gh, Ah, chunk, tid, ddt + row0, H,
-             dA_part + bk * H + h);
+  bf16* out = wg == 0 ? dC : dB;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rt = rt0 + 8 * r;
+    if (rt >= valid) continue;
+    bf16* row = out + ((int64_t(b) * S + s0 + t0 + rt) * G + g) * N;
+#pragma unroll
+    for (int ns = 0; ns < NS; ++ns)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int n = ns * 64 + 8 * q + 2 * (lane & 3);
+        if (n >= N) continue;
+        const float v0 = acc[ns][4 * q + 2 * r], v1 = acc[ns][4 * q + 2 * r + 1];
+        if (n + 1 < N && (N & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(row + n) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          row[n] = __float2bfloat16(v0);
+          if (n + 1 < N) row[n + 1] = __float2bfloat16(v1);
+        }
+      }
+  }
+}
+
+// Pass 5 in bf16: per (chunk, head) x row, the cum gradient of each position,
+// dcum_t = R_t - dt_t pdt_t + Y_t (R_t the row sums of W^h o CB over the j
+// tiles at or before t's, in order; pdt_t = B_t . dB^h_t / dt_t), the last
+// position's sum_j dt_j V_j + exp(cl) <G_{k+1}, H_k>, the suffix sums da,
+// ddt = pdt + A_h da and the block's share of dA_h.
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_tail(const float* __restrict__ dt, const float* __restrict__ A,
+             const float* __restrict__ cum_in, const float* __restrict__ pdt,
+             const float* __restrict__ pv, const float* __restrict__ py,
+             const float* __restrict__ rpart, const float* __restrict__ ghpart,
+             float* __restrict__ ddt, float* __restrict__ dA_part, int S, int H, int chunk,
+             int gh_blocks, int64_t dt_sb, int64_t dt_ss, int64_t dt_sh) {
+  __shared__ float dcum[kMaxChunk];
+  __shared__ float red[kThreads / 32];
+  const int tid = threadIdx.x, nc = S / chunk, nt = plan::tiles(chunk);
+  const int k = blockIdx.x / H, h = blockIdx.x - k * H, b = blockIdx.y;
+  const int64_t bkh = (int64_t(b) * nc + k) * H + h, s0 = int64_t(k) * chunk;
+  float d = 0.f, pd = 0.f, u = 0.f, dc = 0.f;
+  if (tid < chunk) {
+    d = dt[b * dt_sb + (s0 + tid) * dt_ss + h * dt_sh];
+    pd = pdt[bkh * chunk + tid];
+    u = d * pv[bkh * chunk + tid];
+    float r = 0.f;
+    for (int jt = 0; jt <= tid / kTile; ++jt) r += rpart[(bkh * nt + jt) * chunk + tid];
+    dc = r - d * pd + py[bkh * chunk + tid];
+  }
+  dcum[tid] = dc;
+  const float su = block_sum(u, red, tid);
+  if (tid == 0) {
+    float gh = 0.f;
+    for (int q = 0; q < gh_blocks; ++q) gh += ghpart[bkh * gh_blocks + q];
+    dcum[chunk - 1] += su + expf(cum_in[bkh * chunk + chunk - 1]) * gh;
+  }
+  suffix_scan(dcum, tid);  // dcum[t] = da_t
+  float part = 0.f;
+  if (tid < chunk) {
+    const float da = dcum[tid];
+    ddt[(int64_t(b) * S + s0 + tid) * H + h] = fmaf(A[h], da, pd);
+    part = d * da;
+  }
+  part = block_sum(part, red, tid);
+  if (tid == 0) dA_part[bkh] = part;
 }
 
 // ---- host side
-// Raises a kernel's dynamic shared memory limit once it is asked for more
-// than it was granted (48 KB without asking).
-template <typename Kernel>
-cudaError_t grant_smem(Kernel kernel, size_t smem, size_t& granted) {
-  if (smem <= granted) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err == cudaSuccess) granted = smem;
-  return err;
-}
-
-// The scratch's fp32 pieces, in order: the chunk states then H_k (B, nc, H,
-// P, N); D_k then G_{k+1} (the same); the chunk decays (B, nc, H); the
-// per-head partials of dB and of dC (B, S, H, N); the partials of dA (B, nc, H).
-struct Scratch {
-  float *states, *dstates, *decay, *dB_part, *dC_part, *dA_part;
-  size_t floats;
-};
-
-Scratch carve(float* base, int Bsz, int S, int H, int P, int N, int chunk) {
-  const size_t nc = S / chunk, state = size_t(Bsz) * nc * H * P * N;
-  const size_t per = size_t(Bsz) * nc * H, part = size_t(Bsz) * S * H * N;
-  Scratch s;
-  s.states = base;
-  s.dstates = s.states + state;
-  s.decay = s.dstates + state;
-  s.dB_part = s.decay + per;
-  s.dC_part = s.dB_part + part;
-  s.dA_part = s.dC_part + part;
-  s.floats = 2 * state + 2 * per + 2 * part;
-  if (base == nullptr) s.states = s.dstates = s.decay = s.dB_part = s.dC_part = s.dA_part = nullptr;
-  return s;
-}
-
-bool aligned16(const void* p, const int64_t* strides, int cols) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && strides[0] % 8 == 0 &&
-         strides[1] % 8 == 0 && strides[2] % 8 == 0 && cols % 8 == 0;
-}
-
-// Passes 1 and 3: the scalar kernels for float32 (NP unused), the tensor-core
-// kernels for bfloat16 (N padded to NP).
-template <typename T, int NP>
-cudaError_t launch_chunk_passes(const T* x, const float* dt, const float* A, const T* Bm,
-                                const T* Cm, const T* dy, T* dx, float* ddt, const Scratch& sc,
-                                int Bsz, int S, int H, int P, int G, int N, int chunk,
-                                const int64_t* xs, const int64_t* dts, const int64_t* bs,
-                                const int64_t* cs, cudaStream_t stream, bool second) {
-  const dim3 grid(S / chunk * H, Bsz);
-  cudaError_t err;
-  if constexpr (std::is_same_v<T, float>) {
-    if (!second) {
-      static size_t granted = 48 * 1024;
-      const size_t smem = chunk_state_smem_floats(P, N) * sizeof(float);
-      if ((err = grant_smem(ssd_bwd_chunk_state, smem, granted)) != cudaSuccess) return err;
-      ssd_bwd_chunk_state<<<grid, kThreads, smem, stream>>>(
-          x, dt, A, Bm, Cm, dy, sc.states, sc.dstates, sc.decay, S, H, P, G, N, chunk, xs[0],
-          xs[1], xs[2], dts[0], dts[1], dts[2], bs[0], bs[1], bs[2], cs[0], cs[1], cs[2]);
-    } else {
-      static size_t granted = 48 * 1024;
-      const size_t smem = chunk_smem_floats(P, N) * sizeof(float);
-      if ((err = grant_smem(ssd_bwd_chunk, smem, granted)) != cudaSuccess) return err;
-      ssd_bwd_chunk<<<grid, kThreads, smem, stream>>>(
-          x, dt, A, Bm, Cm, dy, sc.states, sc.dstates, dx, ddt, sc.dB_part,
-          sc.dC_part, sc.dA_part, S, H, P, G, N, chunk, xs[0], xs[1], xs[2], dts[0], dts[1],
-          dts[2], bs[0], bs[1], bs[2], cs[0], cs[1], cs[2]);
-    }
-  } else {
-    const int64_t dys[3] = {int64_t(S) * H * P, int64_t(H) * P, P};
-    const int vx = aligned16(x, xs, P), vb = aligned16(Bm, bs, N), vc = aligned16(Cm, cs, N),
-              vdy = aligned16(dy, dys, P);
-    if (!second) {
-      static size_t granted = 48 * 1024;
-      const size_t smem = chunk_state_bf16_smem<NP>();
-      if ((err = grant_smem(ssd_bwd_chunk_state_bf16<NP>, smem, granted)) != cudaSuccess)
-        return err;
-      ssd_bwd_chunk_state_bf16<NP><<<grid, kThreads, smem, stream>>>(
-          x, dt, A, Bm, Cm, dy, sc.states, sc.dstates, sc.decay, S, H, P, G, N, chunk, vx, vb,
-          vc, vdy, xs[0], xs[1], xs[2], dts[0], dts[1], dts[2], bs[0], bs[1], bs[2], cs[0],
-          cs[1], cs[2]);
-    } else {
-      static size_t granted = 48 * 1024;
-      const size_t smem = chunk_bf16_smem<NP>();
-      if ((err = grant_smem(ssd_bwd_chunk_bf16<NP>, smem, granted)) != cudaSuccess) return err;
-      ssd_bwd_chunk_bf16<NP><<<grid, kThreads, smem, stream>>>(
-          x, dt, A, Bm, Cm, dy, sc.states, sc.dstates, dx, ddt, sc.dB_part, sc.dC_part,
-          sc.dA_part, S, H, P, G, N, chunk, vx, vb, vc, vdy, xs[0], xs[1], xs[2], dts[0],
-          dts[1], dts[2], bs[0], bs[1], bs[2], cs[0], cs[1], cs[2]);
-    }
-  }
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch(const T* x, const float* dt, const float* A, const T* Bm, const T* Cm,
-                   const T* dy, const float* init, const float* dfinal, T* dx, float* ddt,
-                   float* dA, T* dB, T* dC, float* dinit, float* scratch, int Bsz, int S, int H,
-                   int P, int G, int N, int chunk, const int64_t* xs, const int64_t* dts,
-                   const int64_t* bs, const int64_t* cs, cudaStream_t stream) {
-  const int nc = S / chunk;
-  const Scratch sc = carve(scratch, Bsz, S, H, P, N, chunk);
-  // one instantiation a kernel: each keeps the shared memory it was granted
-  const auto chunk_pass = [&](bool second) {
-    if constexpr (std::is_same_v<T, float>)
-      return launch_chunk_passes<T, 0>(x, dt, A, Bm, Cm, dy, dx, ddt, sc, Bsz, S, H, P, G, N,
-                                       chunk, xs, dts, bs, cs, stream, second);
-    else
-      return N <= 64 ? launch_chunk_passes<T, 64>(x, dt, A, Bm, Cm, dy, dx, ddt, sc, Bsz, S, H,
-                                                  P, G, N, chunk, xs, dts, bs, cs, stream,
-                                                  second)
-                     : launch_chunk_passes<T, 128>(x, dt, A, Bm, Cm, dy, dx, ddt, sc, Bsz, S, H,
-                                                   P, G, N, chunk, xs, dts, bs, cs, stream,
-                                                   second);
-  };
-  cudaError_t err;
-  if ((err = chunk_pass(false)) != cudaSuccess) return err;
-
-  const int PN = P * N;
-  ssd_bwd_state_pass<<<dim3((PN + kPassThreads - 1) / kPassThreads, H, Bsz), kPassThreads, 0,
-                       stream>>>(sc.states, sc.dstates, sc.decay, init, dfinal, dinit, nc, H, PN);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  if ((err = chunk_pass(true)) != cudaSuccess) return err;
-
-  const int64_t rows = int64_t(Bsz) * S, n_out = rows * G * N;
-  ssd_bwd_group_sum<T><<<dim3(static_cast<unsigned>((n_out + kSumThreads - 1) / kSumThreads), 2),
-                         kSumThreads, 0, stream>>>(sc.dB_part, sc.dC_part, dB, dC, rows, H, G, N);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ssd_bwd_dA<<<(H + kSumThreads - 1) / kSumThreads, kSumThreads, 0, stream>>>(
-      sc.dA_part, dA, int64_t(Bsz) * nc, H);
-  return cudaGetLastError();
-}
-
 bool valid(int Bsz, int S, int H, int P, int G, int N, int chunk) {
   return Bsz > 0 && Bsz <= 65535 && P > 0 && P <= kMaxP && N > 0 && N <= kMaxN && G > 0 &&
          H % G == 0 && chunk > 0 && chunk <= kMaxChunk && S > 0 && S % chunk == 0 &&
          int64_t(S / chunk) * H <= 0x7fffffff;
 }
 
+// The blocks of the bf16 chunk-local pass resident at once on this card
+// (SMs x blocks a SM, as its shared memory allows).
+template <int NP>
+int chunk_slots() {
+  static size_t granted = 48 * 1024;
+  int dev = 0, sms = 0, per = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      grant_smem(ssd_bwd_chunk_bf16<NP>, ChunkSmem<NP>::total, granted) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, ssd_bwd_chunk_bf16<NP>, 2 * kWG,
+                                                    ChunkSmem<NP>::total) != cudaSuccess)
+    return 0;
+  return sms * (per > 0 ? per : 1);
+}
+
+// The sub-groups of the bf16 chunk-local pass (1 for float32, which keeps its
+// per-head partials).
+int n_subgroups(int dtype, int Bsz, int S, int H, int G, int N, int chunk) {
+  if (dtype != kBFloat16) return 1;
+  const int slots = N <= 64 ? chunk_slots<64>() : chunk_slots<128>();
+  return plan::subgroups(Bsz, S, H, G, chunk, slots);
+}
+
+cudaError_t launch_f32(const float* x, const float* dt, const float* A, const float* Bm,
+                       const float* Cm, const float* dy, const float* init, const float* dfinal,
+                       float* dx, float* ddt, float* dA, float* dB, float* dC, float* dinit,
+                       float* scratch, int Bsz, int S, int H, int P, int G, int N, int chunk,
+                       const int64_t* xs, const int64_t* dts, const int64_t* bs,
+                       const int64_t* cs, cudaStream_t stream) {
+  const int nc = S / chunk;
+  const plan::Layout l = plan::layout(kFloat32, Bsz, S, H, P, G, N, chunk, 1);
+  float *states = scratch + l.states, *dstates = scratch + l.dstates,
+        *decay = scratch + l.decay, *dB_part = scratch + l.dB_part,
+        *dC_part = scratch + l.dC_part, *dA_part = scratch + l.dApart;
+  const dim3 grid(nc * H, Bsz);
+  cudaError_t err;
+  {
+    static size_t granted = 48 * 1024;
+    const size_t smem = chunk_state_smem_floats(P, N) * sizeof(float);
+    if ((err = grant_smem(ssd_bwd_chunk_state, smem, granted)) != cudaSuccess) return err;
+    ssd_bwd_chunk_state<<<grid, kThreads, smem, stream>>>(
+        x, dt, A, Bm, Cm, dy, states, dstates, decay, S, H, P, G, N, chunk, xs[0], xs[1],
+        xs[2], dts[0], dts[1], dts[2], bs[0], bs[1], bs[2], cs[0], cs[1], cs[2]);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const int PN = P * N;
+  ssd_bwd_state_pass<<<dim3((PN + kPassThreads - 1) / kPassThreads, H, Bsz), kPassThreads, 0,
+                       stream>>>(states, dstates, decay, init, dfinal, dinit, nc, H, PN);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  {
+    static size_t granted = 48 * 1024;
+    const size_t smem = chunk_smem_floats(P, N) * sizeof(float);
+    if ((err = grant_smem(ssd_bwd_chunk, smem, granted)) != cudaSuccess) return err;
+    ssd_bwd_chunk<<<grid, kThreads, smem, stream>>>(
+        x, dt, A, Bm, Cm, dy, states, dstates, dx, ddt, dB_part, dC_part, dA_part, S, H, P, G,
+        N, chunk, xs[0], xs[1], xs[2], dts[0], dts[1], dts[2], bs[0], bs[1], bs[2], cs[0],
+        cs[1], cs[2]);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const int64_t rows = int64_t(Bsz) * S, n_out = rows * G * N;
+  const unsigned sum_blocks = static_cast<unsigned>((n_out + kSumThreads - 1) / kSumThreads);
+  ssd_bwd_group_sum<<<dim3(sum_blocks, 2), kSumThreads, 0, stream>>>(dB_part, dC_part, dB, dC,
+                                                                    rows, H, G, N);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_bwd_dA<<<(H + kSumThreads - 1) / kSumThreads, kSumThreads, 0, stream>>>(
+      dA_part, dA, int64_t(Bsz) * nc, H);
+  return cudaGetLastError();
+}
+
+template <int NP>
+cudaError_t launch_bf16(const bf16* x, const float* dt, const float* A, const bf16* Bm,
+                        const bf16* Cm, const bf16* dy, const float* init, const float* dfinal,
+                        bf16* dx, float* ddt, float* dA, bf16* dB, bf16* dC, float* dinit,
+                        float* scratch, int Bsz, int S, int H, int P, int G, int N, int chunk,
+                        const int64_t* xs, const int64_t* dts, const int64_t* bs,
+                        const int64_t* cs, cudaStream_t stream) {
+  const int nc = S / chunk, nt = plan::tiles(chunk), rep = H / G, PN = P * N;
+  const int n_sub = n_subgroups(kBFloat16, Bsz, S, H, G, N, chunk);
+  if (n_sub <= 0) return cudaErrorInvalidValue;
+  const int sub_heads = plan::subgroup_heads(rep, n_sub);
+  const plan::Layout l = plan::layout(kBFloat16, Bsz, S, H, P, G, N, chunk, n_sub);
+  float *states = scratch + l.states, *dstates = scratch + l.dstates,
+        *decay = scratch + l.decay, *cum = scratch + l.cum, *pdt = scratch + l.pdt,
+        *pv = scratch + l.pv, *py = scratch + l.py, *rpart = scratch + l.rpart,
+        *wpart = scratch + l.wpart, *ghpart = scratch + l.ghpart, *dA_part = scratch + l.dApart;
+  bf16* gplane = reinterpret_cast<bf16*>(scratch + l.gplane);
+  bf16* hplane = reinterpret_cast<bf16*>(scratch + l.hplane);
+  const int64_t dys[3] = {int64_t(S) * H * P, int64_t(H) * P, P};
+  const int vx = aligned16(x, xs, P), vb = aligned16(Bm, bs, N), vc = aligned16(Cm, cs, N),
+            vdy = aligned16(dy, dys, P), vg = N % 8 == 0;
+  cudaError_t err;
+  {  // 1. chunk states S_k, D_k; decays and cum
+    static size_t granted = 48 * 1024;
+    const size_t smem = StateSmem<NP>::total;
+    if ((err = grant_smem(ssd_bwd_chunk_state_bf16<NP>, smem, granted)) != cudaSuccess)
+      return err;
+    ssd_bwd_chunk_state_bf16<NP><<<dim3(nc * H, Bsz), 2 * kWG, smem, stream>>>(
+        x, dt, A, Bm, Cm, dy, states, dstates, dinit, decay, cum, S, H, P, G, N, chunk, vx, vb,
+        vc, vdy, xs[0], xs[1], xs[2], dts[0], dts[1], dts[2], bs[0], bs[1], bs[2], cs[0],
+        cs[1], cs[2]);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  // 2. state passing: the planes of G_{k+1} and H_k, dinit, <G_{k+1}, H_k>
+  const int gh_blocks = (PN + kPassThreads - 1) / kPassThreads;
+  ssd_bwd_state_pass_bf16<<<dim3(gh_blocks, H, Bsz), kPassThreads, 0, stream>>>(
+      states, dstates, decay, init, dfinal, dinit, gplane, hplane, ghpart, nc, H, PN);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  {  // 3. the chunk-local gradients, per head
+    static size_t granted = 48 * 1024;
+    const size_t smem = ChunkSmem<NP>::total;
+    if ((err = grant_smem(ssd_bwd_chunk_bf16<NP>, smem, granted)) != cudaSuccess) return err;
+    ssd_bwd_chunk_bf16<NP><<<dim3(nc * G * n_sub * nt, Bsz), 2 * kWG, smem, stream>>>(
+        x, dt, Bm, Cm, dy, cum, gplane, dx, pdt, pv, rpart, wpart, S, H, P, G, N, chunk, n_sub,
+        sub_heads, vx, vb, vc, vdy, vg, xs[0], xs[1], xs[2], dts[0], dts[1], dts[2], bs[0],
+        bs[1], bs[2], cs[0], cs[1], cs[2]);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  {  // 4. dB and dC, per group
+    static size_t granted = 48 * 1024;
+    const size_t smem = GroupSmem<NP>::total;
+    if ((err = grant_smem(ssd_bwd_group_bf16<NP>, smem, granted)) != cudaSuccess) return err;
+    ssd_bwd_group_bf16<NP><<<dim3(nc * G * nt, Bsz), 2 * kWG, smem, stream>>>(
+        x, dt, Bm, Cm, dy, cum, gplane, hplane, wpart, py, dB, dC, S, H, P, G, N, chunk, n_sub,
+        vx, vb, vc, vdy, vg, xs[0], xs[1], xs[2], dts[0], dts[1], dts[2], bs[0], bs[1], bs[2],
+        cs[0], cs[1], cs[2]);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  // 5. the cum gradient's suffix sums: ddt and dA's partials; 6. dA
+  ssd_bwd_tail<<<dim3(nc * H, Bsz), kThreads, 0, stream>>>(
+      dt, A, cum, pdt, pv, py, rpart, ghpart, ddt, dA_part, S, H, chunk, gh_blocks, dts[0],
+      dts[1], dts[2]);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_bwd_dA<<<(H + kSumThreads - 1) / kSumThreads, kSumThreads, 0, stream>>>(
+      dA_part, dA, int64_t(Bsz) * nc, H);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace repro_torch_ssd_bwd
 
-// The fp32 scratch ssd_backward_launch needs, in floats (0 for a shape it
-// does not take).
-extern "C" int64_t ssd_backward_scratch(int Bsz, int S, int H, int P, int G, int N, int chunk) {
+// The fp32 scratch ssd_backward_launch needs for `dtype`, in floats (0 for a
+// shape it does not take, or where the card cannot be queried).
+extern "C" int64_t ssd_backward_scratch(int dtype, int Bsz, int S, int H, int P, int G, int N,
+                                        int chunk) {
   using namespace repro_torch_ssd_bwd;
-  if (!valid(Bsz, S, H, P, G, N, chunk)) return 0;
-  return static_cast<int64_t>(carve(nullptr, Bsz, S, H, P, N, chunk).floats);
+  if (!valid(Bsz, S, H, P, G, N, chunk) || (dtype != kFloat32 && dtype != kBFloat16)) return 0;
+  const int n_sub = n_subgroups(dtype, Bsz, S, H, G, N, chunk);
+  if (n_sub <= 0) return 0;
+  return plan::layout(dtype, Bsz, S, H, P, G, N, chunk, n_sub).total;
 }
 
-// Launches the four passes on `stream` and returns cudaGetLastError() (0 on
+// The bf16 chunk-local pass's sub-group count at this shape (1 for float32).
+extern "C" int ssd_backward_subgroups(int dtype, int Bsz, int S, int H, int G, int N,
+                                      int chunk) {
+  using namespace repro_torch_ssd_bwd;
+  return n_subgroups(dtype, Bsz, S, H, G, N, chunk);
+}
+
+// Launches the passes on `stream` and returns cudaGetLastError() (0 on
 // success). Strides are in elements: {batch, sequence, head} for x and dt,
 // {batch, sequence, group} for B and C. `init_state`, `dfinal` and `dinit`
 // may be null.
@@ -1355,18 +1863,25 @@ extern "C" int ssd_backward_launch(const void* x, const float* dt, const float* 
   if (!valid(Bsz, S, H, P, G, N, chunk) || scratch == nullptr) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return launch(static_cast<const float*>(x), dt, A, static_cast<const float*>(Bm),
-                  static_cast<const float*>(Cm), static_cast<const float*>(dy), init_state,
-                  dfinal, static_cast<float*>(dx), ddt, dA, static_cast<float*>(dB),
-                  static_cast<float*>(dC), dinit, scratch, Bsz, S, H, P, G, N, chunk, x_strides,
-                  dt_strides, b_strides, c_strides, s);
+    return launch_f32(static_cast<const float*>(x), dt, A, static_cast<const float*>(Bm),
+                      static_cast<const float*>(Cm), static_cast<const float*>(dy), init_state,
+                      dfinal, static_cast<float*>(dx), ddt, dA, static_cast<float*>(dB),
+                      static_cast<float*>(dC), dinit, scratch, Bsz, S, H, P, G, N, chunk,
+                      x_strides, dt_strides, b_strides, c_strides, s);
   if (dtype == kBFloat16) {
-    using bf16 = __nv_bfloat16;
-    return launch(static_cast<const bf16*>(x), dt, A, static_cast<const bf16*>(Bm),
-                  static_cast<const bf16*>(Cm), static_cast<const bf16*>(dy), init_state,
-                  dfinal, static_cast<bf16*>(dx), ddt, dA, static_cast<bf16*>(dB),
-                  static_cast<bf16*>(dC), dinit, scratch, Bsz, S, H, P, G, N, chunk, x_strides,
-                  dt_strides, b_strides, c_strides, s);
+    const auto* xb = static_cast<const bf16*>(x);
+    const auto* bb = static_cast<const bf16*>(Bm);
+    const auto* cb = static_cast<const bf16*>(Cm);
+    const auto* dyb = static_cast<const bf16*>(dy);
+    auto* dxb = static_cast<bf16*>(dx);
+    auto* dBb = static_cast<bf16*>(dB);
+    auto* dCb = static_cast<bf16*>(dC);
+    return N <= 64 ? launch_bf16<64>(xb, dt, A, bb, cb, dyb, init_state, dfinal, dxb, ddt, dA,
+                                     dBb, dCb, dinit, scratch, Bsz, S, H, P, G, N, chunk,
+                                     x_strides, dt_strides, b_strides, c_strides, s)
+                   : launch_bf16<128>(xb, dt, A, bb, cb, dyb, init_state, dfinal, dxb, ddt, dA,
+                                      dBb, dCb, dinit, scratch, Bsz, S, H, P, G, N, chunk,
+                                      x_strides, dt_strides, b_strides, c_strides, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -6,11 +6,17 @@
   ``ops.ssd`` accepts. In bf16 one call is up to three device launches (chunk
   state, state passing, output; the launch decision lives in ``csrc/ssd.cu``).
 - ``ssd_backward`` is its gradient for x, dt, A, B, C and the initial state
-  (``csrc/ssd_backward.cu``, five device launches a call: chunk states, state
-  passing, the chunk-local gradients, the group sums of dB and dC, dA's sum).
-  The JAX package has no backward kernel: it differentiates its plain
-  ``ssd_reference`` with ``jax.grad`` (src/repro/kernels/ssd/ref.py:25; the
-  Pallas kernel has no VJP).
+  (``csrc/ssd_backward.cu``). In bf16, six device launches a call: chunk
+  states, state passing, the chunk-local gradients of each head (blocks over
+  a sub-group of a group's heads, C B^T formed once for them, the heads'
+  scores summed into one W a sub-group), dB and dC of each group from W and
+  the states, the cum gradient's suffix sums (ddt), dA's sum; the sub-group
+  count and the scratch come from ``csrc/ssd_backward_plan.cuh``. In f32,
+  five: chunk states, state passing, the chunk-local gradients with per-head
+  partials of dB and dC, their group sums, dA's sum. The JAX package has no
+  backward kernel: it differentiates its plain ``ssd_reference`` with
+  ``jax.grad`` (src/repro/kernels/ssd/ref.py:25; the Pallas kernel has no
+  VJP).
 
 A wrapper given CPU or meta tensors (meta: a trace with no data) computes the
 plain version in ``ref.py``, and only then. Given CUDA tensors it checks them,
@@ -59,8 +65,10 @@ _ENTRIES = {  # library: {C entry: (argument types, result type)}
         # x, dt, A, B, C, dy, initial_state, dfinal, dx, ddt, dA, dB, dC, dinit,
         # scratch, dtype, B, S, H, P, G, N, chunk, x/dt/B/C strides, stream
         "ssd_backward_launch": ([_P] * 15 + [_I] * 8 + [_I64P] * 4 + [_P], _I),
-        # B, S, H, P, G, N, chunk -> fp32 scratch floats
-        "ssd_backward_scratch": ([_I] * 7, ctypes.c_int64),
+        # dtype, B, S, H, P, G, N, chunk -> fp32 scratch floats
+        "ssd_backward_scratch": ([_I] * 8, ctypes.c_int64),
+        # dtype, B, S, H, G, N, chunk -> the bf16 chunk-local pass's sub-groups
+        "ssd_backward_subgroups": ([_I] * 7, _I),
         "ssd_backward_error_string": ([_I], ctypes.c_char_p),
     },
 }
@@ -257,17 +265,22 @@ def _backward_launch(x, dt, A, B_, C_, dy, *, chunk: int, initial_state: Optiona
     if x.numel() == 0 or N == 0:   # nothing to launch: every gradient is 0
         return tuple(None if t is None else t.zero_() for t in (dx, ddt, dA, dB, dC, dinit))
     lib = _lib("ssd_backward")
-    # the chunk states, then the states entering each chunk; their gradients;
-    # the decays; the per-head partials of dB and dC; dA's partials (fp32)
-    scratch = torch.empty(lib.ssd_backward_scratch(Bb, S, H, P, G, N, chunk), **f32)
-    err = lib.ssd_backward_launch(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(), C_.data_ptr(), dy.data_ptr(),
-        *(None if t is None else t.data_ptr() for t in (initial_state, dfinal)),
-        dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-        None if dinit is None else dinit.data_ptr(), scratch.data_ptr(), _DTYPE_CODES[x.dtype],
-        Bb, S, H, P, G, N, chunk, _strides(x), _strides(dt), _strides(B_), _strides(C_),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    # the plan reads the current card's SM count, so x's card is made current
+    with torch.cuda.device(x.device):
+        # fp32 pieces as csrc/ssd_backward_plan.cuh lays them out for the dtype
+        floats = lib.ssd_backward_scratch(_DTYPE_CODES[x.dtype], Bb, S, H, P, G, N, chunk)
+        if floats <= 0:
+            raise RuntimeError(f"ssd_backward found no scratch plan for x {tuple(x.shape)} "
+                               f"G {G} N {N} chunk {chunk} {x.dtype} on {x.device}")
+        scratch = torch.empty(floats, **f32)
+        err = lib.ssd_backward_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+            dy.data_ptr(), *(None if t is None else t.data_ptr() for t in (initial_state, dfinal)),
+            dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            None if dinit is None else dinit.data_ptr(), scratch.data_ptr(),
+            _DTYPE_CODES[x.dtype], Bb, S, H, P, G, N, chunk, _strides(x), _strides(dt),
+            _strides(B_), _strides(C_), torch.cuda.current_stream(x.device).cuda_stream,
+        )
     if err != 0:
         msg = lib.ssd_backward_error_string(err).decode()
         raise RuntimeError(f"ssd_backward kernel launch failed: CUDA error {err} ({msg})")

@@ -95,13 +95,20 @@ def ssd_backward_reference(
     dfinal: Optional[torch.Tensor] = None,         # (B, H, P, N)  the final state's gradient
 ) -> Tuple[torch.Tensor, ...]:
     """The gradient of ``ssd_reference`` by its explicit formulas, pass by pass
-    as ``csrc/ssd_backward.cu`` runs them, with no autograd: (dx, ddt, dA, dB,
-    dC, dinit). dx, dB and dC come back in x's dtype, ddt, dA and dinit in
-    float32 (dinit None without an initial state), as autograd of
+    as ``csrc/ssd_backward.cu``'s bf16 path runs them, with no autograd: (dx,
+    ddt, dA, dB, dC, dinit). dx, dB and dC come back in x's dtype, ddt, dA and
+    dinit in float32 (dinit None without an initial state), as autograd of
     ``ssd_reference`` gives them. Per chunk, with a = dt A, cum its inclusive
     cumulative sum in the chunk, cl its last entry, L_ij = exp(cum_i - cum_j)
     (i >= j), H_k the state entering chunk k and G_{k+1} the gradient of the
-    state leaving it."""
+    state leaving it.
+
+    The chunk-local gradients are regrouped so that nothing per head is summed
+    over a group afterwards: C_i . B_j is formed once a group, and the heads'
+    scores QL^h_ij = (dy^h_i . x^h_j) L^h_ij enter dB and dC only through
+    their group sum W_ij = sum_h dt^h_j QL^h_ij (dB = W^T C, dC = W B, plus
+    the state terms summed over the group's heads). Each head's share of the
+    cum gradient comes from row and column sums of W^h o CB."""
     Bb, S, H, P = x.shape
     G, N = B_.shape[2], B_.shape[3]
     if S % chunk != 0:
@@ -110,8 +117,9 @@ def ssd_backward_reference(
     x_ = x.to(f32).reshape(Bb, nc, chunk, H, P)
     dy_ = dy.to(f32).reshape(Bb, nc, chunk, H, P)
     dt_ = dt.to(f32).reshape(Bb, nc, chunk, H)
-    Bc = B_.to(f32).repeat_interleave(rep, dim=2).reshape(Bb, nc, chunk, H, N)
-    Cc = C_.to(f32).repeat_interleave(rep, dim=2).reshape(Bb, nc, chunk, H, N)
+    Bg = B_.to(f32).reshape(Bb, nc, chunk, G, N)
+    Cg = C_.to(f32).reshape(Bb, nc, chunk, G, N)
+    Bh, Ch = (t.repeat_interleave(rep, dim=3) for t in (Bg, Cg))  # each head's group
     a = (dt_ * A.to(f32)).movedim(-1, 2)                    # (B, nc, H, c)
     cum = torch.cumsum(a, dim=-1)
     to_end = torch.exp(cum[..., -1:] - cum).movedim(2, 3)   # exp(cl - cum_j): (B, nc, c, H)
@@ -119,10 +127,11 @@ def ssd_backward_reference(
     decay = torch.exp(cum[..., -1])                         # (B, nc, H)
 
     # 1) each chunk's own state S_k and D_k = sum_i exp(cum_i) dy_i C_i^T
-    own = torch.einsum("bnchp,bnchm->bnhpm", x_ * (dt_ * to_end)[..., None], Bc)
-    d_own = torch.einsum("bnchp,bnchm->bnhpm", dy_ * from_start[..., None], Cc)
+    own = torch.einsum("bnchp,bnchm->bnhpm", x_ * (dt_ * to_end)[..., None], Bh)
+    d_own = torch.einsum("bnchp,bnchm->bnhpm", dy_ * from_start[..., None], Ch)
 
-    # 2) the states entering each chunk, forward; their gradients, backward
+    # 2) the states entering each chunk, forward; their gradients, backward;
+    # <G_{k+1}, H_k> for the cum gradient's last position
     h = (initial_state.to(f32) if initial_state is not None
          else torch.zeros((Bb, H, P, N), dtype=f32, device=x.device))
     h_in = []
@@ -136,33 +145,46 @@ def ssd_backward_reference(
         g_out[k] = g                                        # G_{k+1}
         g = d_own[:, k] + decay[:, k, :, None, None] * g
     h_in, g_out = torch.stack(h_in, dim=1), torch.stack(g_out, dim=1)  # (B, nc, H, P, N)
+    gh = (g_out * h_in).sum((-2, -1))                       # (B, nc, H)
 
-    # 3) the chunk-local gradients
+    # 3) per head, over 64-row j tiles: dx, the direct term of ddt, and the cum
+    # gradient's pieces from the group's C B^T; W summed over the group's heads
     L = torch.exp(segsum(a))                                # (B, nc, H, i, j)
-    M = torch.einsum("bnihm,bnjhm->bnhij", Cc, Bc) * L      # (C_i . B_j) L_ij
+    CB = torch.einsum("bnigm,bnjgm->bngij", Cg, Bg)         # C_i . B_j, once a group
+    CBh = CB.repeat_interleave(rep, dim=2)                  # (B, nc, H, i, j)
     QL = torch.einsum("bnihp,bnjhp->bnhij", dy_, x_) * L    # (dy_i . x_j) L_ij
-    gb = torch.einsum("bnhpm,bnjhm->bnjhp", g_out, Bc)      # G B_j
+    gb = torch.einsum("bnhpm,bnjhm->bnjhp", g_out, Bh)      # G B_j
+    dx = dt_[..., None] * (torch.einsum("bnhij,bnihp->bnjhp", CBh * L, dy_)
+                           + to_end[..., None] * gb)
+    V = to_end * (x_ * gb).sum(-1)                          # exp(cl - cum_j) x_j . G B_j
+    # B_j . dB^h_j / dt_j: the column sums of QL o CB, and the state term
+    ddt_direct = torch.einsum("bnhij,bnhij->bnjh", QL, CBh) + V   # (B, nc, c, H)
+    Wh = QL * dt_.movedim(2, 3)[..., None, :]               # W^h_ij = dt_j QL_ij
+    R = torch.einsum("bnhij,bnhij->bnih", Wh, CBh)          # row sums of W^h o CB: C_i . (W^h B)_i
+
+    # 4) per group: dB = W^T C + sum_h dt_j exp(cl - cum_j) G^T x_j and
+    # dC = W B + sum_h exp(cum_i) H^T dy_i; each head's exp(cum_i) C_i . H^T dy_i
+    W = Wh.reshape(Bb, nc, G, rep, chunk, chunk).sum(3)     # (B, nc, G, i, j)
     gx = torch.einsum("bnhpm,bnjhp->bnjhm", g_out, x_)      # G^T x_j
     hy = torch.einsum("bnhpm,bnihp->bnihm", h_in, dy_)      # H_k^T dy_i
-    dx = dt_[..., None] * (torch.einsum("bnhij,bnihp->bnjhp", M, dy_) + to_end[..., None] * gb)
-    dB_pre = torch.einsum("bnhij,bnihm->bnjhm", QL, Cc) + to_end[..., None] * gx  # dB / dt
-    dBh = dt_[..., None] * dB_pre
-    dCh = (torch.einsum("bnhij,bnjhm->bnihm", QL * dt_.movedim(2, 3)[..., None, :], Bc)
-           + from_start[..., None] * hy)
-    ddt_direct = (Bc * dB_pre).sum(-1)                      # (B, nc, c, H)
-    dcum = (Cc * dCh).sum(-1) - (Bc * dBh).sum(-1)
-    last = ((dt_ * to_end * (Bc * gx).sum(-1)).sum(2)
-            + decay * (g_out * h_in).sum((-2, -1)))         # (B, nc, H)
+    Y = from_start * (Ch * hy).sum(-1)                      # (B, nc, c, H)
+    dB = (torch.einsum("bngij,bnigm->bnjgm", W, Cg)
+          + ((dt_ * to_end)[..., None] * gx).reshape(Bb, nc, chunk, G, rep, N).sum(4))
+    dC = (torch.einsum("bngij,bnjgm->bnigm", W, Bg)
+          + (from_start[..., None] * hy).reshape(Bb, nc, chunk, G, rep, N).sum(4))
+
+    # 5) per head: the cum gradient dcum_t = C_t . dC^h_t - B_t . dB^h_t (the
+    # last position also gains sum_j dt_j V_j + exp(cl) <G_{k+1}, H_k>), its
+    # suffix sums da, ddt = the direct term + A da, and dA = sum dt da
+    dcum = R - dt_ * ddt_direct + Y
+    last = (dt_ * V).sum(2) + decay * gh                    # (B, nc, H)
     dcum = torch.cat([dcum[:, :, :-1], dcum[:, :, -1:] + last[:, :, None]], dim=2)
     da = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), dim=2), (2,))  # suffix sums
     ddt = ddt_direct + A.to(f32) * da
-
-    # 4) the sums over each group's heads, and over rows and positions
     dA = (dt_ * da).sum((0, 1, 2))
-    dB = dBh.reshape(Bb, S, G, rep, N).sum(3)
-    dC = dCh.reshape(Bb, S, G, rep, N).sum(3)
     return (dx.reshape(Bb, S, H, P).to(x.dtype), ddt.reshape(Bb, S, H), dA,
-            dB.to(B_.dtype), dC.to(C_.dtype), g if initial_state is not None else None)
+            dB.reshape(Bb, S, G, N).to(B_.dtype), dC.reshape(Bb, S, G, N).to(C_.dtype),
+            g if initial_state is not None else None)
 
 
 def ssd_decode_reference(

@@ -1380,7 +1380,10 @@ SSD_BWD_REL_L2 = {"float32": 1e-4, "bfloat16": 2e-2}
 # (id, (B, S, H, P, G, N, chunk), an initial state and a final-state gradient,
 # a dt = 0 padded tail of this many positions): the reference's sweep, G = 2,
 # chunks of 1 and 2, one chunk and several, a ragged chunk, both states, a
-# padded tail, and mamba2-2.7b's and zamba2-2.7b's training calls
+# padded tail, mamba2-2.7b's and zamba2-2.7b's training calls, a prime head
+# count (no sub-group count of the bf16 chunk-local pass but 1 and H divides
+# it: a short last sub-group, and a warpgroup with no head in it) and G = 8
+# over 80 heads
 SSD_BWD_CASES = [
     ("sweep-2-chunks", (1, 64, 2, 16, 1, 16, 16), False, 0),
     ("sweep-G2", (2, 128, 4, 32, 2, 8, 32), False, 0),
@@ -1393,6 +1396,8 @@ SSD_BWD_CASES = [
     ("dt-0-tail", (1, 512, 80, 64, 1, 128, 256), True, 375),
     ("mamba2-train", (8, 1024, 80, 64, 1, 128, 256), False, 0),
     ("zamba2-train", (8, 1024, 80, 64, 1, 64, 256), False, 0),
+    ("heads-53", (4, 1024, 53, 64, 1, 128, 256), False, 0),
+    ("G8-H80", (2, 1024, 80, 64, 8, 64, 256), True, 0),
 ]
 
 
@@ -1437,6 +1442,16 @@ def test_ssd_backward_kernel_matches_its_plain_version(case, dtype, cuda_device)
     again = ssd_kernel.ssd_backward(x, dt, A, B_, C_, dy, chunk=chunk, initial_state=h0,
                                     dfinal=df)
     assert all(torch.equal(a, b) for a, b in zip(again, got) if a is not None)
+
+
+def test_ssd_backward_splits_53_heads_unevenly(cuda_device):
+    """The heads-53 case above runs the bf16 chunk-local pass with a sub-group
+    count that does not divide the heads (53 is prime: any count but 1 and
+    53); float32 keeps one."""
+    lib = ssd_kernel._lib("ssd_backward")
+    s = lib.ssd_backward_subgroups(1, 4, 1024, 53, 1, 128, 256)
+    assert 1 < s < 53, s
+    assert lib.ssd_backward_subgroups(0, 4, 1024, 53, 1, 128, 256) == 1
 
 
 def test_ssd_backward_refuses_what_it_does_not_take(cuda_device):

@@ -12,10 +12,15 @@ pair in the kernels' place: autograd of ``ssd_reference`` for every
 initial/final-state combination, ``torch.autograd.gradcheck`` in float64,
 ``None`` for inputs that need no gradient, and under
 ``torch.utils.checkpoint`` equal to autograd of ``ssd_reference`` within
-1e-5. The card's tests hold the kernel to the plain version
-(tests/test_torch_kernels_cuda.py).
+1e-5. The regrouped formulas of the plain backward (C B^T once a group, the
+heads' scores summed into W) are held in float64 against autograd of
+``ssd_reference`` with both states at G = 1, 2 and 4. The card's launcher
+plans its scratch and its sub-groups with ``csrc/ssd_backward_plan.cuh``,
+plain C++, compiled here with the host compiler. The card's tests hold the
+kernel to the plain version (tests/test_torch_kernels_cuda.py).
 """
 import functools
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -248,3 +253,155 @@ def test_ssd_wrappers_on_cpu_take_the_plain_versions():
     for g, w in zip(got, _autograd([x, dt, A, Bm, Cm, h0], dy, df, 8)):
         assert torch.equal(g, w)
     assert tkernel.LAUNCHES == before
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_ssd_backward_reference_regrouped_matches_autograd_float64(G):
+    """Three chunks of 16 over 8 heads in G groups, both states, float64: every
+    gradient of the regrouped plain backward equals autograd of
+    ``ssd_reference`` within 1e-10 relative L2."""
+    shape = (2, 48, 8, 8, G, 6, 16)
+    x, dt, A, Bm, Cm, dy, h0, df = (torch.from_numpy(a)
+                                    for a in _arrays(shape, 9, True, np.float64))
+    got = tref.ssd_backward_reference(x, dt, A, Bm, Cm, dy, chunk=16, initial_state=h0,
+                                      dfinal=df)
+    want = _autograd([x, dt, A, Bm, Cm, h0], dy, df, 16)
+    for name, g, w in zip(NAMES, got, want):
+        assert g.dtype == torch.float64, name
+        assert _rel_l2(g, w) <= 1e-10, f"{name}: {_rel_l2(g, w):.3e}"
+
+
+# --------------------------------------------------------------------- host plan
+# The card's launcher plans the bf16 chunk-local pass's sub-groups and each
+# dtype's scratch with ``csrc/ssd_backward_plan.cuh``, plain C++: compiled here
+# with the host compiler and called through ctypes, so the rules the card runs
+# are the ones held.
+PLAN_SHIM = """
+#include "ssd_backward_plan.cuh"
+using namespace repro_torch::ssd_bwd_plan;
+extern "C" {
+void plan_layout(int dtype, int B, int S, int H, int P, int G, int N, int chunk, int s,
+                 int64_t* out) {
+  const Layout l = layout(dtype, B, S, H, P, G, N, chunk, s);
+  const int64_t v[16] = {l.states, l.dstates, l.gplane, l.hplane, l.decay, l.cum, l.pdt,
+                         l.pv, l.py, l.rpart, l.wpart, l.ghpart, l.dApart, l.dB_part,
+                         l.dC_part, l.total};
+  for (int i = 0; i < 16; ++i) out[i] = v[i];
+}
+int plan_subgroups(int B, int S, int H, int G, int chunk, int slots) {
+  return subgroups(B, S, H, G, chunk, slots);
+}
+int plan_pairs(int chunk) { return pairs(chunk); }
+int plan_pair_index(int it, int jt) { return pair_index(it, jt); }
+}
+"""
+PIECES = ("states", "dstates", "gplane", "hplane", "decay", "cum", "pdt", "pv", "py", "rpart",
+          "wpart", "ghpart", "dApart", "dB_part", "dC_part")
+SLOTS = (132, 264)  # an H100's SMs at one and two resident blocks a SM
+
+
+@pytest.fixture(scope="module")
+def plan(tmp_path_factory):
+    import ctypes
+    import shutil
+    import subprocess
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the plan header")
+    csrc = Path(tkernel.__file__).parent / "csrc"
+    d = tmp_path_factory.mktemp("ssd_plan")
+    (d / "shim.cpp").write_text(PLAN_SHIM)
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{csrc}", "-o",
+                    str(d / "libplan.so"), str(d / "shim.cpp")], check=True)
+    return ctypes.CDLL(str(d / "libplan.so"))
+
+
+def _layout(plan, dtype, shape, s) -> dict:
+    import ctypes
+    out = (ctypes.c_int64 * 16)()
+    plan.plan_layout(dtype, *shape, s, out)
+    return dict(zip(PIECES + ("total",), out))
+
+
+def _pieces_needed(dtype, shape, s) -> dict:
+    """The floats each pass writes into the scratch, as csrc/ssd_backward.cu
+    indexes it."""
+    B, S, H, P, G, N, chunk = shape
+    nc, PN, nt = S // chunk, P * N, -(-chunk // 64)
+    per = B * nc * H
+    if dtype == 0:
+        return dict(states=per * PN, dstates=per * PN, decay=per, dB_part=B * S * H * N,
+                    dC_part=B * S * H * N, dApart=per)
+    return dict(states=B * (nc - 1) * H * PN, dstates=B * (nc - 1) * H * PN,
+                gplane=-(-per * PN // 2), hplane=-(-per * PN // 2), decay=per, cum=per * chunk,
+                pdt=per * chunk, pv=per * chunk, py=per * chunk, rpart=per * nt * chunk,
+                wpart=B * nc * G * s * (nt * (nt + 1) // 2) * 64 * 64,
+                ghpart=per * -(-PN // 256), dApart=per)
+
+
+def _cases():
+    from test_torch_kernels_cuda import SSD_BWD_CASES
+    return [c[1] for c in SSD_BWD_CASES]
+
+
+@pytest.mark.parametrize("slots", SLOTS)
+@pytest.mark.parametrize("dtype", [0, 1], ids=["float32", "bfloat16"])
+def test_plan_scratch_holds_every_pass(plan, dtype, slots):
+    """At every shape of the card's backward cases the scratch gives each
+    pass's piece room for all it writes, on 256-byte boundaries, with no two
+    pieces overlapping and the total at the end of the last (an empty piece,
+    the chunk states at one chunk, takes no room)."""
+    for shape in _cases():
+        B, S, H, P, G, N, chunk = shape
+        s = plan.plan_subgroups(B, S, H, G, chunk, slots) if dtype == 1 else 1
+        lay = _layout(plan, dtype, shape, s)
+        need = _pieces_needed(dtype, shape, s)
+        starts = sorted((lay[name], name) for name in need if need[name] > 0)
+        ends = [start for start, _ in starts[1:]] + [lay["total"]]
+        for (start, name), end in zip(starts, ends):
+            assert start % 64 == 0, (shape, name)
+            assert end - start >= need[name], (shape, name, end - start, need[name])
+
+
+@pytest.mark.parametrize("slots", SLOTS)
+def test_plan_subgroups_are_sane(plan, slots):
+    """1 <= sub-groups <= heads a group, no sub-group empty, and no fewer
+    sub-groups would keep the longest block within a quarter of an even share
+    of the pass's (tile pair, head) units over ``slots`` resident blocks."""
+    for B, S, H, P, G, N, chunk in _cases():
+        rep, nt = H // G, -(-chunk // 64)
+        s = plan.plan_subgroups(B, S, H, G, chunk, slots)
+        assert 1 <= s <= rep
+        hs = -(-rep // s)
+        assert (s - 1) * hs < rep                      # the last sub-group has a head
+        quarter = B * (S // chunk) * G * rep * plan.plan_pairs(chunk) // (4 * slots)
+        if 1 < s < rep:
+            assert nt * hs <= quarter
+        for fewer in range(1, s):
+            if -(-rep // -(-rep // fewer)) < s:        # a count that gives fewer sub-groups
+                assert nt * -(-rep // fewer) > quarter
+    assert plan.plan_subgroups(8, 1024, 80, 1, 256, 0) == 1
+    assert plan.plan_subgroups(8, 1024, 1, 1, 256, 132) == 1
+
+
+def test_plan_pairs_index_the_lower_tile_pairs(plan):
+    for chunk in (1, 64, 100, 192, 256):
+        nt = -(-chunk // 64)
+        idx = sorted(plan.plan_pair_index(it, jt) for it in range(nt) for jt in range(it + 1))
+        assert idx == list(range(plan.plan_pairs(chunk)))
+
+
+def test_plan_at_mamba2s_training_call(plan):
+    """mamba2-2.7b's call (8, 1024, 80, 64, G 1, N 128, chunk 256) on an H100's
+    132 SMs: 7 sub-groups of 12 heads, and the bf16 scratch under a third of
+    the first design's (two fp32 state pieces and the per-head dB / dC
+    partials, 838.9 MB)."""
+    shape = (8, 1024, 80, 64, 1, 128, 256)
+    B, S, H, P, G, N, chunk = shape
+    s = plan.plan_subgroups(B, S, H, G, chunk, 132)
+    assert s == 7
+    first = (2 * B * (S // chunk) * H * P * N + 2 * B * (S // chunk) * H
+             + 2 * B * S * H * N) * 4
+    assert abs(first / 1e6 - 838.9) < 0.1
+    new = _layout(plan, 1, shape, s)["total"] * 4
+    assert new < first / 3, (new / 1e6, first / 1e6)
