@@ -49,11 +49,13 @@ order, each printing its lines; any failure raises and the exit code is not 0:
                      kernel (``mla_decode_attention``, K and V read from the
                      two latent caches) at minicpm3-4b's served shape, f32
                      and bf16, at the slice row's lengths (a row of length
-                     0) and at lengths 1, split - 1, split, split + 1 and S,
-                     and its partials over 2 and 4 shards merged; timed in
-                     bf16 beside the path it replaced (``cat`` of the caches,
-                     then ``decode_attention``), ``decode_attention`` alone
-                     on a ready K, its plain version and SDPA's math backend.
+                     0) and at lengths 1, 16 C - 1, 16 C, 16 C + 1 and S
+                     around its shares (C blocks a row's cluster), one
+                     launch a call, and its partials over 2 and 4 shards
+                     merged; timed in bf16 beside the path it replaced
+                     (``cat`` of the caches, then ``decode_attention``),
+                     ``decode_attention`` alone on a ready K, its plain
+                     version and SDPA's math backend.
                      Flash attention's backward kernel (B10) on the forward
                      kernel's (o, lse), f32 and bf16, against
                      ``ref.mha_backward_reference`` (each gradient within
@@ -1084,26 +1086,33 @@ def _mla_decode_rows(gen, pos_np) -> dict:
     """MLA's absorbed decode kernel (``mla_decode.cu``) at MLA_DECODE_SHAPE, f32
     and bf16, against its plain version (the caches concatenated, then the
     plain decode) at the slice rows' lengths ``pos_np`` (a row of length 0)
-    and at lengths 1, split - 1, split, split + 1 and S; its partials over 2
-    and 4 sequence shards merged by log-sum-exp against the plain decode on
-    the whole caches, (-inf, 0, 0) where a shard holds none of a row. Timed
+    and at lengths 1, 16 C - 1, 16 C, 16 C + 1 and S around the share rule
+    (C blocks a row's cluster, each block ceil(L / C) keys rounded up to 16),
+    one launch counted a call; its partials over 2 and 4 sequence shards
+    merged by log-sum-exp against the plain decode on the whole caches,
+    (-inf, 0, 0) where a shard holds none of a row. Timed
     in bf16 at ``pos_np``, in one call: the kernel, the path it replaced
     (the ``cat`` of the two caches into one K, then ``decode_attention``),
     ``decode_attention`` alone on a ready K, the plain version, and SDPA's
     math backend on the ready K (the only backend that takes 288 / 256, a
     yardstick); the partials over one of two shards beside the plain ones."""
     B, S, H, _, dqk, dv = MLA_DECODE_SHAPE
-    split = attn_kernel._lib("mla_decode_attention").mla_decode_split(B, S)
+    grid = attn_kernel.mla_grid(B, S, H, dv, dqk - dv)
+    cluster = grid["cluster"]
+    edge = 16 * cluster   # the shortest row whose every block takes keys
     pos = torch.from_numpy(pos_np).to(DEVICE)
-    edges = torch.tensor([1, split - 1, split, split + 1, S, 0, 3 * split + 5, S // 2 + 1],
+    edges = torch.tensor([1, edge - 1, edge, edge + 1, S, 0, 3 * edge + 5, S // 2 + 1],
                          device=DEVICE)[:B] - 1
     kw = dict(scale=MLA_SCALE)
     errs, perrs = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         q, ckv, krope = _mla_caches(gen, B, S, H, dqk, dv, dtype)
         for p in (pos, edges):
+            before = attn_kernel.LAUNCHES["mla_decode_attention"]
             out = attn_kernel.mla_decode_attention(q, ckv, krope, p, **kw)
             torch.cuda.synchronize()
+            if attn_kernel.LAUNCHES["mla_decode_attention"] != before + 1:
+                raise AssertionError("mla_decode_attention: not one launch counted a call")
             empty = (p < 0).nonzero().flatten()
             if not torch.equal(out[empty], torch.zeros_like(out[empty])):
                 raise AssertionError(f"mla_decode_attention {dtype}: a row of length 0 is not "
@@ -1129,7 +1138,7 @@ def _mla_decode_rows(gen, pos_np) -> dict:
                 attn_ref.mla_decode_reference(q, ckv, krope, edges, **kw), TOL[dtype],
                 f"mla partials {shards} shards {dtype}"))
         say("kernels", f"{MLA_ARCH} mla_decode_attention {dtype}: max_abs_err {errs[dtype]:.3e} "
-                       f"at pos {pos_np.tolist()} and {edges.tolist()} (split {split}; tol "
+                       f"at pos {pos_np.tolist()} and {edges.tolist()} (cluster {cluster}; tol "
                        f"{TOL[dtype]:g}); its partials merged over "
                        f"{' and '.join(map(str, PARTIALS_SHARDS))} shards {perrs[dtype]:.3e}, "
                        "(-inf, 0, 0) where a shard holds none of a row")
@@ -1166,19 +1175,22 @@ def _mla_decode_rows(gen, pos_np) -> dict:
     passes = _kernel_passes(lambda: attn_kernel.mla_decode_attention(q, ckv, krope, pos, **kw),
                             calls=10, pattern=r"mla_\w+_kernel")
     b = bound(d_bytes, d_flops, torch.bfloat16)
-    live = int(np.sum(-(-lens // split)))
+    shares = sorted({attn_kernel.mla_share(int(n), cluster) for n in lens})
     say("kernels", f"{MLA_ARCH} mla_decode_attention bf16 (pos {pos_np.tolist()}): kernel "
                    f"{t['kernel']:.4f} ms; the path it replaced (cat + decode_attention) "
                    f"{t['pr20']:.4f} ms, decode_attention alone on a ready K {t['decode']:.4f} ms; "
                    f"plain {t['plain']:.4f} ms; SDPA math on a ready K {t['sdpa']:.4f} ms "
                    f"(each the mean of two readings, in turns); bound {b[0]:.5f} ms by {b[1]} "
                    f"({d_flops / 1e9:.4f} GFLOP, {d_bytes / 1e6:.3f} MB: the caches read once); "
-                   f"by pass (profiler, mean of 10): " + (", ".join(
+                   f"on the device (profiler, mean of 10): " + (", ".join(
                        f"{kn} {ms:.4f} ms" for kn, (ms, _) in passes.items()) or "not measured"))
-    say("kernels", f"{MLA_ARCH} mla_decode_attention occupancy: pass 1 one block of 128 threads "
-                   f"per (split of {split}, row) = {-(-S // split)} x {B} blocks ({live} live at "
-                   f"these lengths), mma.sync over 48 rows for {H} heads; pass 2 one per "
-                   f"(head, row) = {H * B}; on "
+    groups = grid["groups"]
+    say("kernels", f"{MLA_ARCH} mla_decode_attention: one launch a call, a cluster of "
+                   f"{cluster} blocks of 128 threads per (row, group of {grid['group_heads']} "
+                   f"heads): grid ({cluster}, {groups}, {B}) = {cluster * groups * B} blocks, "
+                   f"wgmma over a 64-row tile, merged in distributed shared memory; keys a "
+                   f"block at these lengths {shares}; the card holds {grid['clusters']} such "
+                   f"clusters at once, on "
                    f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     # the partials over one of two shards, every row full
     L = S // 2
@@ -2213,17 +2225,17 @@ class _TimedEngine(ServeEngine):
 
 
 # device launches per wrapper call of the kernels a decode step runs
-# (decode_attention and mla_decode_attention: the split pass, then the
-# combine; flash_attention,
-# the encoder-decoder's cross-attention, one); ssd runs only in prefill
-STEP_DEVICE_LAUNCHES = {"decode_attention": 2, "mla_decode_attention": 2,
+# (decode_attention: the split pass, then the combine; mla_decode_attention,
+# one cluster launch; flash_attention, the encoder-decoder's
+# cross-attention, one); ssd runs only in prefill
+STEP_DEVICE_LAUNCHES = {"decode_attention": 2, "mla_decode_attention": 1,
                         "fused_add_rmsnorm": 1, "flash_attention": 1}
 
 
 def _port_kernel(name: str):
     """The port kernel a device kernel's name (demangled, as the profiler
     gives it, or mangled, as libcuda does) belongs to, or None."""
-    if "mla_split_kernel" in name or "mla_combine_kernel" in name:
+    if "mla_decode_kernel" in name:
         return "mla_decode_attention"
     if "decode_split_kernel" in name or "decode_combine_kernel" in name:
         return "decode_attention"

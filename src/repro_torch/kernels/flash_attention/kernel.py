@@ -20,8 +20,9 @@
 - ``mla_decode_attention``: MLA's absorbed decode (``models/mla.py``), the
   same TPU kernel at that call: H query heads against one latent KV head
   whose K row is [ckv | krope] and whose V is ckv, read from the two cache
-  tensors as they lie (no concatenated copy). Two device launches a call
-  (the split pass on tensor cores, then the combine).
+  tensors as they lie (no concatenated copy). One device launch a call: a
+  thread-block cluster per (row, group of heads) that merges its blocks in
+  distributed shared memory (``mla_grid``).
 - ``mla_decode_attention_partials``: the same over one sequence shard of the
   two caches, returning the shard's max, sum and accumulator per (row, head)
   (``ops.mla_decode_attention`` on a mesh).
@@ -73,7 +74,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh kFloat32
 # decode_attention.cu kMaxDqk / kMaxDv (its shared memory, sized for MLA)
 MAX_HEAD_DIMS = {"flash_attention": (128, 128), "decode_attention": (288, 256)}
 # the widest latent (dl, a multiple of 16) and rope (dr, a multiple of 8)
-# parts mla_decode.cu takes (kMaxLatent / kMaxRope)
+# parts mla_decode.cu takes (mla_decode_plan.cuh kMaxLatent / kMaxRope)
 MLA_MAX_DIMS = (256, 64)
 # cache positions per split of the decode kernel's first pass
 # (csrc/decode_attention.cu kSplit, checked when the library loads)
@@ -101,15 +102,15 @@ _ARGTYPES = {
     "decode_attention_partials": [_P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_int64,
                                   ctypes.c_int64, _P, _I, _I, _I, _I, _I, _I, _I, _I64P,
                                   _I64P, _I64P, _F, _P],
-    # q, ckv, krope, o, pos, pos is int64, pos stride, scratch, dtype, B, S, H, dl,
-    # dr, q/ckv/krope strides, scale, stream
-    "mla_decode_attention": [_P, _P, _P, _P, _P, _I, ctypes.c_int64, _P, _I, _I, _I, _I, _I,
-                             _I, _I64P, _I64P, _I64P, _F, _P],
-    # q, ckv, krope, m, l, acc, pos, pos is int64, pos stride, pos offset, scratch,
-    # dtype, B, S, H, dl, dr, q/ckv/krope strides, scale, stream
+    # q, ckv, krope, o, pos, pos is int64, pos stride, dtype, B, S, H, dl, dr,
+    # q/ckv/krope strides, scale, stream
+    "mla_decode_attention": [_P, _P, _P, _P, _P, _I, ctypes.c_int64, _I, _I, _I, _I, _I, _I,
+                             _I64P, _I64P, _I64P, _F, _P],
+    # q, ckv, krope, m, l, acc, pos, pos is int64, pos stride, pos offset, dtype, B,
+    # S, H, dl, dr, q/ckv/krope strides, scale, stream
     "mla_decode_attention_partials": [_P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_int64,
-                                      ctypes.c_int64, _P, _I, _I, _I, _I, _I, _I, _I64P,
-                                      _I64P, _I64P, _F, _P],
+                                      ctypes.c_int64, _I, _I, _I, _I, _I, _I, _I64P, _I64P,
+                                      _I64P, _F, _P],
 }
 
 
@@ -140,8 +141,8 @@ def load(name: str, path) -> ctypes.CDLL:
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     if name == "mla_decode_attention":
-        lib.mla_decode_split.argtypes = [_I, _I]
-        lib.mla_decode_split.restype = ctypes.c_int
+        lib.mla_decode_grid.argtypes = [_I] * 6 + [ctypes.POINTER(_I)]
+        lib.mla_decode_grid.restype = ctypes.c_int
     if name == "flash_attention_backward":
         lib.flash_attention_backward_scratch.argtypes = [_I] * 7
         lib.flash_attention_backward_scratch.restype = ctypes.c_int64
@@ -477,9 +478,29 @@ def _check_mla(q: torch.Tensor, ckv: torch.Tensor, krope: torch.Tensor) -> None:
                              f"{t.stride()}")
 
 
+def mla_grid(B: int, S: int, H: int, dl: int, dr: int, dtype=torch.bfloat16) -> dict:
+    """``mla_decode.cu``'s launch at B rows, S cache positions, H heads and
+    widths dl, dr on this card (``csrc/mla_decode_plan.cuh``): one cluster of
+    ``cluster`` blocks per (row, group of ``group_heads`` heads), ``groups``
+    groups, and the ``clusters`` the card holds at once."""
+    out = (ctypes.c_int * 5)()
+    err = _lib("mla_decode_attention").mla_decode_grid(_DTYPE_CODES[dtype], B, S, H, dl, dr,
+                                                       out)
+    _raise_on(err, "mla_decode_attention")
+    return dict(zip(("cluster", "groups", "rows", "group_heads", "clusters"), out))
+
+
+def mla_share(length: int, cluster: int) -> int:
+    """The keys each block of a row of ``length`` takes when ``cluster``
+    blocks share it: ceil(length / cluster) rounded up to 16
+    (``csrc/mla_decode_plan.cuh`` ``share``)."""
+    per_block = -(-length // cluster)
+    return -(-per_block // 16) * 16
+
+
 @launcher
 def _mla_launch(q, ckv, krope, pos, pos_offset: Optional[int], scale: float):
-    """Both passes of mla_decode.cu: the output (pos_offset None) or one
+    """One launch of mla_decode.cu: the output (pos_offset None) or one
     sequence shard's fp32 partials."""
     _check_mla(q, ckv, krope)
     B, _, H, _ = q.shape
@@ -494,10 +515,8 @@ def _mla_launch(q, ckv, krope, pos, pos_offset: Optional[int], scale: float):
         return outs[0] if pos_offset is None else outs
     pos = _positions(pos, B, q.device)
     lib = _lib("mla_decode_attention")
-    n_split = -(-S // lib.mla_decode_split(B, S))
-    scratch = torch.empty(B * n_split * H * (dl + 2), **f32)
     common = (pos.data_ptr(), int(pos.dtype == torch.int64), pos.stride(0) if pos.ndim else 0)
-    tail = (scratch.data_ptr(), _DTYPE_CODES[q.dtype], B, S, H, dl, dr,
+    tail = (_DTYPE_CODES[q.dtype], B, S, H, dl, dr,
             _strides(q, (0, 2)), _strides(ckv, (0, 1)), _strides(krope, (0, 1)), float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     heads = (q.data_ptr(), ckv.data_ptr(), krope.data_ptr())

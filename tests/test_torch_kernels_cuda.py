@@ -490,12 +490,18 @@ def test_decode_partials_kernel_over_sequence_shards(case, shards, dtype, cuda_d
 # ----------------------------------------------------- MLA's absorbed decode
 MLA_SCALE = 96 ** -0.5
 MLA_CASES = {  # B, S, H, dl, dr: minicpm3-4b's served shape; its reduced config;
-    # a split of several double-buffered tiles (the grid would pass 264 blocks);
-    # two groups of heads (H > 48)
+    # shares of many tiles, more than the ring's stages; 56 heads at B 2, in
+    # groups of 8 (the card holds more clusters than B); 72 heads at B 16,
+    # two groups of 36; dl 192 (bf16's m64n192k16 P V) with dr 64 (two f32
+    # rope slabs); dl 256 with dr 64, where f32's ring is one stage, over
+    # shares of 8 tiles
     "minicpm3-4b": (8, 1024, 40, 256, 32),
     "reduced": (3, 100, 4, 16, 8),
     "multi-tile": (16, 8192, 40, 256, 32),
     "head-groups": (2, 300, 56, 128, 32),
+    "two-groups": (16, 520, 72, 256, 32),
+    "n192-rope64": (2, 300, 40, 192, 64),
+    "one-stage": (2, 4096, 40, 256, 64),
 }
 
 
@@ -503,14 +509,15 @@ def _mla_inputs(device, dtype, seed, B, S, H, dl, dr):
     return _inputs(device, dtype, seed, (B, 1, H, dl + dr), (B, S, dl), (B, S, dr))
 
 
-def _mla_split(B, S) -> int:
-    return tkernel._lib("mla_decode_attention").mla_decode_split(B, S)
+def _mla_edge(B, S, H, dl, dr) -> int:
+    """C * 16: the shortest row whose every block of the cluster takes keys."""
+    return tkernel.mla_grid(B, S, H, dl, dr)["cluster"] * 16
 
 
-def _mla_positions(B, S, split, device):
-    """A row of length 0, then lengths 1, split - 1, split, split + 1 and S,
-    the rest mixed."""
-    lens = [0, 1, split - 1, split, split + 1, S, 2 * split + 7, S // 2 + 3]
+def _mla_positions(B, S, edge, device):
+    """A row of length 0, then lengths 1, edge - 1, edge, edge + 1 (around
+    the share boundaries) and S, the rest mixed."""
+    lens = [0, 1, edge - 1, edge, edge + 1, S, 2 * edge + 7, S // 2 + 3]
     lens = [min(max(n, 0), S) for n in (lens * (B // len(lens) + 1))[:B]]
     return torch.tensor(lens, device=device) - 1
 
@@ -520,12 +527,12 @@ def _mla_positions(B, S, split, device):
 def test_mla_decode_kernel_matches_plain(case, dtype, cuda_device):
     """``mla_decode_attention`` against its plain version (the two caches
     concatenated, then the plain decode), one launch counted a call, with a
-    row of length 0 (zeros) and lengths at the split boundaries; scalar and
+    row of length 0 (zeros) and lengths at the share boundaries; scalar and
     int32 positions."""
     B, S, H, dl, dr = MLA_CASES[case]
     tdt, tol = DTYPES[dtype]
     q, ckv, krope = _mla_inputs(cuda_device, tdt, 51, B, S, H, dl, dr)
-    pos = _mla_positions(B, S, _mla_split(B, S), cuda_device)
+    pos = _mla_positions(B, S, _mla_edge(B, S, H, dl, dr), cuda_device)
     before = dict(tkernel.LAUNCHES)
     out = tkernel.mla_decode_attention(q, ckv, krope, pos, scale=MLA_SCALE)
     torch.cuda.synchronize()
@@ -557,6 +564,57 @@ def test_mla_decode_kernel_reads_strided_caches(dtype, cuda_device):
         torch.testing.assert_close(
             out.float(), tref.mla_decode_reference(q, c, r, pos, scale=MLA_SCALE).float(),
             rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", ["minicpm3-4b", "reduced", "two-groups", "n192-rope64",
+                                  "one-stage"])
+def test_mla_decode_kernel_ignores_stale_cache_positions(case, dtype, cuda_device):
+    """Every cache position at or past each row's length holds NaN or Inf
+    (a stale row; the key tiles are loaded whole): the output equals the
+    kernel's on clean caches bit for bit and the plain version's on clean
+    caches within the tolerance, whole and as partials."""
+    B, S, H, dl, dr = MLA_CASES[case]
+    tdt, tol = DTYPES[dtype]
+    q, ckv, krope = _mla_inputs(cuda_device, tdt, 56, B, S, H, dl, dr)
+    pos = _mla_positions(B, S, _mla_edge(B, S, H, dl, dr), cuda_device)
+    stale = torch.arange(S, device=cuda_device)[None, :] > pos[:, None]       # (B, S)
+    bad = torch.where(torch.arange(S, device=cuda_device) % 2 == 0, float("nan"), float("inf"))
+    dirty = [torch.where(stale[..., None], bad[None, :, None].to(tdt), c) for c in (ckv, krope)]
+    clean = tkernel.mla_decode_attention(q, ckv, krope, pos, scale=MLA_SCALE)
+    out = tkernel.mla_decode_attention(q, *dirty, pos, scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, clean)
+    torch.testing.assert_close(
+        out.float(), tref.mla_decode_reference(q, ckv, krope, pos, scale=MLA_SCALE).float(),
+        rtol=tol, atol=tol)
+    parts = tkernel.mla_decode_attention_partials(q, *dirty, pos, scale=MLA_SCALE)
+    live = pos >= 0
+    for t in parts:
+        assert torch.isfinite(t[live]).all()
+    torch.testing.assert_close(tref.combine_partials([parts], tdt).float(), out.float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", ["minicpm3-4b", "multi-tile", "two-groups", "n192-rope64",
+                                  "one-stage"])
+def test_mla_decode_kernel_gives_the_same_bits_twice(case, dtype, cuda_device):
+    """Two calls on the same inputs give the same bits: the merge sums the
+    cluster's blocks in rank order, with no atomics."""
+    B, S, H, dl, dr = MLA_CASES[case]
+    tdt, _ = DTYPES[dtype]
+    q, ckv, krope = _mla_inputs(cuda_device, tdt, 57, B, S, H, dl, dr)
+    pos = _mla_positions(B, S, _mla_edge(B, S, H, dl, dr), cuda_device)
+    first = tkernel.mla_decode_attention(q, ckv, krope, pos, scale=MLA_SCALE)
+    second = tkernel.mla_decode_attention(q, ckv, krope, pos, scale=MLA_SCALE)
+    parts = [tkernel.mla_decode_attention_partials(q, ckv, krope, pos, pos_offset=0,
+                                                   scale=MLA_SCALE) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    for a, b in zip(*parts):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -621,9 +679,9 @@ def test_mla_decode_kernel_refuses_what_it_does_not_take(cuda_device):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mla_decode_step_replays_from_a_cuda_graph(dtype, cuda_device):
     """One decode step of the reduced minicpm3-4b captured as a CUDA graph
-    (the step captures the kernel once a layer), replayed at two sets of
-    lengths that cross the kernel's splits: logits and caches equal the eager
-    step's bit for bit."""
+    (the step captures the kernel's cluster launch once a layer), replayed at
+    two sets of lengths around the share boundaries: logits and caches equal
+    the eager step's bit for bit."""
     cfg = get_reduced("minicpm3-4b").with_(dtype=dtype)
     model = Model(cfg, device=cuda_device).init(torch.Generator(cuda_device).manual_seed(0))
     B, S = 4, 256
@@ -654,9 +712,9 @@ def test_mla_decode_step_replays_from_a_cuda_graph(dtype, cuda_device):
     with torch.no_grad(), torch.cuda.graph(graph):
         static_logits = step()
     assert tkernel.LAUNCHES["mla_decode_attention"] == before + cfg.n_layers
-    split = _mla_split(B, S)
+    edge = _mla_edge(B, S, cfg.n_heads, cache["ckv"].shape[-1], cache["krope"].shape[-1])
     rng = np.random.default_rng(7)
-    for lengths in ([1, split, split + 1, S], [S - 3, 2, 2 * split - 1, split - 1]):
+    for lengths in ([1, edge, edge + 1, S], [S - 3, 2, 2 * edge - 1, edge - 1]):
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, 1))).to(cuda_device)
         restore()
         tokens.copy_(toks)
